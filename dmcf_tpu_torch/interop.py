@@ -1,0 +1,35 @@
+"""Weight bridge from the JAX package's flax param tree to the port.
+
+The port's modules carry the flax module paths as their PyTorch names
+(``conv100_0.kernel``, ``dense100_0.Dense_0.kernel``, ``sym_conv0.kernel``
+— the half kernel, ...), so the bridge is a path flattening.  The tree
+arrives as nested dicts of numpy arrays, so the port never imports flax.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+
+def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
+    """Flax param tree (``{"params": {...}}`` or the inner dict; nested
+    dicts of arrays) -> a state dict for ``module.load_state_dict``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = OrderedDict()
+
+    def walk(node, prefix):
+        for name in sorted(node):
+            value = node[name]
+            path = f"{prefix}.{name}" if prefix else name
+            if isinstance(value, dict):
+                walk(value, path)
+            else:
+                out[path] = torch.from_numpy(
+                    np.array(value, dtype=np.float32, copy=True))
+
+    walk(tree, "")
+    return out

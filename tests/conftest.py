@@ -22,3 +22,9 @@ assert jax.devices()[0].platform == "cpu"
 # per machine instead of once per pytest run
 jax.config.update("jax_compilation_cache_dir", "/tmp/dmcf_jax_test_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's hand-written "
+        "kernels); skipped where torch.cuda.is_available() is false")

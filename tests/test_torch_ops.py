@@ -1,0 +1,327 @@
+"""Leaf ops of the PyTorch port (dmcf_tpu_torch.ops) against the JAX
+reference on identical numpy inputs, on the CPU (fp32).
+
+Tolerances: elementwise math 1e-6 absolute (same formulas, different
+libm); the K-list conv 2e-5 (the tolerance tests/test_pallas_kernel.py
+holds the Pallas kernel to, covering contraction order); integer outputs
+(indices, masks, counts) exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dmcf_tpu.experimental.pallas_cconv import pallas_continuous_conv
+from dmcf_tpu.models.pbf import drop_coincident as jax_drop_coincident
+from dmcf_tpu.ops import cconv as jcc
+from dmcf_tpu.ops import coords as jcoords
+from dmcf_tpu.ops import neighbors as jnb
+from dmcf_tpu.ops import sph as jsph
+from dmcf_tpu.ops import windows as jwin
+from dmcf_tpu_torch.models.pbf import drop_coincident
+from dmcf_tpu_torch.ops import cconv, coords, neighbors, sph, windows
+
+T = torch.from_numpy
+
+
+def to_torch_nl(nl):
+    """A JAX NeighborList as the port's NeighborList (same lists)."""
+    return neighbors.NeighborList(
+        idx=T(np.array(nl.idx)), mask=T(np.array(nl.mask)),
+        dist=T(np.array(nl.dist)), count=T(np.array(nl.count)),
+        disp=T(np.array(nl.disp)))
+
+
+def random_cloud(rng, n, dim=3, lo=-0.3, hi=0.3):
+    pts = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    pts[:, dim:] = 0.0
+    return pts
+
+
+@pytest.mark.parametrize("name", ["poly6", "cubic", "linear", "peak",
+                                  "cubic_grad"])
+def test_windows_match_jax(name):
+    q = np.concatenate([np.linspace(0.0, 1.3, 261),
+                        [0.0, 0.25, 1.0]]).astype(np.float32)
+    got = windows.get_window_func(name)(T(q)).numpy()
+    ref = np.asarray(jwin.get_window_func(name)(jnp.asarray(q)))
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("mapping", ["ball_to_cube_radial",
+                                     "ball_to_cube_volume_preserving",
+                                     "identity"])
+def test_filter_coordinates_and_hats_match_jax(mapping):
+    rng = np.random.RandomState(0)
+    rel = rng.uniform(-1, 1, (500, 3)).astype(np.float32)
+    rel /= np.maximum(np.linalg.norm(rel, axis=1, keepdims=True), 1.0)
+    rel[:100, 2] = 0.0          # 2D offsets
+    rel[100:110] = 0.0          # coincident pairs
+    rel[110:120, 1:] = 0.0      # on an axis
+    for fsz in [(1, 8, 8), (4, 4, 4), (6, 6, 6)]:
+        got = coords.compute_centered_filter_coordinates(T(rel), fsz,
+                                                         mapping, True)
+        ref = jcoords.compute_centered_filter_coordinates(
+            jnp.asarray(rel), fsz, mapping, True)
+        for g, r, size in zip(got, ref, fsz):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6)
+            for interp in ("linear", "linear_border", "nearest_neighbor"):
+                w_got = coords.axis_interp_weights(g, size, interp).numpy()
+                w_ref = np.asarray(jcoords.axis_interp_weights(
+                    jnp.asarray(g.numpy()), size, interp))
+                np.testing.assert_array_equal(w_got, w_ref, err_msg=interp)
+
+
+def test_hat_weights_are_mirror_exact():
+    """relu(1 - |clamp(t) - p_i|) on centred coordinates: w(-t) is w(t)
+    reversed, bitwise (the ASCC momentum guarantee rests on it)."""
+    t = torch.linspace(-4.5, 4.5, 1001)
+    for size in (1, 2, 4, 6, 8):
+        w = coords.axis_interp_weights(t, size, "linear")
+        w_m = coords.axis_interp_weights(-t, size, "linear")
+        assert torch.equal(w_m, torch.flip(w, dims=(-1,)))
+    assert torch.equal(coords.axis_interp_weights(t, 1, "linear"),
+                       torch.ones(1001, 1))
+
+
+@pytest.mark.parametrize("ignore_query_point", [False, True])
+def test_fixed_radius_search_matches_jax(ignore_query_point):
+    rng = np.random.RandomState(1)
+    pts = random_cloud(rng, 300, dim=2)
+    qs = np.concatenate([random_cloud(rng, 150, dim=2), pts[:50]])
+    pm = rng.rand(300) > 0.1
+    qm = rng.rand(200) > 0.1
+    k = 12  # small enough that dense queries overflow
+    ref = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(qs), 0.09,
+                                  k, points_mask=jnp.asarray(pm),
+                                  queries_mask=jnp.asarray(qm),
+                                  ignore_query_point=ignore_query_point)
+    got = neighbors.search(T(pts), T(qs), 0.09, k, points_mask=T(pm),
+                           queries_mask=T(qm),
+                           ignore_query_point=ignore_query_point)
+    assert got.idx.dtype == torch.int32
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(ref.mask))
+    np.testing.assert_array_equal(got.count.numpy(), np.asarray(ref.count))
+    np.testing.assert_allclose(got.dist.numpy(), np.asarray(ref.dist),
+                               atol=1e-6)
+    np.testing.assert_allclose(got.disp.numpy(), np.asarray(ref.disp),
+                               atol=1e-6)
+    assert (got.count.numpy() > k).any()
+
+
+@pytest.mark.parametrize("k", [8, 200])
+def test_select_k_valid_first_k_by_index(k):
+    rng = np.random.RandomState(2)
+    valid = rng.rand(64, 150) < 0.3
+    dist = rng.rand(64, 150).astype(np.float32)
+    got = neighbors.select_k_valid(T(valid), T(dist), k)
+    ref = jnb.select_k_valid(jnp.asarray(valid), jnp.asarray(dist), k)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_search_raises_on_unported_methods():
+    pts = torch.zeros((10, 3))
+    with pytest.raises(NotImplementedError):
+        neighbors.search(pts, pts, 0.1, 4, method="cell")
+    big = torch.zeros((6000, 3))
+    with pytest.raises(NotImplementedError):
+        neighbors.search(big, big, 0.1, 4)  # N*Q > 3e7 -> cell search
+
+
+def _dilated_pos_both(caps):
+    """The voxel pyramid of one scene from JAX and from the port: a
+    rest-spacing block with jitter (no point on a voxel edge) plus padded
+    rows at the sentinels."""
+    rng = np.random.RandomState(3)
+    g = np.stack(np.meshgrid(np.arange(20), np.arange(14), indexing="ij"),
+                 -1).reshape(-1, 2) * 0.01
+    pos = np.zeros((320, 3), np.float32)
+    pos[:280, :2] = g + rng.normal(scale=1e-3, size=g.shape)
+    mask = np.arange(320) < 280
+    pos = np.array(jsph.masked_positions(jnp.asarray(pos),
+                                         jnp.asarray(mask)))
+    vox = np.asarray([0.01, 0.01, 0.0], np.float32)
+    ref = jsph.get_dilated_pos(jnp.asarray(pos), jnp.asarray(mask),
+                               [1, 2, 4], caps, voxel_size=vox,
+                               centralize=True)
+    got = sph.get_dilated_pos(T(pos), T(mask), [1, 2, 4], caps,
+                              voxel_size=vox, centralize=True)
+    for s in range(3):
+        np.testing.assert_array_equal(got[1][s].numpy(),
+                                      np.asarray(ref[1][s]))
+        assert int(got[2][s]) == int(ref[2][s])
+        # equal up to the centroid's fp32 summation order
+        np.testing.assert_allclose(got[0][s].numpy(), np.asarray(ref[0][s]),
+                                   rtol=1e-7, atol=1e-7)
+    return got
+
+
+def test_get_dilated_pos_matches_jax():
+    got = _dilated_pos_both([320, 160, 80])
+    assert int(got[2][1]) > 0 and int(got[2][2]) > 0
+
+
+def test_get_dilated_pos_saturated_matches_jax():
+    """Capacities below the occupied-voxel counts: which voxels survive the
+    cut follows the dedup's row order, and the port keeps JAX's (the
+    counts still report every occupied voxel)."""
+    caps = [320, 40, 16]
+    got = _dilated_pos_both(caps)
+    for s in (1, 2):
+        assert int(got[2][s]) > caps[s]
+        assert bool(got[1][s].all())
+
+
+def _conv_inputs(seed, q=256, k=16, cin=8, ignore_query_point=False):
+    rng = np.random.RandomState(seed)
+    pts = random_cloud(rng, q)
+    feats = rng.randn(q, cin).astype(np.float32)
+    ext = 0.15
+    nl = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(pts),
+                                 ext / 2, k,
+                                 ignore_query_point=ignore_query_point)
+    if ignore_query_point:
+        nl = jax_drop_coincident(nl, jnp.asarray(pts), jnp.asarray(pts))
+    return rng, pts, feats, ext, nl
+
+
+@pytest.mark.parametrize("mapping", ["ball_to_cube_volume_preserving",
+                                     "ball_to_cube_radial"])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_continuous_conv_matches_jax(symmetric, mapping):
+    rng, pts, feats, ext, nl = _conv_inputs(
+        4, ignore_query_point=symmetric)
+    win = "peak" if symmetric else "poly6"
+    if symmetric:
+        kh = (rng.randn(2, 2, 4, 8, 3) * 0.1).astype(np.float32)
+        kern_j = jcc.build_symmetric_kernel(jnp.asarray(kh), 2)
+        kern_t = cconv.build_symmetric_kernel(T(kh), 2)
+        np.testing.assert_array_equal(kern_t.numpy(), np.asarray(kern_j))
+    else:
+        kern_t = T((rng.randn(1, 8, 8, 8, 4) * 0.1).astype(np.float32))
+        kern_j = jnp.asarray(kern_t.numpy())
+    ref = jcc.continuous_conv(
+        kern_j, jnp.asarray(pts), jnp.asarray(pts), jnp.asarray(feats), nl,
+        ext, window_fn=jwin.get_window_func(win),
+        coordinate_mapping=mapping, symmetric=symmetric,
+        query_features=jnp.asarray(feats) if symmetric else None)
+    kw = dict(window_fn=windows.get_window_func(win),
+              coordinate_mapping=mapping, symmetric=symmetric,
+              query_features=T(feats) if symmetric else None)
+    args = (kern_t, T(pts), T(pts), T(feats), to_torch_nl(nl), ext)
+    got = cconv.continuous_conv_reference(*args, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+    # on CPU tensors the dispatching entry point is the plain twin
+    assert torch.equal(cconv.continuous_conv(*args, **kw), got)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_klist_contract_matches_pallas_interpret(symmetric):
+    """The kernel contract (idx, a, t, feats, W) against the TPU kernel
+    itself, run in interpret mode on pre-gathered inputs (Q 128, K 8)."""
+    rng, pts, feats, ext, nl = _conv_inputs(
+        5, q=128, k=8, ignore_query_point=symmetric)
+    radius = ext / 2
+    win = "peak" if symmetric else "poly6"
+    if symmetric:
+        kern = np.asarray(jcc.build_symmetric_kernel(jnp.asarray(
+            (rng.randn(1, 4, 4, 8, 2) * 0.1).astype(np.float32)), 1))
+    else:
+        kern = (rng.randn(1, 8, 8, 8, 4) * 0.1).astype(np.float32)
+    idx = np.asarray(nl.idx)
+    mask = np.asarray(nl.mask)
+    rel = np.where(mask[..., None], (pts[idx] - pts[:, None, :]) / radius,
+                   0.0).astype(np.float32)
+    a = (mask * np.asarray(jwin.get_window_func(win)(
+        jnp.asarray(np.asarray(nl.dist) / radius**2)))).astype(np.float32)
+    fg = np.where(mask[..., None], feats[idx], 0.0).astype(np.float32)
+    ref = pallas_continuous_conv(
+        jnp.asarray(kern), jnp.asarray(rel), jnp.asarray(a),
+        jnp.asarray(fg), query_feats=jnp.asarray(feats) if symmetric
+        else None, symmetric=symmetric, interpret=True)
+    got = cconv.continuous_conv_reference(
+        T(kern), T(pts), T(pts), T(feats), to_torch_nl(nl), ext,
+        window_fn=windows.get_window_func(win), symmetric=symmetric,
+        query_features=T(feats) if symmetric else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+
+def test_klist_conv_clamps_out_of_range_gather_like_jax():
+    """Pins the reference's obs_conv gather offset (ROADMAP §3): neighbor
+    indices that point past the feature rows read the last row, as JAX's
+    clamped gather does — the port reproduces it on purpose."""
+    rng, pts, feats, ext, nl = _conv_inputs(6, q=128, k=8)
+    small = feats[:40]  # indices >= 40 are out of range for these rows
+    kern = (rng.randn(1, 8, 8, 8, 4) * 0.1).astype(np.float32)
+    win = "poly6"
+    ref = jcc.continuous_conv(jnp.asarray(kern), jnp.asarray(pts),
+                              jnp.asarray(pts), jnp.asarray(small), nl, ext,
+                              window_fn=jwin.get_window_func(win))
+    tnl = to_torch_nl(nl)
+    assert int(tnl.idx.max()) >= 40
+    got = cconv.continuous_conv(T(kern), T(pts), T(pts), T(small), tnl, ext,
+                                window_fn=windows.get_window_func(win))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+    clamped = cconv.continuous_conv(
+        T(kern), T(pts), T(pts), T(small[np.minimum(np.arange(128), 39)]),
+        tnl, ext, window_fn=windows.get_window_func(win))
+    np.testing.assert_allclose(got.numpy(), clamped.numpy(), atol=1e-6)
+
+
+def test_klist_wrapper_clamps_out_of_range_idx():
+    """The contraction's own contract: an index past the feature rows reads
+    the last row, in the wrapper as in its plain twin."""
+    from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
+                                                    cconv_klist_reference)
+    rng = np.random.RandomState(9)
+    idx = T(rng.randint(0, 64, (32, 8)).astype(np.int32))
+    a = T(rng.rand(32, 8).astype(np.float32))
+    t = T(rng.uniform(-2, 2, (32, 8, 3)).astype(np.float32))
+    feats = T(rng.randn(40, 4).astype(np.float32))
+    w = T(rng.randn(2 * 4 * 4 * 4, 3).astype(np.float32))
+    assert int(idx.max()) >= 40
+    before = cconv_klist.launches
+    got = cconv_klist(idx, a, t, feats, w, (2, 4, 4))
+    clamped = cconv_klist_reference(idx.clamp(max=39), a, t, feats, w,
+                                    (2, 4, 4))
+    assert torch.equal(got, clamped)
+    assert cconv_klist.launches == before  # CPU tensors take the twin
+
+
+@pytest.mark.parametrize("n_chunk", [0, 100])
+def test_continuous_conv_dense_matches_jax(n_chunk):
+    rng = np.random.RandomState(7)
+    src = random_cloud(rng, 300, dim=2)
+    dst = random_cloud(rng, 120, dim=2)
+    radius = 0.12
+    rel = (src[None] - dst[:, None]) / radius
+    d2 = (rel * rel).sum(-1)
+    valid = d2 <= 1.0
+    rel = np.where(valid[..., None], rel, 1.0).astype(np.float32)
+    a = np.where(valid, np.asarray(jwin.poly6(jnp.asarray(d2))),
+                 0.0).astype(np.float32)
+    feats = rng.randn(300, 8).astype(np.float32)
+    kern = (rng.randn(1, 8, 8, 8, 4) * 0.1).astype(np.float32)
+    ref = jcc.continuous_conv_dense(jnp.asarray(kern), jnp.asarray(rel),
+                                    jnp.asarray(a), jnp.asarray(feats),
+                                    precision="highest")
+    got = cconv.continuous_conv_dense(T(kern), T(rel), T(a), T(feats),
+                                      n_chunk=n_chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+
+def test_symmetric_conv_conserves_momentum():
+    rng = np.random.RandomState(8)
+    pts = T(random_cloud(rng, 256))
+    feats = T(np.abs(rng.randn(256, 8)).astype(np.float32))
+    nl = drop_coincident(neighbors.search(pts, pts, 0.075, 24))
+    kern = cconv.build_symmetric_kernel(
+        T((rng.randn(2, 2, 2, 8, 3) * 0.1).astype(np.float32)), 2)
+    out = cconv.continuous_conv(kern, pts, pts, feats, nl, 0.15,
+                                window_fn=windows.get_window_func("peak"),
+                                symmetric=True, query_features=feats)
+    ratio = out.sum(0).abs() / out.abs().sum()
+    assert bool((ratio < 1e-5).all()), ratio

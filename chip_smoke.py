@@ -10,11 +10,16 @@ full width, random weights from a seeded ``torch.Generator``) on the bench
 scene for one step and a 600-step rollout, checks the bench's exactness
 gate and the kernels' launch counts, holds the kernel against its twin
 again at every launch of the first step (and times each: the conv
-inventory), checks a small-scene agreement with the plain path on the
-CPU, profiles where a step's time goes, and prints one ``kernels`` JSON
-line, the card's name and power limit, and a last ``{"ok": true, ...}``
-line.  Every phase that fails ends the script with a non-zero exit;
-without a CUDA device it exits non-zero before doing anything.
+inventory), checks a small-scene
+agreement with the plain path on the CPU, profiles where a step's time
+goes, and prints one ``kernels`` JSON line, the card's name and power
+limit, and a last ``{"ok": true, ...}`` line.  A kernel's ``ms`` is the
+mean of calls issued back to back (CUDA events around the loop), its
+``device_ms`` the device time of one call by CUDA-graph replay; where the
+kernel is shorter than the wrapper's host cost the first reads the host.
+Every phase that fails
+ends the script with a non-zero exit; without a CUDA device it exits
+non-zero before doing anything.
 """
 
 import copy
@@ -30,6 +35,7 @@ import torch
 HORIZON = 600
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peak
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 without tensor cores
+TF32_FLOP_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 TOL = 2e-5                   # kernel vs plain twin, absolute (fp32 sums)
 
 
@@ -44,7 +50,9 @@ def check(cond, what):
 
 
 def cuda_ms(fn, iters=50, warmup=5):
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean time of ``fn`` over ``iters`` calls issued back to back from
+    Python (CUDA events): the host's call rate where the kernel is shorter
+    than the call."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -60,13 +68,15 @@ def cuda_ms(fn, iters=50, warmup=5):
 def bound(idx, a, t, feats, w, ksize, qfeats):
     """Least time the card could take for one K-list conv: its inputs read
     once and its output written once over the HBM rate, or the operations
-    this call's data needs over the fp32 rate without tensor cores,
-    whichever is larger.  The operations count only what is non-zero in
-    this call: each non-zero tap times Cin accumulates, and the filter
-    product over the rows of T that some tap touched (a query with ~10
-    neighbours touches ~40 of its 64 taps; a padded query none).  The
-    symmetric self term adds the taps' sum times f_q on those rows.
-    Returns (ms, "bytes" or "operations", bytes, operations)."""
+    this call's data needs over the rate of the unit the kernel does them
+    on, whichever is larger.  The operations count only what is non-zero in
+    this call: each non-zero tap times Cin accumulates (fp32, 67 TFLOP/s),
+    and the filter product over the rows of T that some tap touched (a
+    query with ~10 neighbours touches ~40 of its 64 taps; a padded query
+    none): on the tensor cores with the 3xTF32 split (three TF32 products
+    each, 495 / 3 = 165 TFLOP/s) for a non-symmetric conv, in fp32 for the
+    symmetric one, whose self term adds the taps' sum times f_q on those
+    rows.  Returns (ms, "bytes" or "operations", bytes, operations)."""
     from dmcf_tpu_torch.kernels.cconv_klist import _tap_tensor
     cin, cout = feats.shape[1], w.shape[1]
     nz = _tap_tensor(t, a, ksize) != 0          # [Q, K, S]
@@ -75,11 +85,16 @@ def bound(idx, a, t, feats, w, ksize, qfeats):
     ins = [x for x in (idx, a, t, feats, w, qfeats) if x is not None]
     nbytes = sum(x.numel() * x.element_size() for x in ins) \
         + idx.shape[0] * cout * 4
-    ops = 2 * nnz * cin + 2 * rows * cin * cout
+    accumulate = 2 * nnz * cin
+    product = 2 * rows * cin * cout
     if qfeats is not None:
-        ops += nnz + 2 * rows * cin
+        accumulate += nnz + 2 * rows * cin
+        ops_ms = (accumulate + product) / FP32_FLOP_PER_S * 1e3
+    else:
+        ops_ms = (accumulate / FP32_FLOP_PER_S
+                  + product / (TF32_FLOP_PER_S / 3)) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    ops = accumulate + product
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes", nbytes, ops
     return ops_ms, "operations", nbytes, ops
@@ -97,11 +112,11 @@ def main(argv):
     from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
                                                     cconv_klist_reference)
     from dmcf_tpu_torch.models import build_model
-    from dmcf_tpu_torch.models.layers import ContinuousConv
     from dmcf_tpu_torch.models.pbf import drop_coincident
     from dmcf_tpu_torch.ops import cconv, neighbors, windows
     from dmcf_tpu_torch.ops.sph import masked_positions
-    from dmcf_tpu_torch.profile_step import print_report, profile
+    from dmcf_tpu_torch.profile_step import (graph_ms, print_report, profile,
+                                             record_launches)
     from dmcf_tpu_torch.rollout import rollout
     from dmcf_tpu_torch.scene import bench_sample, build_scene
     import yaml
@@ -129,8 +144,15 @@ def main(argv):
         print(f"{name}: {'compiled' if log else 'already built'} in "
               f"{time.time() - t0:.1f} s")
         for line in log.splitlines():
+            if "entry function" in line:  # the variant: <false> trunk,
+                print(f"  {line.split(chr(39))[1]}")  # <true> symmetric
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}")
+    lib = build.load_library("cconv_klist")
+    for cin, cout, sym in ((32, 32, 0), (4, 8, 0), (32, 2, 1)):
+        print(f"  dynamic shared memory, S 64 Cin {cin} Cout {cout} sym "
+              f"{sym}: {lib.cconv_klist_smem_bytes(cin, cout, 1, 8, 8, sym)}"
+              f" B a block")
 
     phase("3 kernel vs plain twin")
     with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
@@ -176,7 +198,9 @@ def main(argv):
     max_err = 0.0
     for name, (i_, a_, t_, f_, w_, ks_, qf_) in shapes.items():
         got = cconv_klist(i_, a_, t_, f_, w_, ks_, qfeats=qf_)
+        again = cconv_klist(i_, a_, t_, f_, w_, ks_, qfeats=qf_)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name}: two launches bitwise equal")
         ref = cconv_klist_reference(i_, a_, t_, f_, w_, ks_, qfeats=qf_)
         err = float((got - ref).abs().max())
         ratio = float((got.sum(0).abs() / got.abs().sum()).max())
@@ -190,39 +214,25 @@ def main(argv):
         max_err = max(max_err, err)
     i_, a_, t_, f_, w_, _, _ = shapes["trunk"]
     kernel_ms = cuda_ms(lambda: cconv_klist(i_, a_, t_, f_, w_, ksize))
+    device_ms = graph_ms(lambda: cconv_klist(i_, a_, t_, f_, w_, ksize))
     plain_ms = cuda_ms(lambda: cconv_klist_reference(i_, a_, t_, f_, w_,
                                                      ksize))
     bound_ms, bound_by, nbytes, ops = bound(i_, a_, t_, f_, w_, ksize, None)
-    print(f"trunk shape: kernel {kernel_ms:.4f} ms, plain twin "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{nbytes} B, {ops} FLOP)")
+    print(f"trunk shape: kernel {kernel_ms:.4f} ms (device time "
+          f"{device_ms:.4f}), plain twin {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} FLOP), share "
+          f"of bound {bound_ms / kernel_ms:.3f} (of device time "
+          f"{bound_ms / device_ms:.3f})")
 
     phase("4 one WaterRamps SymNet step")
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(0))
-    # keep each kernel launch of this step (its conv's module name, inputs
-    # and output) for phase 6: a pre-hook names the conv, and the ops
-    # module's handle on the wrapper is swapped for a recording one
-    launch_log, current = [], {}
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args, name=name: current.update(conv=name))
-        for name, m in model.named_modules()
-        if isinstance(m, ContinuousConv)]
-
-    def recording(*args, **kw):
-        out = cconv_klist(*args, **kw)
-        launch_log.append((current["conv"], args, kw, out))
-        return out
-
-    cconv.cconv_klist = recording
     cconv_klist.launches = 0   # main path starts here
     t0 = time.time()
-    with torch.no_grad():
-        p1, v1, aux = model(sample)
+    # keeps each kernel launch of this step (its conv's module name, inputs
+    # and output) for phase 6
+    (p1, v1, aux), launch_log = record_launches(model, sample)
     torch.cuda.synchronize()
-    cconv.cconv_klist = cconv_klist
-    for h in hooks:
-        h.remove()
     fm = sample["fluid_mask"]
     check(p1.shape == sample["pos"].shape, "step output shape")
     check(bool(torch.isfinite(p1[fm]).all() and torch.isfinite(v1[fm]).all()),
@@ -253,7 +263,7 @@ def main(argv):
     check(launches == expected, f"{launches} launches == {expected}")
 
     phase("6 kernel vs plain twin at each launch of the first step")
-    step_ms = step_plain_ms = step_bound_ms = 0.0
+    step_ms = step_device_ms = step_plain_ms = step_bound_ms = 0.0
     with torch.no_grad():
         for name, args, kw, out in launch_log:
             ref = cconv_klist_reference(*args, **kw)
@@ -262,21 +272,26 @@ def main(argv):
             check(err <= TOL, f"{name}: kernel vs twin {err} <= {TOL}")
             max_err = max(max_err, err)
             ms = cuda_ms(lambda: cconv_klist(*args, **kw), iters=20)
+            d_ms = graph_ms(lambda: cconv_klist(*args, **kw))
             p_ms = cuda_ms(lambda: cconv_klist_reference(*args, **kw),
                            iters=20)
             b_ms, b_by, _, _ = bound(*args, kw["qfeats"])
             step_ms += ms
+            step_device_ms += d_ms
             step_plain_ms += p_ms
             step_bound_ms += b_ms
             idx_, _, _, f_, w_, ks_ = args
             print(f"{name:11s} Q {idx_.shape[0]:4d} K {idx_.shape[1]} "
                   f"N {f_.shape[0]:4d} Cin {f_.shape[1]:2d} "
                   f"Cout {w_.shape[1]:2d} S {int(np.prod(ks_))} "
-                  f"sym {kw['qfeats'] is not None:d}: kernel {ms:.4f} ms, "
-                  f"plain twin {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-                  f"({b_by}), max_abs_err {err:.3e}")
-    print(f"per step ({len(launch_log)} launches): kernel {step_ms:.4f} ms, "
-          f"plain twin {step_plain_ms:.4f} ms, bound {step_bound_ms:.5f} ms")
+                  f"sym {kw['qfeats'] is not None:d}: kernel {ms:.4f} ms "
+                  f"(device time {d_ms:.4f}), plain twin {p_ms:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}), max_abs_err {err:.3e}")
+    print(f"per step ({len(launch_log)} launches): kernel {step_ms:.4f} ms "
+          f"(device time {step_device_ms:.4f}), plain twin "
+          f"{step_plain_ms:.4f} ms, bound {step_bound_ms:.5f} ms, share of "
+          f"bound {step_bound_ms / step_ms:.3f} (of device time "
+          f"{step_bound_ms / step_device_ms:.3f})")
 
     phase("7 small scene: card vs plain path on the CPU")
     small = build_scene(256)
@@ -315,7 +330,9 @@ def main(argv):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "device_ms": device_ms,
         "step_ms": step_ms,
+        "step_device_ms": step_device_ms,
         "step_plain_ms": step_plain_ms,
         "step_bound_ms": step_bound_ms,
     }]

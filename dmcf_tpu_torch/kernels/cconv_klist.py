@@ -4,9 +4,11 @@
 Port of the TPU kernel ``dmcf_tpu/experimental/pallas_cconv.py``
 ``pallas_continuous_conv``.  Contract (both versions):
 
-  idx    [Q, K] int32 neighbor indices into ``feats``; out-of-range
-         entries read the nearest row (clamped into [0, N)), as JAX's
-         clamped gather does
+  idx    [Q, K] int32 neighbor indices into ``feats``, clamped into
+         [0, N) inside the kernel and the twin: an index past the end
+         reads row N-1, as JAX's clamped gather does; a negative one
+         reads row 0, a safety clamp of the port only (JAX wraps it to
+         idx + N first; the model makes no negative index)
   a      [Q, K] fp32 per-slot weight (validity * window), 0 on empty slots
   t      [Q, K, 3] fp32 centred filter coordinates (tz, ty, tx), after the
          ball->cube mapping
@@ -17,6 +19,7 @@ Port of the TPU kernel ``dmcf_tpu/experimental/pallas_cconv.py``
          ``(sum_k A[k]) f_q`` is added to T
   returns out [Q, Cout] fp32
 
+The kernel takes S <= 1024, S*Cin <= 8192, 1 <= Cout <= 256 and K, N >= 1.
 A CPU tensor goes to ``cconv_klist_reference``; a CUDA tensor launches the
 kernel or raises — there is no fallback.
 """
@@ -24,6 +27,7 @@ kernel or raises — there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -71,6 +75,17 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.cache
+def _launcher():
+    """``cconv_klist_launch`` of the built library, its ctypes signature
+    set once."""
+    fn = load_library("cconv_klist").cconv_klist_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    return fn
+
+
 def _launch(idx, a, t, feats, w, kernel_size, qfeats):
     q, k = idx.shape
     n, cin = feats.shape
@@ -86,23 +101,18 @@ def _launch(idx, a, t, feats, w, kernel_size, qfeats):
     if qfeats is not None:
         _check("qfeats", qfeats, torch.float32, (q, cin), dev)
     if not (1 <= cout <= 256 and s_total <= 1024
-            and s_total * cin <= 8192):
+            and s_total * cin <= 8192 and k >= 1 and n >= 1):
         raise ValueError(
-            f"cconv_klist kernel takes S <= 1024, S*Cin <= 8192 and "
-            f"1 <= Cout <= 256 (got S={s_total}, Cin={cin}, Cout={cout})")
-    # JAX clamps out-of-range gathers and the reference's obs_conv relies on
-    # it (ROADMAP §3): the kernel reads feats[idx] unchecked, so clamp here
-    idx = idx.clamp(0, n - 1)
+            f"cconv_klist kernel takes S <= 1024, S*Cin <= 8192, "
+            f"1 <= Cout <= 256 and K, N >= 1 (got S={s_total}, Cin={cin}, "
+            f"Cout={cout}, K={k}, N={n})")
     out = torch.empty((q, cout), dtype=torch.float32, device=dev)
-    lib = load_library("cconv_klist")
-    fn = lib.cconv_klist_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(idx.data_ptr(), a.data_ptr(), t.data_ptr(), feats.data_ptr(),
-             None if qfeats is None else qfeats.data_ptr(), w.data_ptr(),
-             out.data_ptr(), q, k, cin, cout, kz, ky, kx, stream)
+    err = _launcher()(idx.data_ptr(), a.data_ptr(), t.data_ptr(),
+                      feats.data_ptr(),
+                      None if qfeats is None else qfeats.data_ptr(),
+                      w.data_ptr(), out.data_ptr(), q, k, n, cin, cout, kz,
+                      ky, kx, stream)
     if err != 0:
         raise RuntimeError(f"cconv_klist kernel launch failed: CUDA error "
                            f"{err}")

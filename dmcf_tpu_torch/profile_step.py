@@ -9,7 +9,9 @@ voxel pyramid, finest search, scale-0 convs; trunk: HRNet convs with their
 searches and dense pairs; ASCC output conv; postprocess), and (3) a
 ``torch.profiler`` trace summary: device time per step, the device's busy
 share of the wall time, and the ops with the most device time.  Needs a
-CUDA device; never falls back to the CPU.
+CUDA device; never falls back to the CPU.  ``graph_ms`` (a kernel's
+device time) and ``record_launches`` (the K-list conv calls of one step)
+serve ``chip_smoke.py`` and ``scripts/torch_klist_phases.py`` too.
 """
 
 from __future__ import annotations
@@ -22,8 +24,11 @@ import time
 import torch
 
 from . import resolve_device
+from .kernels.cconv_klist import cconv_klist
 from .models import build_model
 from .models.hrnet import HRNet
+from .models.layers import ContinuousConv
+from .ops import cconv
 from .scene import bench_sample, build_scene
 
 
@@ -33,6 +38,58 @@ def _sync_time(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, 1e3 * (time.perf_counter() - t0)
+
+
+def graph_ms(fn, iters=20, reps=5):
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, replayed ``reps`` times between CUDA events, so no host launch
+    gap is counted."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def record_launches(model, sample):
+    """One model step on ``sample`` that keeps each K-list conv call:
+    returns (the step's outputs, [(conv module name, args, kwargs, output),
+    ...] in call order).  A pre-hook names the conv; the ops module's
+    handle on the wrapper is swapped for a recording one for the step."""
+    log, current = [], {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: current.update(conv=name))
+        for name, m in model.named_modules()
+        if isinstance(m, ContinuousConv)]
+
+    def recording(*args, **kw):
+        out = cconv_klist(*args, **kw)
+        log.append((current["conv"], args, kw, out))
+        return out
+
+    cconv.cconv_klist = recording
+    try:
+        with torch.no_grad():
+            outputs = model(sample)
+    finally:
+        cconv.cconv_klist = cconv_klist
+        for h in hooks:
+            h.remove()
+    return outputs, log
 
 
 def _device_us(evt):

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no file of ``dmcf_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX, flax or the JAX package (an AST scan, so
-imports inside functions count too)."""
+"""The PyTorch port stands alone: no file of ``dmcf_tpu_torch/``, not
+``chip_smoke.py`` and not the port's diagnostic script imports JAX, flax or
+the JAX package (an AST scan, so imports inside functions count too)."""
 
 import ast
 import pathlib
@@ -10,7 +10,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dmcf_tpu")
 PORT_FILES = sorted((ROOT / "dmcf_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_klist_phases.py"]
 
 
 def imported_modules(path):

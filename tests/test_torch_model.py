@@ -22,7 +22,12 @@ import yaml
 
 from dmcf_tpu.models import build_model as jax_build_model
 from dmcf_tpu_torch.interop import params_from_flax
+from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
+                                                cconv_klist_reference)
 from dmcf_tpu_torch.models import build_model
+from dmcf_tpu_torch.models.layers import ContinuousConv
+from dmcf_tpu_torch.ops import cconv
+from dmcf_tpu_torch.profile_step import record_launches
 from dmcf_tpu_torch.rollout import rollout
 from dmcf_tpu_torch.scene import bench_sample, build_scene
 
@@ -143,6 +148,26 @@ def test_step_with_saturated_scales_matches_jax(bridged):
     caps = tout[2]["scale_caps"].tolist()
     assert counts[1] > caps[1] and counts[2] > caps[2], (counts, caps)
     _check_step(jout, tout)
+
+
+def test_record_launches_keeps_each_klist_conv(bridged):
+    """The recorder ``chip_smoke.py`` times the kernel with: one step's
+    outputs unchanged, each of its 19 K-list conv calls kept with its
+    conv's name and its output, and the ops module's wrapper restored."""
+    model, sample = bridged["model"], bridged["sample"]
+    with torch.no_grad():
+        want = model(sample)
+    got, log = record_launches(model, sample)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    assert cconv.cconv_klist is cconv_klist
+    names = {n for n, m in model.named_modules()
+             if isinstance(m, ContinuousConv)}
+    assert len(log) == 19
+    assert {"fluid_obs", "obs_conv", "sym_conv0"} <= {e[0] for e in log}
+    for name, args, kw, out in log:
+        assert name in names
+        assert torch.equal(out, cconv_klist_reference(*args, **kw)), name
 
 
 def test_symnet_correction_sums_to_zero_without_boundary():

@@ -85,6 +85,59 @@ def test_hat_weights_are_mirror_exact():
                        torch.ones(1001, 1))
 
 
+def _hat_edge_points(size):
+    """A sweep of t with the edge points of a size-``size`` axis: tap
+    centres, half-way points, +-h, beyond the clamp, and the float
+    neighbours of each (where a rounded ``clamp(t) + h`` lands on the next
+    integer)."""
+    half = 0.5 * (size - 1)
+    centres = np.arange(size, dtype=np.float64) - half
+    pts = np.concatenate([centres, centres + 0.5, [-half, half],
+                          [-half - 0.3, half + 0.3, -10.0, 10.0, 0.0]])
+    pts = pts.astype(np.float32)
+    near = np.concatenate([np.nextafter(pts, np.float32(np.inf)),
+                           np.nextafter(pts, np.float32(-np.inf)),
+                           pts - np.float32(2 ** -24),
+                           pts + np.float32(2 ** -24)])
+    sweep = np.linspace(-half - 1, half + 1, 997, dtype=np.float32)
+    return np.concatenate([pts, near, -near, sweep]).astype(np.float32)
+
+
+@pytest.mark.parametrize("size", [1, 4, 6, 8])
+def test_hat_nonzero_taps_are_the_closed_form_pair(size):
+    """The invariant the K-list kernel's tap skipping rests on: on the
+    twin's own hats, every non-zero weight lies at i0 = floor(clamp(t) + h)
+    or i0 + 1, with the floor taken of the exact sum (the kernel's
+    round-down add), and the kernel's closed form gives those weights
+    bitwise."""
+    t = _hat_edge_points(size)
+    w = coords.axis_interp_weights(T(t), size, "linear").numpy()
+    half = np.float32(0.5 * (size - 1))
+    tc = np.clip(t, -half, half)
+    # float64 holds the sum of two float32 exactly: its floor is the floor
+    # of the kernel's __fadd_rd(tc, h)
+    i0 = np.minimum(np.floor(tc.astype(np.float64) + half).astype(np.int64),
+                    size - 1)
+
+    def hat(tc, i):
+        p = i.astype(np.float32) - half
+        return np.maximum(np.float32(1) - np.abs(tc - p), np.float32(0))
+
+    cols = np.arange(size)[None, :]
+    in_pair = (cols == i0[:, None]) | (cols == i0[:, None] + 1)
+    assert not np.any(w[~in_pair]), "a non-zero hat outside (i0, i0 + 1)"
+    rows = np.arange(len(t))
+    np.testing.assert_array_equal(w[rows, i0], hat(tc, i0))
+    has1 = i0 + 1 < size
+    np.testing.assert_array_equal(w[rows[has1], i0[has1] + 1],
+                                  hat(tc[has1], i0[has1] + 1))
+    if size == 8:
+        # a round-to-nearest floor(clamp(t) + h) would miss a 2^-24 tap:
+        # at t = 0.5 - 2^-24 the float sum rounds up to 4, tap 3 is 2^-24
+        rounded = np.minimum(np.floor(tc + half).astype(np.int64), size - 1)
+        assert np.any((rounded != i0) & (w[rows, i0] != 0))
+
+
 @pytest.mark.parametrize("ignore_query_point", [False, True])
 def test_fixed_radius_search_matches_jax(ignore_query_point):
     rng = np.random.RandomState(1)

@@ -7,13 +7,18 @@ Drives the port (``dmcf_tpu_torch``) only: builds its CUDA kernels from
 the sources in this checkout, holds each kernel against its plain PyTorch
 twin on the card, runs the WaterRamps SymNet (``configs/WaterRamps.yml``,
 full width, random weights from a seeded ``torch.Generator``) on the bench
-scene for one step and a 600-step rollout, checks the bench's exactness
+scene for one step and the bench's timed 600-step rollout
+(``dmcf_tpu_torch.bench.timed_rollout``), checks the bench's exactness
 gate and the kernels' launch counts, holds the kernel against its twin
 again at every launch of the first step (and times each: the conv
 inventory), checks a small-scene
 agreement with the plain path on the CPU, profiles where a step's time
-goes, and prints one ``kernels`` JSON line, the card's name and power
-limit, and a last ``{"ok": true, ...}`` line.  A kernel's ``ms`` is the
+goes, runs the valid pipeline of ``configs/other/momentum.yml`` (phase 9:
+``Simulator.run_valid`` with the full metric suite, the kernel's launches
+on that path counted exactly, card against CPU, momentum drift), and
+prints one ``kernels`` JSON line (launches on both paths), the card's
+name and power limit, and a last ``{"ok": true, ...}`` line.  A kernel's
+``ms`` is the
 mean of calls issued back to back (CUDA events around the loop), its
 ``device_ms`` the device time of one call by CUDA-graph replay; where the
 kernel is shorter than the wrapper's host cost the first reads the host.
@@ -37,6 +42,14 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peak
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 without tensor cores
 TF32_FLOP_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 TOL = 2e-5                   # kernel vs plain twin, absolute (fp32 sums)
+VALID_FRAMES = 5             # frames of phase 9's card-vs-CPU comparison
+# momentum drift |sum v_T - sum v_0| / sum |v_0| of a momentum rollout: the
+# velocity is a position difference over dt, so each step rounds each
+# particle's velocity by up to ~ulp(|x| ~ 0.25) / dt = 1.2e-5; once the
+# corrections make those roundings independent, 202 particles over 39
+# steps walk to ~2e-5 of sum |v_0| ~ 54 whatever the ASCC sums to (the
+# CPU gives 2.2e-5 with the data scaled by 0.9).  Five times that:
+DRIFT_BOUND = 1e-4
 
 
 def phase(name):
@@ -100,6 +113,191 @@ def bound(idx, a, t, feats, w, ksize, qfeats):
     return ops_ms, "operations", nbytes, ops
 
 
+def close(got, want, rtol, atol, what):
+    """|got - want| <= rtol |want| + atol, printed and checked."""
+    err = abs(float(got) - float(want))
+    print(f"  {what}: card {float(got):.9e} CPU {float(want):.9e} diff "
+          f"{err:.3e} (tol {rtol} rel + {atol})")
+    check(err <= rtol * abs(float(want)) + atol,
+          f"{what}: card vs CPU {err}")
+
+
+def valid_phase(root, dev):
+    """Phase 9: ``Simulator.run_valid`` of the momentum config on the card
+    (full width, seed-0 weights, its 2 valid scenes of 40 frames), with
+    every metric finite and the K-list kernel's launches counted exactly
+    (its K 96 and K 256 pairs held against the twin first); then the card
+    against the same pipeline on the CPU over the first VALID_FRAMES frames
+    of scene 0, and the momentum drift of the card's rollout.
+
+    The config's finest radius (0.02) is below the generator's particle
+    spacing (0.020625), so its ASCC layer sees no neighbour and the
+    position correction is exactly 0 (ROADMAP §3): the comparison and the
+    drift are therefore also run with the data scaled by 0.9
+    (``data_generator.scale``), where the correction is not 0."""
+    import copy
+    import tempfile
+
+    import yaml
+    from dmcf_tpu_torch.data import (DatasetGroup, get_rollout,
+                                     pad_rollout_state)
+    from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
+                                                    cconv_klist_reference)
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.models.losses import density_loss
+    from dmcf_tpu_torch.ops.emd import emd_loss
+    from dmcf_tpu_torch.ops.windows import get_window_func
+    from dmcf_tpu_torch.pipelines import Simulator
+    from dmcf_tpu_torch.pipelines.metrics import compare_dist
+    from dmcf_tpu_torch.profile_step import graph_ms, record_launches
+
+    with open(os.path.join(root, "configs", "other", "momentum.yml")) as f:
+        cfg = yaml.safe_load(f)
+    model = build_model(cfg["model"], device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    # the config's splits under their seeds, in memory (no cache file)
+    group = DatasetGroup(split="valid", cache_dir=None, **cfg["dataset"])
+    dg = cfg["pipeline"]["data_generator"]
+    tmp = tempfile.TemporaryDirectory()
+
+    def simulator(m, device, scale):
+        return Simulator(m, dataset=group, name="Simulator", device=device,
+                         split="valid", valid_full_metrics=True,
+                         main_log_dir=os.path.join(tmp.name, "logs"),
+                         output_dir=os.path.join(tmp.name, "out"),
+                         train_sum_dir=os.path.join(tmp.name, "sum"),
+                         data_generator=dict(dg, scale=scale))
+
+    def sequences(scale):
+        split = {k: v for k, v in dg.items()
+                 if k not in ("train", "valid", "test")}
+        return get_rollout(group.valid, **dict(split, scale=scale),
+                           **dg["valid"])
+
+    # each ContinuousConv runs once a step: the 2 scale-0 convs, every
+    # (output scale, input scale) pair of every trunk layer, the ASCC stack
+    per_step = 2 + sum(len(row) for layer in model.convs for row in layer) \
+        + len(model.sym_convs)
+    seqs = sequences(dg["scale"])
+    state = pad_rollout_state(seqs[0])
+    pipe = simulator(model, dev, dg["scale"])
+    (_, _, aux), log = record_launches(model, pipe._device_state(state, 0))
+    torch.cuda.synchronize()
+    max_err = step_device_ms = step_bound_ms = 0.0
+    with torch.no_grad():
+        for name, args, kw, out in log:
+            err = float((out - cconv_klist_reference(*args, **kw))
+                        .abs().max())
+            d_ms = graph_ms(lambda: cconv_klist(*args, **kw))
+            b_ms, b_by, _, _ = bound(*args, kw["qfeats"])
+            step_device_ms += d_ms
+            step_bound_ms += b_ms
+            idx_, _, _, f_, w_, _ = args
+            print(f"  {name:9s} Q {idx_.shape[0]:3d} K {idx_.shape[1]:3d} "
+                  f"N {f_.shape[0]:3d} Cin {f_.shape[1]:2d} Cout "
+                  f"{w_.shape[1]:2d}: device time {d_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}), max_abs_err {err:.3e}")
+            check(bool(torch.isfinite(out).all()), f"{name}: finite")
+            check(err <= TOL, f"{name}: kernel vs twin {err} <= {TOL}")
+            max_err = max(max_err, err)
+    print(f"  per step ({len(log)} launches): device time "
+          f"{step_device_ms:.4f} ms, bound {step_bound_ms:.5f} ms")
+    ks = {args[0].shape[1] for _, args, _, _ in log}
+    check(len(log) == per_step and {96, 256} <= ks,
+          f"{len(log)} launches a step (want {per_step}), K {sorted(ks)}")
+    print(f"  one step: {per_step} launches, K {sorted(ks)}, max "
+          f"|pos_correction| {float(aux['pos_correction'].abs().max()):.3e}"
+          f", neighbor_overflow {int(aux['neighbor_overflow'])}, "
+          f"pair_overflow {int(aux['pair_overflow'])}")
+
+    cconv_klist.launches = 0       # the valid path starts here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss = pipe.run_valid(epoch=0)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = cconv_klist.launches  # the valid path ends here
+    steps = sum(2 * (s["pos"].shape[0] - 1) for s in seqs)
+    keys = {"mse_val", "chamfer_val", "chamfer_val_2", "dens_val",
+            "max_dens_val", "emd", "vel_diff_val", "vel_diff_val_2",
+            "mse_single_val", "loss"}
+    rollout_s = sum(s["pos"].shape[0] - 1 for s in seqs) \
+        / pipe.last_steps_per_sec
+    print(f"  run_valid {seconds:.3f} s, {len(seqs)} scenes x "
+          f"{seqs[0]['pos'].shape[0]} frames, {seqs[0]['pos'].shape[1]} "
+          f"fluid; {steps} model steps, {launches} kernel launches; free "
+          f"rollouts {rollout_s:.3f} s "
+          f"({1e3 / pipe.last_steps_per_sec:.3f} ms/step), metrics and "
+          f"single steps {seconds - rollout_s:.3f} s")
+    print("  " + " ".join(f"{k} {v:.6e}" for k, v in loss.items()))
+    check(set(loss) == keys, f"valid keys {sorted(loss)}")
+    check(all(np.isfinite(v) for v in loss.values()), "finite valid metrics")
+    check(launches == per_step * steps,
+          f"{launches} launches == {per_step} x {steps}")
+
+    win = get_window_func("poly6")
+    r0 = float(cfg["model"]["particle_radii"][0])
+    k = int(cfg["model"]["neighbor_k"])
+    for scale in (dg["scale"], [0.9, 0.9, 0.0]):
+        print(f"  data scale {scale}: card vs the plain path on the CPU, "
+              f"scene 0, {VALID_FRAMES} frames")
+        card, cpu = simulator(model, dev, scale), simulator(cpu_model, "cpu",
+                                                           scale)
+        seq = sequences(scale)[0]
+        short = dict(seq, pos=seq["pos"][:VALID_FRAMES],
+                     vel=seq["vel"][:VALID_FRAMES],
+                     grav=seq["grav"][:VALID_FRAMES])
+        (pg, vg), = card.run_rollout([short], VALID_FRAMES)
+        (pc, vc), = cpu.run_rollout([short], VALID_FRAMES)
+        diff = float(np.abs(pg - pc).max())
+        print(f"  rollout positions max diff {diff:.3e} (tol 1e-5)")
+        check(diff <= 1e-5, f"card vs CPU rollout positions {diff}")
+        mg = card._seq_device_metrics(short, pg, True)
+        mc = cpu._seq_device_metrics(short, pc, True)
+        gt, gv = short["pos"].astype(np.float32), short["vel"]
+        ones = torch.ones(gt.shape[1], dtype=torch.bool)
+        for t in range(1, VALID_FRAMES):
+            close(mg["mse_single_val"][t - 1], mc["mse_single_val"][t - 1],
+                  1e-4, 1e-7, f"t {t} mse_single_val")
+            close(compare_dist(gv[t], vg[t]), compare_dist(gv[t], vc[t]),
+                  1e-4, 1e-6, f"t {t} vel_diff_val")
+            close(compare_dist(vg[t], gv[t]), compare_dist(vc[t], gv[t]),
+                  1e-4, 1e-6, f"t {t} vel_diff_val_2")
+            got, want = [], []
+            for p, d, out in ((pg, dev, got), (pc, "cpu", want)):
+                g_ = torch.as_tensor(gt[t], device=d)
+                p_ = torch.as_tensor(p[t], device=d)
+                m_ = ones.to(d)
+                out.append(emd_loss(g_[None], p_[None])[0])
+                out.append(density_loss(g_, p_, m_, m_, radius=r0, win=win,
+                                        k=k))
+                out.append(density_loss(g_, p_, m_, m_, radius=r0, win=win,
+                                        k=k, use_max=True))
+            for name, a, b in zip(("emd", "density", "max_density"), got,
+                                  want):
+                close(a, b, 1e-4, 1e-7, f"t {t} {name} (unclipped)")
+        with torch.no_grad():
+            _, _, aux = model(card._device_state(pad_rollout_state(seq), 0))
+        corr = aux["pos_correction"]
+        total = float(corr.abs().sum())
+        ratio = float(corr.sum(0).norm()) / total if total else 0.0
+        print(f"  one step's correction: sum |c| {total:.3e}, |sum c| / "
+              f"sum |c| {ratio:.3e} (ASCC, < 1e-5)")
+        check(ratio < 1e-5, f"ASCC correction ratio {ratio}")
+        (_, vs), = card.run_rollout([seq], seq["pos"].shape[0])
+        drift = float(np.linalg.norm(vs[-1].sum(0) - vs[0].sum(0))
+                      / np.linalg.norm(vs[0], axis=1).sum())
+        print(f"  momentum drift over {vs.shape[0] - 1} steps: "
+              f"|sum v_T - sum v_0| / sum |v_0| = {drift:.3e} (bound "
+              f"{DRIFT_BOUND})")
+        check(drift <= DRIFT_BOUND, f"momentum drift {drift}")
+    tmp.cleanup()
+    return {"launches": launches, "launches_per_step": per_step,
+            "max_abs_err": max_err, "step_device_ms": step_device_ms,
+            "step_bound_ms": step_bound_ms}
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -108,6 +306,7 @@ def main(argv):
               "needs one CUDA device", file=sys.stderr)
         return 2
 
+    from dmcf_tpu_torch.bench import timed_rollout
     from dmcf_tpu_torch.kernels import build
     from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
                                                     cconv_klist_reference)
@@ -117,7 +316,6 @@ def main(argv):
     from dmcf_tpu_torch.ops.sph import masked_positions
     from dmcf_tpu_torch.profile_step import (graph_ms, print_report, profile,
                                              record_launches)
-    from dmcf_tpu_torch.rollout import rollout
     from dmcf_tpu_torch.scene import bench_sample, build_scene
     import yaml
 
@@ -247,12 +445,8 @@ def main(argv):
     check(step_launches == 19 == len(launch_log),
           f"{step_launches} kernel launches per step")
 
-    phase(f"5 rollout ({steps} steps)")
-    torch.cuda.synchronize()
-    t0 = time.time()
-    pos, vel, gate = rollout(model, sample, steps)
-    torch.cuda.synchronize()
-    dt = time.time() - t0
+    phase(f"5 rollout ({steps} steps, the bench's timed rollout)")
+    pos, vel, gate, dt = timed_rollout(model, sample, steps)
     launches = cconv_klist.launches   # main path ends here
     finite = bool(torch.isfinite(pos[fm]).all())
     print(f"steps {steps}, {1e3 * dt / steps:.3f} ms/step "
@@ -316,6 +510,10 @@ def main(argv):
     phase("8 where a step's time goes")
     print_report(profile(steps=10), top=12)
 
+    phase("9 valid pipeline on the card (configs/other/momentum.yml)")
+    valid = valid_phase(root, dev)
+    max_err = max(max_err, valid["max_abs_err"])
+
     kernels = [{
         "name": "cconv_klist",
         "route": "cuda",
@@ -324,6 +522,10 @@ def main(argv):
                     "(pallas_continuous_conv)",
         "launches": launches,
         "launches_per_step": step_launches,
+        "valid_launches": valid["launches"],
+        "valid_launches_per_step": valid["launches_per_step"],
+        "valid_step_device_ms": valid["step_device_ms"],
+        "valid_step_bound_ms": valid["step_bound_ms"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

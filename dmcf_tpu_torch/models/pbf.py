@@ -12,8 +12,10 @@ caching are TPU launch-count devices that give bitwise-identical lists
 (the K-list kernel builds its taps inline).  Options this slice does not
 port raise instead of being ignored; config keys the port has no use for
 (the reference's TPU tuning knobs, ``precision``, the density-feature
-constants) are dropped with a warning by ``build_model``.  Everything runs
-fp32 (the bf16 trunk is a later slice).
+constants) are dropped with a warning by ``build_model``.  ``window_dens``
+and ``rest_dens`` are kept on the module, as in the reference, because the
+valid suite's max-density metric reads ``window_dens`` from the model.
+Everything runs fp32 (the bf16 trunk is a later slice).
 """
 
 from __future__ import annotations
@@ -98,9 +100,9 @@ class PBFNet(nn.Module):
         kernel_size=(4, 4, 4), channels=16, strides=(1,),
         particle_radii=(0.05,),
         coordinate_mapping="ball_to_cube_volume_preserving",
-        interpolation="linear", window=None,
-        ignore_query_points=False, grav=-9.81, transformation=None,
-        timestep=0.01, circular=False, dens_feats=False,
+        interpolation="linear", window=None, window_dens=None,
+        rest_dens=3.5, ignore_query_points=False, grav=-9.81,
+        transformation=None, timestep=0.01, circular=False, dens_feats=False,
         pres_feats=False, equivar=False, use_vel=True, use_acc=True,
         use_feats=False, use_box_feats=True, use_pre_adv=False,
         use_bnds=True, dens_norm=False,

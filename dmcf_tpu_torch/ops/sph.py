@@ -1,5 +1,6 @@
-"""Sentinel padding and the voxel position pyramid (port of the parts of
-dmcf_tpu/ops/sph.py that the rollout path runs).
+"""Sentinel padding, the voxel position pyramid, SPH number density and
+nearest-neighbour distances (port of the parts of dmcf_tpu/ops/sph.py that
+the rollout and evaluation paths run).
 
 Padded entries sit at far, spread-out sentinel positions so they never
 enter any neighborhood; all functions take and return padded tensors plus
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .neighbors import fixed_radius_search
 
 PAD_POS = 1e8  # sentinel coordinate for padded particles
 
@@ -58,6 +61,39 @@ def masked_positions(pos, mask):
     sent = pad_sentinel_positions(pos.shape[0], dtype=pos.dtype,
                                   device=pos.device)
     return torch.where(mask[:, None], pos, sent)
+
+
+def compute_density(out_pos, in_pos, radius, win, out_mask=None,
+                    in_mask=None, k=64):
+    """SPH number density at ``out_pos``: the window summed over the first
+    ``k`` in-radius points of ``in_pos`` by index, self included."""
+    if win is None:
+        win = lambda x: x  # noqa: E731
+    nl = fixed_radius_search(in_pos, out_pos, radius, k,
+                             points_mask=in_mask, queries_mask=out_mask)
+    r = torch.tensor(float(radius), dtype=out_pos.dtype,
+                     device=out_pos.device)
+    w = torch.where(nl.mask, win(nl.dist / (r * r)), 0.0)
+    return w.sum(dim=1)
+
+
+def nn_distance(a, b, a_mask=None, b_mask=None):
+    """Bidirectional nearest-neighbour (Chamfer) distances, brute force:
+    for every point of each set, the squared distance to (and index of)
+    the nearest valid point of the other set; 0 on invalid rows.  Returns
+    (dist_a, idx_a, dist_b, idx_b)."""
+    d = ((a[:, None, :] - b[None, :, :]) ** 2).sum(dim=-1)
+    if b_mask is not None:
+        d = torch.where(b_mask[None, :], d, torch.inf)
+    if a_mask is not None:
+        d = torch.where(a_mask[:, None], d, torch.inf)
+    dist_a, idx_a = d.min(dim=1)
+    dist_b, idx_b = d.min(dim=0)
+    if a_mask is not None:
+        dist_a = torch.where(a_mask, dist_a, 0.0)
+    if b_mask is not None:
+        dist_b = torch.where(b_mask, dist_b, 0.0)
+    return dist_a, idx_a.to(torch.int32), dist_b, idx_b.to(torch.int32)
 
 
 def grid_pos(pos, mask, voxel_size, out_max, centralize=False, pad=0,

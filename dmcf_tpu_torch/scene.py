@@ -1,7 +1,5 @@
-"""The benchmark scene and rollout-state padding (own copies of
-``bench.build_scene`` and ``dmcf_tpu/data/dataflow.py``'s
-``pad_rollout_state`` / ``sentinel_rows`` / ``pad_particles``; the port
-imports nothing of the JAX package)."""
+"""The benchmark scene (own copy of ``bench.build_scene``; the port
+imports nothing of the JAX package) as a padded model sample."""
 
 from __future__ import annotations
 
@@ -9,7 +7,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .ops.sph import PAD_POS
+from .data.dataflow import pad_rollout_state
 
 
 def build_scene(n_fluid=2304, spacing=0.01, seed=0):
@@ -40,51 +38,6 @@ def build_scene(n_fluid=2304, spacing=0.01, seed=0):
     nrm[2 * m:3 * m, 0] = -1.0
     nrm[3 * m:, 1] = 1.0
     return pos.astype(np.float32), box, nrm
-
-
-def _round_up(n, m):
-    return int(-(-n // m) * m)
-
-
-def pad_particles(arr, n_max, fill=0.0):
-    """[..., N, 3] -> [..., n_max, 3]."""
-    pad = n_max - arr.shape[-2]
-    if pad <= 0:
-        return arr
-    widths = [(0, 0)] * (arr.ndim - 2) + [(0, pad), (0, 0)]
-    return np.pad(arr, widths, constant_values=fill)
-
-
-def sentinel_rows(n, offset=0):
-    out = np.zeros((n, 3), np.float32)
-    out[:, 0] = PAD_POS + (np.arange(n) + offset) * 1e3
-    return out
-
-
-def pad_rollout_state(data, bucket=64):
-    """Rollout sequence dict (``pos``/``vel``/``grav`` [T, N, 3], ``box`` /
-    ``box_normals`` [B, 3]) -> fixed-shape padded numpy state."""
-    n = data["pos"].shape[1]
-    nb = max(data["box"].shape[0], 1)
-    n_max = _round_up(n, bucket)
-    b_max = _round_up(nb, bucket)
-    pos = pad_particles(data["pos"].astype(np.float32), n_max)
-    pos[:, n:, :] = sentinel_rows(n_max - n)[None]
-    vel = pad_particles(data["vel"].astype(np.float32), n_max)
-    box = pad_particles(data["box"].astype(np.float32), b_max)
-    box[data["box"].shape[0]:, :] = sentinel_rows(
-        b_max - data["box"].shape[0], offset=n_max)
-    nrm = pad_particles(data["box_normals"].astype(np.float32), b_max)
-    grav = None
-    if data.get("grav") is not None:
-        grav = pad_particles(data["grav"].astype(np.float32), n_max)
-    return {
-        "pos": pos, "vel": vel, "grav": grav, "box": box,
-        "box_normals": nrm,
-        "fluid_mask": np.arange(n_max) < n,
-        "box_mask": np.arange(b_max) < data["box"].shape[0],
-        "n_fluid": n,
-    }
 
 
 def bench_sample(pos, box, nrm, grav=-9.81, bucket=128, device="cuda"):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``dmcf_tpu_torch/``, not
-``chip_smoke.py`` and not the port's diagnostic script imports JAX, flax or
-the JAX package (an AST scan, so imports inside functions count too)."""
+``chip_smoke.py`` and not the port's diagnostic script imports JAX, flax,
+optax, orbax or the JAX package (an AST scan, so imports inside functions
+count too)."""
 
 import ast
 import pathlib
@@ -8,7 +9,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dmcf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dmcf_tpu")
 PORT_FILES = sorted((ROOT / "dmcf_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_klist_phases.py"]
 

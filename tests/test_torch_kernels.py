@@ -146,6 +146,39 @@ def test_kernel_matches_twin(cuda, q, k, cin, cout, ksize, window,
     torch.testing.assert_close(got, ref, atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("q,n,k,cin,cout", [
+    (80, 320, 256, 24, 4),     # conv120_0: scale 0 -> 2, gap 2
+    (80, 320, 256, 16, 8),     # conv220_0
+    (160, 320, 96, 24, 8),     # conv110_0: scale 0 -> 1, gap 1
+    (160, 320, 96, 16, 16),    # conv210_0
+    (80, 160, 96, 8, 8),       # conv220_1: scale 1 -> 2
+])
+def test_kernel_matches_twin_long_lists(cuda, q, n, k, cin, cout):
+    """The downsampling pairs of configs/other/momentum.yml, which run the
+    K-list kernel at K 96 and K 256 (no dense pairs there), at that
+    model's Q, N, Cin and Cout, with long lists: N points in a square, Q
+    queries among them, the radius sized to ~0.8 K points (edge queries
+    see fewer: lists hold about half of K on average and over 3/4 of K at
+    the longest)."""
+    g = torch.Generator().manual_seed(k + cin)
+    side = 0.1
+    pts = torch.rand((n, 3), generator=g) * side
+    pts[:, 2] = 0.0
+    radius = side * (0.8 * k / (n * np.pi)) ** 0.5
+    nl = neighbors.search(pts, pts[:q], radius, k)
+    assert int(nl.mask.sum(1).max()) > k * 3 // 4
+    idx, a, t = cconv.klist_geometry(nl, 2 * radius, (1, 8, 8),
+                                     window_fn=windows.get_window_func(
+                                         "poly6"))
+    feats = torch.randn((n, cin), generator=g)
+    w = torch.randn((64 * cin, cout), generator=g) * w_scale(cin)
+    xs = [x.to(cuda) for x in (idx, a, t, feats, w)]
+    got = cconv_klist(*xs, (1, 8, 8))
+    ref = cconv_klist_reference(*xs, (1, 8, 8))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("cout,symmetric", [(32, False), (2, True)])
 def test_kernel_is_deterministic(cuda, cout, symmetric):
     """Two launches on the same inputs give equal bits (no float atomics:

@@ -15,10 +15,15 @@ inventory), checks a small-scene
 agreement with the plain path on the CPU, profiles where a step's time
 goes, runs the valid pipeline of ``configs/other/momentum.yml`` (phase 9:
 ``Simulator.run_valid`` with the full metric suite, the kernel's launches
-on that path counted exactly, card against CPU, momentum drift), and
-prints one ``kernels`` JSON line (launches on both paths), the card's
-name and power limit, and a last ``{"ok": true, ...}`` line.  A kernel's
-``ms`` is the
+on that path counted exactly, card against CPU, momentum drift), holds
+the two backward kernels against the plain backward at every launch shape
+of a momentum train step and at the WaterRamps trunk shape (phase 10),
+trains the momentum config on the card through ``run_pipeline --split
+train`` with every kernel's launches counted exactly and its first two
+steps held against the CPU path (phase 11), runs one WaterRamps train step
+at batch 16, window 3 (phase 12), and prints one ``kernels`` JSON line
+(launches on each path), the card's name and power limit, and a last
+``{"ok": true, ...}`` line.  A kernel's ``ms`` is the
 mean of calls issued back to back (CUDA events around the loop), its
 ``device_ms`` the device time of one call by CUDA-graph replay; where the
 kernel is shorter than the wrapper's host cost the first reads the host.
@@ -32,7 +37,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,6 +50,12 @@ FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 without tensor cores
 TF32_FLOP_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 TOL = 2e-5                   # kernel vs plain twin, absolute (fp32 sums)
 VALID_FRAMES = 5             # frames of phase 9's card-vs-CPU comparison
+BWD_TOL = 1e-5               # backward kernels vs plain backward, relative
+#   to each gradient's max abs (sums over slots and queries in another order,
+#   float atomics)
+GRAD_TOL = 1e-4              # train-step gradients, card vs CPU, relative to
+#   each tensor's max abs (fp32 through a 3-step window of 18 convs)
+TRAIN_ITERS = 20             # phase 11's run_train iterations
 # momentum drift |sum v_T - sum v_0| / sum |v_0| of a momentum rollout: the
 # velocity is a position difference over dt, so each step rounds each
 # particle's velocity by up to ~ulp(|x| ~ 0.25) / dt = 1.2e-5; once the
@@ -111,6 +124,87 @@ def bound(idx, a, t, feats, w, ksize, qfeats):
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes", nbytes, ops
     return ops_ms, "operations", nbytes, ops
+
+
+BWD_NAMES = ("dfeats", "dqfeats", "dw", "da", "dt")
+
+
+def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats):
+    """Least time the card could take for one backward kernel, as
+    ``bound`` for the forward, all operations at the fp32 rate.  data:
+    reads idx, a, t, feats, w, qfeats, dout, writes dfeats, dqfeats, da,
+    dt; computes dT on the (query, tap row) pairs some slot's hats touch
+    (2 Cin Cout each) and, per touched tap, the dA dot product and the dg
+    update (4 Cin).  filter: reads the same but w, writes dW; rebuilds T
+    over the non-zero taps (2 Cin each) and multiplies it by dout over the
+    touched rows (2 Cin Cout each).  Returns (ms, by)."""
+    from dmcf_tpu_torch.kernels.cconv_klist import _tap_tensor
+    cin, cout = feats.shape[1], w.shape[1]
+
+    def nbytes(xs):
+        return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+    if which == "data":
+        hz = _tap_tensor(t, torch.ones_like(a), ksize) != 0
+        ops = 2 * int(hz.any(dim=1).sum()) * cin * cout \
+            + 4 * int(hz.sum()) * cin
+        moved = nbytes((idx, a, t, feats, w, qfeats, dout)) \
+            + nbytes((feats, qfeats, a, t))
+    else:
+        nz = _tap_tensor(t, a, ksize) != 0
+        ops = 2 * int(nz.sum()) * cin + 2 * int(nz.any(dim=1).sum()) * cin \
+            * cout
+        moved = nbytes((idx, a, t, feats, qfeats, dout)) + nbytes((w,))
+    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def bwd_check(args, qfeats, seed):
+    """Both backward kernels at one launch shape (the forward's inputs
+    ``args``) against the plain backward, on a random dout: per gradient
+    the max abs error over that gradient's max abs (0 where both are 0),
+    and the max abs error."""
+    from dmcf_tpu_torch.kernels.cconv_klist import (
+        cconv_klist_bwd_data, cconv_klist_bwd_filter,
+        cconv_klist_bwd_reference)
+    idx, a, t, feats, w, ksize = args
+    g = torch.Generator(device=feats.device).manual_seed(seed)
+    dout = torch.randn((idx.shape[0], w.shape[1]), generator=g,
+                       device=feats.device)
+    full = (dout, idx, a, t, feats, w, ksize, qfeats)
+    dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*full)
+    got = (dfeats, dqfeats, cconv_klist_bwd_filter(*full), da, dt)
+    torch.cuda.synchronize()
+    rel, abs_err = {}, {}
+    for name, x, want in zip(BWD_NAMES, got, cconv_klist_bwd_reference(
+            *full)):
+        if want is None:
+            continue
+        check(bool(torch.isfinite(x).all()), f"{name}: finite")
+        scale = float(want.abs().max())
+        err = float((x - want).abs().max())
+        rel[name] = err / scale if scale > 0 else err
+        abs_err[name] = err
+        check(err <= BWD_TOL * scale,
+              f"{name}: kernel vs plain backward {err} > {BWD_TOL} x {scale}")
+    return rel, abs_err, full
+
+
+def bwd_times(full):
+    """(data ms, data device ms, filter ms, filter device ms, plain ms,
+    data bound (ms, by), filter bound (ms, by)) at one launch shape."""
+    from dmcf_tpu_torch.kernels.cconv_klist import (
+        cconv_klist_bwd_data, cconv_klist_bwd_filter,
+        cconv_klist_bwd_reference)
+    from dmcf_tpu_torch.profile_step import graph_ms
+    return (cuda_ms(lambda: cconv_klist_bwd_data(*full), iters=20),
+            graph_ms(lambda: cconv_klist_bwd_data(*full)),
+            cuda_ms(lambda: cconv_klist_bwd_filter(*full), iters=20),
+            graph_ms(lambda: cconv_klist_bwd_filter(*full)),
+            cuda_ms(lambda: cconv_klist_bwd_reference(*full), iters=10),
+            bwd_bound("data", *full), bwd_bound("filter", *full))
 
 
 def close(got, want, rtol, atol, what):
@@ -298,6 +392,341 @@ def valid_phase(root, dev):
             "step_bound_ms": step_bound_ms}
 
 
+def momentum_cfg(root):
+    import yaml
+    with open(os.path.join(root, "configs", "other", "momentum.yml")) as f:
+        return yaml.safe_load(f)
+
+
+def bwd_phase(root, dev, wr_shapes):
+    """Phase 10: both backward kernels against the plain backward at every
+    launch shape of the first momentum train step (its first batch item,
+    data scaled by 0.9; K 48, 96 and 256, the ASCC conv symmetric) and at
+    the WaterRamps trunk and ASCC shapes, each timed beside its bound and
+    the plain backward.  Returns the numbers for the kernels line."""
+    from dmcf_tpu_torch.data import DatasetGroup, get_dataloader
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.profile_step import record_launches
+
+    cfg = momentum_cfg(root)
+    model = build_model(cfg["model"], device=dev,
+                        generator=torch.Generator().manual_seed(42))
+    group = DatasetGroup(split="train", cache_dir=None, **cfg["dataset"])
+    dg = dict(cfg["pipeline"]["data_generator"], scale=[0.9, 0.9, 0.0])
+    train = dict(dg.pop("train"), seed=0)
+    dg.pop("valid"), dg.pop("test")
+    loader = get_dataloader(group.train, batch_size=2, window=3, **dg,
+                            **train)
+    batch = next(loader)
+    loader.close()
+    sample = {k: torch.as_tensor(batch[k][0][0] if k in ("pos", "vel")
+                                 else batch[k][0], device=dev)
+              for k in ("pos", "vel", "box", "box_normals", "fluid_mask",
+                        "box_mask")}
+    _, log = record_launches(model, sample)
+    worst, worst_abs = {}, {}
+    totals = dict(data_ms=0.0, data_device_ms=0.0, filter_ms=0.0,
+                  filter_device_ms=0.0, plain_ms=0.0, data_bound_ms=0.0,
+                  filter_bound_ms=0.0)
+    for i, (name, args, kw, _) in enumerate(log):
+        rel, err, full = bwd_check(args, kw["qfeats"], i)
+        for k, v in err.items():
+            worst_abs[k] = max(worst_abs.get(k, 0.0), v)
+        tm = bwd_times(full)
+        for key, v in zip(("data_ms", "data_device_ms", "filter_ms",
+                           "filter_device_ms", "plain_ms"), tm[:5]):
+            totals[key] += v
+        totals["data_bound_ms"] += tm[5][0]
+        totals["filter_bound_ms"] += tm[6][0]
+        for k, v in rel.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        idx_, _, _, f_, w_, _ = args
+        print(f"  {name:9s} Q {idx_.shape[0]:3d} K {idx_.shape[1]:3d} "
+              f"N {f_.shape[0]:3d} Cin {f_.shape[1]:2d} Cout "
+              f"{w_.shape[1]:2d}: data {tm[0]:.4f} ms (device {tm[1]:.4f},"
+              f" bound {tm[5][0]:.5f} {tm[5][1]}), filter {tm[2]:.4f} ms "
+              f"(device {tm[3]:.4f}, bound {tm[6][0]:.5f} {tm[6][1]}), plain"
+              f" {tm[4]:.4f} ms; rel err " + " ".join(
+                  f"{k} {v:.2e}" for k, v in rel.items()))
+    ks = {args[0].shape[1] for _, args, _, _ in log}
+    check({48, 96, 256} <= ks and any(kw["qfeats"] is not None
+                                      for _, _, kw, _ in log),
+          f"momentum launch shapes K {sorted(ks)}")
+    print(f"  per momentum step ({len(log)} shapes): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in totals.items()))
+    out = {"momentum_step": totals}
+    for name in ("trunk", "ascc"):
+        i_, a_, t_, f_, w_, ks_, qf_ = wr_shapes[name]
+        rel, err, full = bwd_check((i_, a_, t_, f_, w_, ks_), qf_, 100)
+        for k, v in err.items():
+            worst_abs[k] = max(worst_abs.get(k, 0.0), v)
+        tm = bwd_times(full)
+        for k, v in rel.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        print(f"  WaterRamps {name} (Q {i_.shape[0]} K {i_.shape[1]} Cin "
+              f"{f_.shape[1]} Cout {w_.shape[1]}): data {tm[0]:.4f} ms "
+              f"(device {tm[1]:.4f}, bound {tm[5][0]:.5f} {tm[5][1]}), "
+              f"filter {tm[2]:.4f} ms (device {tm[3]:.4f}, bound "
+              f"{tm[6][0]:.5f} {tm[6][1]}), plain {tm[4]:.4f} ms; rel err "
+              + " ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        out[name] = tm
+    print("  worst rel err over all shapes (tol %g): " % BWD_TOL + " ".join(
+        f"{k} {v:.2e}" for k, v in worst.items()))
+    out["worst"], out["worst_abs"] = worst, worst_abs
+    return out
+
+
+def counts():
+    from dmcf_tpu_torch.kernels.cconv_klist import (
+        cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
+    return [f.launches for f in (cconv_klist, cconv_klist_bwd_data,
+                                 cconv_klist_bwd_filter)]
+
+
+def zero_counts():
+    from dmcf_tpu_torch.kernels.cconv_klist import (
+        cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
+    for f in (cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter):
+        f.launches = 0
+
+
+def expected_train_launches(items, window, convs):
+    """Launches of one train step over ``items`` items: the forward kernel
+    twice a conv a step (the forward and its recompute under the per-step
+    checkpoint), the filter kernel once a conv a step, the data kernel the
+    same but for the two scale-0 convs of step 0, whose inputs (the
+    detached starting state) take no gradient."""
+    return [2 * items * window * convs, items * (window * convs - 2),
+            items * window * convs]
+
+
+def train_phase(root, dev):
+    """Phase 11: ``run_pipeline --split train`` of the momentum config on
+    the card (data scaled by 0.9, TRAIN_ITERS iterations of batch 2, window
+    3, then its per-epoch ``run_valid``) with every kernel's launches
+    counted exactly and the losses finite; then the first two train steps
+    of a seeded loader on the card and on the CPU from the same weights
+    (the CPU model takes the card's weights before each step): loss
+    vectors and every parameter's gradient compared, every trunk and ASCC
+    conv weight's gradient non-zero; then the card's s per train step."""
+    from dmcf_tpu_torch import run_pipeline
+    from dmcf_tpu_torch.data import DatasetGroup, get_dataloader, get_rollout
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.models.layers import ContinuousConv
+    from dmcf_tpu_torch.models.losses import get_loss
+    from dmcf_tpu_torch.pipelines.simulator import (make_optimizer,
+                                                    make_train_step)
+    from dmcf_tpu_torch.profile_step import print_report, trace
+
+    cfg = momentum_cfg(root)
+    pcfg = cfg["pipeline"]
+    group = DatasetGroup(split="train", cache_dir=None, **cfg["dataset"])
+    scale = [0.9, 0.9, 0.0]
+    dg = dict(pcfg["data_generator"], scale=scale)
+    split = {k: v for k, v in dg.items() if k not in ("train", "valid",
+                                                      "test")}
+    valid_steps = sum(2 * (s["pos"].shape[0] - 1) for s in get_rollout(
+        group.valid, **split, **dg["valid"]))
+    model = build_model(cfg["model"], device=dev,
+                        generator=torch.Generator().manual_seed(42))
+    convs = [n for n, m in model.named_modules()
+             if isinstance(m, ContinuousConv)]
+    per_step = len(convs)
+    batch_size, window = int(pcfg["batch_size"]), int(pcfg["windows"][0])
+    tmp = tempfile.TemporaryDirectory()
+    args = ["--cfg_file", os.path.join(root, "configs", "other",
+                                       "momentum.yml"),
+            "--split", "train", "--device", "cuda",
+            "--dataset.cache_dir", "none", "--pipeline.max_epoch", "0",
+            "--pipeline.iter", str(TRAIN_ITERS),
+            "--pipeline.data_generator.scale", "[0.9,0.9,0.0]",
+            "--pipeline.run_test_every_epoch", "false",
+            "--pipeline.log_every", "1",
+            "--main_log_dir", os.path.join(tmp.name, "logs"),
+            "--output_dir", os.path.join(tmp.name, "out"),
+            "--pipeline.train_sum_dir", os.path.join(tmp.name, "sum")]
+    zero_counts()               # the training path starts here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logged = run_pipeline.main(args)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = counts()         # the training path ends here
+    step = expected_train_launches(batch_size, window, per_step)
+    want = [TRAIN_ITERS * step[0] + per_step * valid_steps,
+            TRAIN_ITERS * step[1], TRAIN_ITERS * step[2]]
+    losses = [e["loss"] for e in logged]
+    print(f"  run_pipeline --split train: {TRAIN_ITERS} iterations + "
+          f"run_valid ({valid_steps} model steps) in {seconds:.3f} s; "
+          f"launches cconv_klist {launches[0]}, bwd_data {launches[1]}, "
+          f"bwd_filter {launches[2]} (want {want}: a step "
+          f"{step}, {per_step} convs, batch {batch_size}, window {window})")
+    print("  losses " + " ".join(f"{v:.6e}" for v in losses))
+    check(len(losses) == TRAIN_ITERS and all(np.isfinite(losses)),
+          "finite train losses")
+    check(launches == want, f"train launches {launches} == {want}")
+
+    # the first two steps, card vs CPU
+    loader = get_dataloader(group.train, batch_size=batch_size,
+                            window=window, **split,
+                            **dict(dg["train"], seed=0))
+    batches = [next(loader) for _ in range(5)]
+    loader.close()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    loss = {k: get_loss(**v) for k, v in cfg["model"]["loss"].items()}
+    opt_cfg = pcfg["optimizer"]
+    card_step = make_train_step(model, loss, *make_optimizer(model, opt_cfg),
+                                window=window)
+    cpu_step = make_train_step(cpu_model, loss,
+                               *make_optimizer(cpu_model, opt_cfg),
+                               window=window)
+    time_w = np.ones(window, np.float32)
+    grad_err = 0.0
+    for i, b in enumerate(batches[:2]):
+        cpu_model.load_state_dict(model.state_dict())
+        lg, _, _ = card_step({k: torch.as_tensor(v, device=dev)
+                              for k, v in b.items() if v is not None},
+                             time_w)
+        lc, _, _ = cpu_step({k: torch.as_tensor(v) for k, v in b.items()
+                             if v is not None}, time_w)
+        close(lg.sum(), lc.sum(), 1e-4, 0.0, f"step {i} loss")
+        zero = []
+        for (name, pg), (_, pc) in zip(model.named_parameters(),
+                                       cpu_model.named_parameters()):
+            scale = float(pc.grad.abs().max())
+            err = float((pg.grad.cpu() - pc.grad).abs().max())
+            grad_err = max(grad_err, err / scale if scale else err)
+            check(err <= GRAD_TOL * scale,
+                  f"step {i} {name}: grad card vs CPU {err} > {GRAD_TOL} x "
+                  f"{scale}")
+            if name.endswith(".kernel") and name[:-7] in convs \
+                    and float(pg.grad.abs().max()) == 0:
+                zero.append(name)
+        print(f"  step {i}: gradients card vs CPU within {grad_err:.2e} of "
+              f"each tensor's max (tol {GRAD_TOL}); conv weights with a "
+              f"zero gradient: {zero}")
+        # the one boundary point is far from the fluid: obs_conv sees only
+        # itself and its output reaches no fluid particle
+        check(zero == ["obs_conv.kernel"], f"zero-gradient convs {zero}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for b in batches[2:]:
+        card_step({k: torch.as_tensor(v, device=dev) for k, v in b.items()
+                   if v is not None}, time_w)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / len(batches[2:])
+    got = counts()
+    check(got == [len(batches[2:]) * x for x in step],
+          f"{got} launches in {len(batches[2:])} steps, a step {step}")
+    print(f"  card train step (batch {batch_size}, window {window}): "
+          f"{step_s:.4f} s over {len(batches[2:])} steps")
+    print("  where a train step's time goes:")
+    print_report(trace(lambda: card_step(
+        {k: torch.as_tensor(v, device=dev) for k, v in batches[2].items()
+         if v is not None}, time_w), reps=1, top=10), top=10)
+    tmp.cleanup()
+    return {"launches": launches, "launches_per_step": step,
+            "step_s": step_s, "grad_rel_err": grad_err, "seconds": seconds}
+
+
+def waterramps_train_phase(root, dev, model, sample, klist):
+    """Phase 12: one WaterRamps train step at the config's first
+    curriculum stage (batch 16, window 3, ``dense_n_chunk`` 256) on a
+    4-frame sequence the port's rollout makes from the bench scene: time,
+    peak device memory, a finite loss, the launches counted exactly."""
+    import yaml
+
+    from dmcf_tpu_torch.models.losses import get_loss
+    from dmcf_tpu_torch.pipelines.simulator import (make_optimizer,
+                                                    make_train_step)
+    from dmcf_tpu_torch.rollout import rollout
+
+    with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
+        cfg = yaml.safe_load(f)
+    batch_size = int(cfg["pipeline"]["batch_size"])
+    window = int(cfg["pipeline"]["windows"][0])
+    n = sample["pos"].shape[0]
+    frames = (torch.empty((window + 1, n, 3), device=dev),
+              torch.empty((window + 1, n, 3), device=dev))
+    rollout(model, sample, window, frames=frames)
+    batch = {"pos": frames[0], "vel": frames[1],
+             "grav": sample["grav"].expand(window + 1, n, 3)}
+    batch = {k: v[None].expand(batch_size, *v.shape).contiguous()
+             for k, v in batch.items()}
+    for k in ("box", "box_normals", "fluid_mask", "box_mask"):
+        batch[k] = sample[k][None].expand(batch_size, *sample[k].shape)
+    batch["pre"] = torch.zeros(batch_size, dtype=torch.int32, device=dev)
+    loss = {k: get_loss(**v) for k, v in cfg["model"]["loss"].items()}
+    step = make_train_step(model, loss, *make_optimizer(
+        model, cfg["pipeline"]["optimizer"]), window=window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                # the WaterRamps training path starts here
+    t0 = time.time()
+    lvec, _, stats = step(batch, np.ones(window, np.float32))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = counts()          # and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = expected_train_launches(batch_size, window, klist)
+    print(f"  batch {batch_size} x window {window}, {n} fluid rows: "
+          f"{seconds:.3f} s, peak memory allocated {peak / 2 ** 30:.3f} GiB"
+          f", loss {float(lvec.sum()):.6e}, max_neighbors "
+          f"{float(stats['max_neighbors']):.0f}, pair_overflow "
+          f"{float(stats['pair_overflow']):.0f}; launches {launches} (want "
+          f"{want}: {klist} K-list convs a step)")
+    check(bool(torch.isfinite(lvec).all()), "finite WaterRamps loss")
+    check(launches == want, f"WaterRamps train launches {launches}")
+    check(all(bool(torch.isfinite(p.grad).all())
+              for p in model.parameters()), "finite WaterRamps gradients")
+    return {"launches": launches, "seconds": seconds, "peak_bytes": peak}
+
+
+def waterramps_shapes(cfg, sample, dev):
+    """Phase 3's contract inputs on the bench scene's scale-0 all->all
+    list: (a) the widest trunk conv, Cin 32 -> Cout 32, poly6; (b) the
+    ASCC conv: symmetric, coincident points dropped, peak, Cin 32 -> 2."""
+    from dmcf_tpu_torch.models.pbf import drop_coincident
+    from dmcf_tpu_torch.ops import cconv, neighbors, windows
+    from dmcf_tpu_torch.ops.sph import masked_positions
+
+    all_pos = torch.cat([masked_positions(sample["pos"],
+                                          sample["fluid_mask"]),
+                         masked_positions(sample["box"],
+                                          sample["box_mask"])])
+    all_mask = torch.cat([sample["fluid_mask"], sample["box_mask"]])
+    r0 = float(cfg["particle_radii"][0])
+    k = int(cfg["neighbor_k"])
+    nl = neighbors.search(all_pos, all_pos, r0, k, points_mask=all_mask,
+                          queries_mask=all_mask)
+    g = torch.Generator().manual_seed(1)
+    q = all_pos.shape[0]
+    ksize = tuple(cfg["kernel_size"])
+    s_total = int(np.prod(ksize))
+    shapes = {}
+    idx, a, t = cconv.klist_geometry(nl, 2 * r0, ksize,
+                                     window_fn=windows.get_window_func(
+                                         cfg["window"]))
+    feats = torch.randn((q, 32), generator=g).to(dev)
+    w = (torch.randn((s_total * 32, 32), generator=g) * 0.05).to(dev)
+    shapes["trunk"] = (idx, a, t, feats, w, ksize, None)
+    nl_sym = drop_coincident(nl)
+    ksize_s = tuple(cfg["sym_kernel_size"])
+    idx_s, a_s, t_s = cconv.klist_geometry(
+        nl_sym, 2 * r0, ksize_s,
+        window_fn=windows.get_window_func(cfg["window_sym"]))
+    half_shape = list(ksize_s) + [32, 2]
+    half_shape[int(cfg["sym_axis"])] //= 2
+    half = torch.randn(half_shape, generator=g).to(dev) * 0.05
+    w_s = cconv.build_symmetric_kernel(half, int(cfg["sym_axis"]))
+    f_s = torch.where(all_mask[:, None], torch.rand((q, 32), generator=g)
+                      .to(dev), 0.0)
+    shapes["ascc"] = (idx_s, a_s, t_s, f_s, w_s.reshape(-1, 2).contiguous(),
+                      ksize_s, f_s)
+    return shapes
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -311,9 +740,6 @@ def main(argv):
     from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
                                                     cconv_klist_reference)
     from dmcf_tpu_torch.models import build_model
-    from dmcf_tpu_torch.models.pbf import drop_coincident
-    from dmcf_tpu_torch.ops import cconv, neighbors, windows
-    from dmcf_tpu_torch.ops.sph import masked_positions
     from dmcf_tpu_torch.profile_step import (graph_ms, print_report, profile,
                                              record_launches)
     from dmcf_tpu_torch.scene import bench_sample, build_scene
@@ -336,11 +762,13 @@ def main(argv):
           f"count {torch.cuda.device_count()}")
 
     phase("2 kernel build")
-    for name in build.sources():
-        t0 = time.time()
-        log = build.build(name)
-        print(f"{name}: {'compiled' if log else 'already built'} in "
-              f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    with ThreadPoolExecutor() as pool:  # one nvcc a source, all at once
+        logs = dict(zip(build.sources(),
+                        pool.map(build.build, build.sources())))
+    print(f"built {len(logs)} sources in {time.time() - t0:.1f} s")
+    for name, log in logs.items():
+        print(f"{name}: {'compiled' if log else 'already built'}")
         for line in log.splitlines():
             if "entry function" in line:  # the variant: <false> trunk,
                 print(f"  {line.split(chr(39))[1]}")  # <true> symmetric
@@ -357,42 +785,9 @@ def main(argv):
         cfg = yaml.safe_load(f)["model"]
     pos, box, nrm = build_scene()
     sample = bench_sample(pos, box, nrm, device=dev)
-    # the main path's geometry: the bench scene's scale-0 all->all list
-    all_pos = torch.cat([masked_positions(sample["pos"],
-                                          sample["fluid_mask"]),
-                         masked_positions(sample["box"],
-                                          sample["box_mask"])])
-    all_mask = torch.cat([sample["fluid_mask"], sample["box_mask"]])
-    r0 = float(cfg["particle_radii"][0])
-    k = int(cfg["neighbor_k"])
-    nl = neighbors.search(all_pos, all_pos, r0, k, points_mask=all_mask,
-                          queries_mask=all_mask)
-    g = torch.Generator().manual_seed(1)
-    q = all_pos.shape[0]
-    ksize = tuple(cfg["kernel_size"])
-    s_total = int(np.prod(ksize))
-    shapes = {}
-    # (a) widest trunk conv: Cin 32 -> Cout 32, poly6
-    idx, a, t = cconv.klist_geometry(nl, 2 * r0, ksize,
-                                     window_fn=windows.get_window_func(
-                                         cfg["window"]))
-    feats = torch.randn((q, 32), generator=g).to(dev)
-    w = (torch.randn((s_total * 32, 32), generator=g) * 0.05).to(dev)
-    shapes["trunk"] = (idx, a, t, feats, w, ksize, None)
-    # (b) ASCC: symmetric, coincident dropped, peak, fp32, Cin 32 -> Cout 2
-    nl_sym = drop_coincident(nl)
-    ksize_s = tuple(cfg["sym_kernel_size"])
-    idx_s, a_s, t_s = cconv.klist_geometry(
-        nl_sym, 2 * r0, ksize_s,
-        window_fn=windows.get_window_func(cfg["window_sym"]))
-    half_shape = list(ksize_s) + [32, 2]
-    half_shape[int(cfg["sym_axis"])] //= 2
-    half = torch.randn(half_shape, generator=g).to(dev) * 0.05
-    w_s = cconv.build_symmetric_kernel(half, int(cfg["sym_axis"]))
-    f_s = torch.where(all_mask[:, None], torch.rand((q, 32), generator=g)
-                      .to(dev), 0.0)
-    shapes["ascc"] = (idx_s, a_s, t_s, f_s, w_s.reshape(-1, 2).contiguous(),
-                      ksize_s, f_s)
+    shapes = waterramps_shapes(cfg, sample, dev)
+    q, k = shapes["trunk"][0].shape
+    ksize = shapes["trunk"][5]
     max_err = 0.0
     for name, (i_, a_, t_, f_, w_, ks_, qf_) in shapes.items():
         got = cconv_klist(i_, a_, t_, f_, w_, ks_, qfeats=qf_)
@@ -514,6 +909,16 @@ def main(argv):
     valid = valid_phase(root, dev)
     max_err = max(max_err, valid["max_abs_err"])
 
+    phase("10 backward kernels vs the plain backward")
+    bwd = bwd_phase(root, dev, shapes)
+
+    phase("11 momentum training on the card (run_pipeline --split train)")
+    train = train_phase(root, dev)
+
+    phase("12 one WaterRamps train step (batch 16, window 3)")
+    wr_train = waterramps_train_phase(root, dev, model, sample,
+                                      step_launches)
+
     kernels = [{
         "name": "cconv_klist",
         "route": "cuda",
@@ -537,7 +942,40 @@ def main(argv):
         "step_device_ms": step_device_ms,
         "step_plain_ms": step_plain_ms,
         "step_bound_ms": step_bound_ms,
+        "train_launches": train["launches"][0],
+        "waterramps_train_launches": wr_train["launches"][0],
     }]
+    replaces = ("none (no TPU kernel): the VJP of "
+                "dmcf_tpu/ops/cconv.py:173 continuous_conv, XLA autodiff")
+    grads = {"data": ("dfeats", "dqfeats", "da", "dt"), "filter": ("dw",)}
+    for i, which in ((1, "data"), (2, "filter")):
+        tm = bwd["trunk"]
+        off = 0 if which == "data" else 2
+        bnd = tm[5] if which == "data" else tm[6]
+        mom = bwd["momentum_step"]
+        kernels.append({
+            "name": f"cconv_klist_bwd_{which}",
+            "route": "cuda",
+            "source": "dmcf_tpu_torch/csrc/cconv_klist_bwd.cu",
+            "replaces": replaces,
+            "launches": train["launches"][i],
+            "launches_per_train_step": train["launches_per_step"][i],
+            "waterramps_train_launches": wr_train["launches"][i],
+            "max_abs_err": max(bwd["worst_abs"][g] for g in grads[which]),
+            "max_rel_err": max(bwd["worst"][g] for g in grads[which]),
+            "ms": tm[off],
+            "device_ms": tm[off + 1],
+            "plain_ms": tm[4],
+            "bound_ms": bnd[0],
+            "bound_by": bnd[1],
+            "library_ms": None,
+            "momentum_step_device_ms": mom[f"{which}_device_ms"],
+            "momentum_step_bound_ms": mom[f"{which}_bound_ms"],
+        })
+    print(f"train: momentum {train['step_s']:.4f} s a step (batch 2, "
+          f"window 3); WaterRamps batch 16 x window 3 "
+          f"{wr_train['seconds']:.3f} s, peak "
+          f"{wr_train['peak_bytes'] / 2 ** 30:.3f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

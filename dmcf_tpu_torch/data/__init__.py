@@ -1,4 +1,5 @@
-from .dataflow import get_rollout, pad_rollout_state
+from .dataflow import (WindowSampler, batch_samples, get_dataloader,
+                       get_rollout, pad_rollout_state)
 from .dataset import (Dataset, DatasetGroup, read_msgpack_zst,
                       write_msgpack_zst)
 from .generators import gen_free_fall_data, gen_momentum_data
@@ -11,6 +12,9 @@ __all__ = [
     "write_msgpack_zst",
     "gen_free_fall_data",
     "gen_momentum_data",
+    "WindowSampler",
+    "batch_samples",
+    "get_dataloader",
     "get_rollout",
     "pad_rollout_state",
     "write_results",

@@ -1,5 +1,6 @@
-"""Wrapper of the hand-written CUDA K-list continuous-conv kernel
-(``csrc/cconv_klist.cu``) and its plain PyTorch twin.
+"""Wrappers of the hand-written CUDA K-list continuous-conv kernels
+(forward ``csrc/cconv_klist.cu``, backward ``csrc/cconv_klist_bwd.cu``) and
+their plain PyTorch versions.
 
 Port of the TPU kernel ``dmcf_tpu/experimental/pallas_cconv.py``
 ``pallas_continuous_conv``.  Contract (both versions):
@@ -19,9 +20,23 @@ Port of the TPU kernel ``dmcf_tpu/experimental/pallas_cconv.py``
          ``(sum_k A[k]) f_q`` is added to T
   returns out [Q, Cout] fp32
 
-The kernel takes S <= 1024, S*Cin <= 8192, 1 <= Cout <= 256 and K, N >= 1.
-A CPU tensor goes to ``cconv_klist_reference``; a CUDA tensor launches the
-kernel or raises — there is no fallback.
+The kernels take S <= 1024, S*Cin <= 8192, 1 <= Cout <= 256 and K, N >= 1.
+A CPU tensor goes to ``cconv_klist_reference``, which autograd
+differentiates; a CUDA tensor goes through ``_KListConv``, an autograd
+Function whose forward launches the forward kernel and whose backward
+launches the two backward kernels (``cconv_klist_bwd_data`` for the
+gradients of feats, qfeats, a and t; ``cconv_klist_bwd_filter`` for w), or
+raises — there is no fallback.
+
+The hats' derivative is PyTorch autograd's on the twin's
+``relu(1 - |clamp(t, -h, h) - p|)``: clamp' = 1 on [-h, h] (bounds
+included), |u|' = sign(u) (0 at 0), relu'(v) = 1 for v > 0 (0 at 0).  The
+backward kernels and ``cconv_klist_bwd_reference`` follow it.  JAX takes
+|u|'(0) = 1 and a clip's gradient 1/2 at a bound, so on a 2D config (z
+axis of size 1, t_z clamped to [0, 0]) the gradient in t_z differs; t_z is
+z scaled by 0, so position and parameter gradients do not (ROADMAP §3).
+An out-of-range ``idx`` sends its slot's gradient to row N-1, the row the
+forward read; JAX's gather VJP drops it (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -75,6 +90,26 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def cconv_klist_bwd_reference(dout, idx, a, t, feats, w, kernel_size,
+                              qfeats=None):
+    """Plain PyTorch backward of the K-list conv: the vector-Jacobian
+    product of ``cconv_klist_reference`` with ``dout`` [Q, Cout], by
+    autograd of the dense taps.  Returns (dfeats [N, Cin], dqfeats [Q, Cin]
+    or None, dw [S*Cin, Cout], da [Q, K], dt [Q, K, 3]).  An out-of-range
+    ``idx`` sends its slot's gradient to the clamped row."""
+    leaves = [x.detach().requires_grad_(True) for x in (a, t, feats, w)]
+    qf = None if qfeats is None else qfeats.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = cconv_klist_reference(idx, *leaves, kernel_size, qfeats=qf)
+        grads = torch.autograd.grad(
+            out, leaves + ([] if qf is None else [qf]), dout,
+            allow_unused=True)
+    da, dt, dfeats, dw = (torch.zeros_like(x) if g is None else g
+                          for x, g in zip(leaves, grads[:4]))
+    dqfeats = None if qf is None else grads[4]
+    return dfeats, dqfeats, dw, da, dt
+
+
 @functools.cache
 def _launcher():
     """``cconv_klist_launch`` of the built library, its ctypes signature
@@ -86,7 +121,25 @@ def _launcher():
     return fn
 
 
-def _launch(idx, a, t, feats, w, kernel_size, qfeats):
+@functools.cache
+def _bwd_launchers():
+    """The backward library's (data, filter) entry points, their ctypes
+    signatures set once."""
+    lib = load_library("cconv_klist_bwd")
+    data = lib.cconv_klist_bwd_data_launch
+    data.restype = ctypes.c_int
+    data.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    filt = lib.cconv_klist_bwd_filter_launch
+    filt.restype = ctypes.c_int
+    filt.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    return data, filt
+
+
+def _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout=None):
+    """Checks the contract's inputs on one CUDA device; returns (q, k, n,
+    cin, cout, kz, ky, kx)."""
     q, k = idx.shape
     n, cin = feats.shape
     kz, ky, kx = (int(s) for s in kernel_size)
@@ -100,33 +153,120 @@ def _launch(idx, a, t, feats, w, kernel_size, qfeats):
     _check("w", w, torch.float32, (s_total * cin, cout), dev)
     if qfeats is not None:
         _check("qfeats", qfeats, torch.float32, (q, cin), dev)
+    if dout is not None:
+        _check("dout", dout, torch.float32, (q, cout), dev)
     if not (1 <= cout <= 256 and s_total <= 1024
             and s_total * cin <= 8192 and k >= 1 and n >= 1):
         raise ValueError(
-            f"cconv_klist kernel takes S <= 1024, S*Cin <= 8192, "
+            f"cconv_klist kernels take S <= 1024, S*Cin <= 8192, "
             f"1 <= Cout <= 256 and K, N >= 1 (got S={s_total}, Cin={cin}, "
             f"Cout={cout}, K={k}, N={n})")
-    out = torch.empty((q, cout), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _launcher()(idx.data_ptr(), a.data_ptr(), t.data_ptr(),
-                      feats.data_ptr(),
-                      None if qfeats is None else qfeats.data_ptr(),
-                      w.data_ptr(), out.data_ptr(), q, k, n, cin, cout, kz,
-                      ky, kx, stream)
+    return q, k, n, cin, cout, kz, ky, kx
+
+
+def _raise_on(err, name):
     if err != 0:
-        raise RuntimeError(f"cconv_klist kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch(idx, a, t, feats, w, kernel_size, qfeats):
+    shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats)
+    q, cout = shape[0], shape[4]
+    out = torch.empty((q, cout), dtype=torch.float32, device=feats.device)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    _raise_on(_launcher()(idx.data_ptr(), a.data_ptr(), t.data_ptr(),
+                          feats.data_ptr(), _ptr(qfeats), w.data_ptr(),
+                          out.data_ptr(), *shape, stream), "cconv_klist")
     cconv_klist.launches += 1
     return out
 
 
+def cconv_klist_bwd_data(dout, idx, a, t, feats, w, kernel_size,
+                         qfeats=None):
+    """Gradients of the K-list conv in its data inputs: (dfeats, dqfeats or
+    None, da, dt).  CUDA tensors launch ``cconv_klist_bwd_data_kernel``
+    (dfeats and dqfeats summed with float atomics: two launches may differ
+    in the last bits); CPU tensors take ``cconv_klist_bwd_reference``."""
+    if not feats.is_cuda:
+        dfeats, dqfeats, _, da, dt = cconv_klist_bwd_reference(
+            dout, idx, a, t, feats, w, kernel_size, qfeats)
+        return dfeats, dqfeats, da, dt
+    shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout)
+    dfeats = torch.zeros_like(feats)
+    dqfeats = None if qfeats is None else torch.zeros_like(qfeats)
+    da = torch.empty_like(a)
+    dt = torch.empty_like(t)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    _raise_on(_bwd_launchers()[0](
+        idx.data_ptr(), a.data_ptr(), t.data_ptr(), feats.data_ptr(),
+        _ptr(qfeats), w.data_ptr(), dout.data_ptr(), dfeats.data_ptr(),
+        _ptr(dqfeats), da.data_ptr(), dt.data_ptr(), *shape, stream),
+        "cconv_klist_bwd_data")
+    cconv_klist_bwd_data.launches += 1
+    return dfeats, dqfeats, da, dt
+
+
+def cconv_klist_bwd_filter(dout, idx, a, t, feats, w, kernel_size,
+                           qfeats=None):
+    """Gradient of the K-list conv in its filter ``w``: dw [S*Cin, Cout].
+    CUDA tensors launch ``cconv_klist_bwd_filter_kernel`` (float atomics
+    across query tiles: two launches may differ in the last bits); CPU
+    tensors take ``cconv_klist_bwd_reference``."""
+    if not feats.is_cuda:
+        return cconv_klist_bwd_reference(dout, idx, a, t, feats, w,
+                                         kernel_size, qfeats)[2]
+    shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout)
+    dw = torch.zeros_like(w)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    _raise_on(_bwd_launchers()[1](
+        idx.data_ptr(), a.data_ptr(), t.data_ptr(), feats.data_ptr(),
+        _ptr(qfeats), dout.data_ptr(), dw.data_ptr(), *shape, stream),
+        "cconv_klist_bwd_filter")
+    cconv_klist_bwd_filter.launches += 1
+    return dw
+
+
+class _KListConv(torch.autograd.Function):
+    """The K-list conv on CUDA tensors: forward kernel, backward kernels.
+    ``idx`` and ``kernel_size`` get no gradient; the data kernel runs when
+    feats, qfeats, a or t needs one, the filter kernel when w does."""
+
+    @staticmethod
+    def forward(ctx, idx, a, t, feats, w, kernel_size, qfeats):
+        ctx.kernel_size = kernel_size
+        ctx.save_for_backward(idx, a, t, feats, w, qfeats)
+        return _launch(idx, a, t, feats, w, kernel_size, qfeats)
+
+    @staticmethod
+    def backward(ctx, dout):
+        idx, a, t, feats, w, qfeats = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dout = dout.contiguous()
+        args = (dout, idx, a, t, feats, w, ctx.kernel_size, qfeats)
+        da = dt = dfeats = dqfeats = dw = None
+        if need[1] or need[2] or need[3] or need[6]:
+            dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*args)
+        if need[4]:
+            dw = cconv_klist_bwd_filter(*args)
+        return (None, da if need[1] else None, dt if need[2] else None,
+                dfeats if need[3] else None, dw, None,
+                dqfeats if need[6] else None)
+
+
 def cconv_klist(idx, a, t, feats, w, kernel_size, qfeats=None):
-    """K-list continuous conv (see module docstring).  CUDA tensors launch
-    the hand-written kernel; CPU tensors take the plain twin."""
+    """K-list continuous conv (see module docstring).  CUDA tensors go
+    through the hand-written kernels (forward, and backward under
+    autograd); CPU tensors take the plain twin."""
     if not feats.is_cuda:
         return cconv_klist_reference(idx, a, t, feats, w, kernel_size, qfeats)
-    return _launch(idx, a, t, feats, w, kernel_size, qfeats)
+    return _KListConv.apply(idx, a, t, feats, w, kernel_size, qfeats)
 
 
-# launches of the CUDA kernel (plain-twin calls are not counted)
+# launches of each CUDA kernel (plain-version calls are not counted)
 cconv_klist.launches = 0
+cconv_klist_bwd_data.launches = 0
+cconv_klist_bwd_filter.launches = 0

@@ -1,5 +1,5 @@
 """PBF physics scaffold shared by the learned-SPH models (port of
-dmcf_tpu/models/pbf.py, rollout path).
+dmcf_tpu/models/pbf.py: the rollout and training paths).
 
 A sample is padded fluid/boundary tensors with validity masks; padded
 particles sit at far sentinel positions and every op is mask-exact.  One
@@ -271,33 +271,41 @@ class PBFNet(nn.Module):
     # ------------------------------------------------------------------
     # main step
 
-    def forward(self, sample, training=False):
+    def forward(self, sample, training=False, vel_corr=None):
         """One simulation step.
 
         ``sample``: dict of padded tensors ``pos`` [N,3], ``vel`` [N,3],
         optional ``grav`` [N,3], ``box`` [B,3], ``box_normals`` [B,3],
-        ``fluid_mask`` [N], ``box_mask`` [B].  Returns (pos, vel, aux).
+        ``fluid_mask`` [N], ``box_mask`` [B].  ``vel_corr``: an externally
+        corrected velocity (the training ``iterations`` loop), used in
+        place of the advected one, its gradient stopped.  ``training``
+        selects the dense pairs' source chunking (``dense_n_chunk``).
+        Returns (pos, vel, aux).
         """
         data = self.transform(sample)
-        ctx = self.preprocess(data)
+        ctx = self.preprocess(data, vel_corr=vel_corr)
         out = self.net_forward(ctx, data, training=training)
-        pos, vel, aux = self.postprocess(out, ctx, data)
+        pos, vel, aux = self.postprocess(out, ctx, data, vel_corr=vel_corr)
         pos, vel = self.inv_transform(pos, vel)
         fm = data["fluid_mask"].bool()
         pos = torch.where(fm[:, None], pos, sample["pos"])
         vel = torch.where(fm[:, None], vel, 0.0)
         return pos, vel, aux
 
-    def preprocess(self, data):
-        """Advect, assemble features, run the scale-0 convs, build the
-        position pyramid."""
+    def preprocess(self, data, vel_corr=None):
+        """Advect (or take ``vel_corr``), assemble features, run the
+        scale-0 convs, build the position pyramid."""
         acc = data.get("grav")
         box, bfeats = data["box"], data["box_normals"]
         fluid_mask = data["fluid_mask"].bool()
         box_mask = data["box_mask"].bool()
         n_fluid = data["pos"].shape[0]
 
-        pos, vel = self.integrate_pos_vel(data["pos"], data["vel"], acc)
+        if vel_corr is not None:
+            vel = vel_corr.detach()
+            pos = data["pos"] + vel * self.timestep
+        else:
+            pos, vel = self.integrate_pos_vel(data["pos"], data["vel"], acc)
         filter_extent = tuple(2.0 * r for r in self._radii)
         r0 = self._radii[0]
 
@@ -372,7 +380,7 @@ class PBFNet(nn.Module):
             "nl_fluid0": nl_fluid0,
         }
 
-    def postprocess(self, out, ctx, data):
+    def postprocess(self, out, ctx, data, vel_corr=None):
         """Scale the net output into a position correction, re-integrate,
         and report the neighbor statistics."""
         pos, vel = data["pos"], data["vel"]
@@ -392,7 +400,11 @@ class PBFNet(nn.Module):
         pos_correction = torch.where(fluid_mask[:, None],
                                      out_scale * out[:n_fluid], 0.0)
 
-        pos2, vel2 = self.integrate_pos_vel(pos, vel, data.get("grav"))
+        if vel_corr is not None:
+            vel2 = vel_corr.detach()
+            pos2 = pos + vel2 * self.timestep
+        else:
+            pos2, vel2 = self.integrate_pos_vel(pos, vel, data.get("grav"))
         pos_out, vel_out = self.compute_new_pos_vel(pos, vel, pos2, vel2,
                                                     pos_correction)
 

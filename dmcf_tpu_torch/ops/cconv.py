@@ -8,8 +8,12 @@ with ``g`` the filter array interpolated at mapped coordinates and ``a_ij``
 an optional radial window.  ``continuous_conv`` (K-list neighbors) computes
 the per-slot geometry here in plain PyTorch — window weights and centred
 filter coordinates after the ball->cube mapping — and hands the contraction
-to ``kernels.cconv_klist``: the hand-written CUDA kernel for CUDA tensors,
-its plain twin for CPU tensors.  ``continuous_conv_reference`` runs the
+to ``kernels.cconv_klist``: for CUDA tensors an autograd Function over the
+hand-written CUDA kernels (forward, and the backward kernels for the
+gradients of features, filter, window weights and filter coordinates), for
+CPU tensors the plain twin, which autograd differentiates.  Autograd
+carries the gradients of ``a`` and ``t`` back through the plain geometry
+into the positions.  ``continuous_conv_reference`` runs the
 same geometry into the plain twin on any device.  ``continuous_conv_dense``
 (every source point a candidate) is plain PyTorch in this slice.
 """
@@ -111,7 +115,8 @@ def continuous_conv(kernel, out_positions, inp_positions, inp_features,
     variants); inp_features [N, Cin]; ``neighbors`` a padded NeighborList of
     input points per output point; ``extents`` the scalar filter diameter.
     ``symmetric`` adds the antisymmetric self term and needs
-    ``query_features`` [Q, Cin].  CUDA tensors run the hand-written kernel.
+    ``query_features`` [Q, Cin].  CUDA tensors run the hand-written
+    kernels, forward and backward.
     """
     return _continuous_conv(
         cconv_klist, kernel, out_positions, inp_positions, inp_features,

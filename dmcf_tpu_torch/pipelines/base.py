@@ -1,9 +1,11 @@
 """Base pipeline: run directories, checkpoints, scalar summaries (port of
 dmcf_tpu/pipelines/base.py).
 
-Checkpoints are the model's ``state_dict`` per epoch
-(``<logs_dir>/checkpoint/ckpt_<epoch>.pt``); the JAX package's orbax
-checkpoints are not read (ROADMAP queue 1 item 12).  Scalars go to a
+Checkpoints hold the model's ``state_dict`` per epoch
+(``<logs_dir>/checkpoint/ckpt_<epoch>.pt``) and, once training has built
+them, the optimizer's and the LR schedule's, so a run resumes where it
+stopped; the JAX package's orbax checkpoints are not read (ROADMAP queue 1
+item 12).  Scalars go to a
 ``metrics.jsonl`` file, the JAX package's JSONL mirror; its tensorboard
 event files are left out.
 """
@@ -85,6 +87,7 @@ class BasePipeline:
         self.model = model
         self.dataset = dataset
         self.model_cfg = kwargs.get("model_cfg", {})
+        self.optimizer = self.scheduler = None  # built by run_train
 
         make_dir(self.cfg.main_log_dir)
         dataset_name = dataset.name if dataset is not None else ""
@@ -127,8 +130,11 @@ class BasePipeline:
 
     def save_ckpt(self, epoch):
         make_dir(self._ckpt_dir)
-        torch.save({"model": self.model.state_dict(), "epoch": int(epoch)},
-                   self._ckpt_path(epoch))
+        state = {"model": self.model.state_dict(), "epoch": int(epoch)}
+        if self.optimizer is not None:
+            state["optimizer"] = self.optimizer.state_dict()
+            state["scheduler"] = self.scheduler.state_dict()
+        torch.save(state, self._ckpt_path(epoch))
         keep = int(self.cfg.get("max_ckpt_to_keep", 100))
         for old in self._saved_epochs()[:-keep]:
             os.remove(self._ckpt_path(old))
@@ -137,10 +143,15 @@ class BasePipeline:
     def _restore(self, path):
         state = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(state["model"])
+        if self.optimizer is not None and "optimizer" in state:
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.scheduler.load_state_dict(state["scheduler"])
         return int(state["epoch"])
 
     def load_ckpt(self, ckpt_path=None, is_resume=True):
-        """Restore the model's weights.  Returns the epoch to resume from:
+        """Restore the model's weights (and the optimizer's and schedule's
+        state, when the checkpoint has them and training built them).
+        Returns the epoch to resume from:
         0 for an explicit ``ckpt_path`` (a .pt file), else the latest saved
         epoch's successor, else 0 with the weights as built."""
         if ckpt_path:

@@ -1,5 +1,5 @@
-"""Simulator pipeline: rollout, test and validation (port of
-dmcf_tpu/pipelines/simulator.py:86-512; training comes with a later slice).
+"""Simulator pipeline: rollout, test, validation and training (port of
+dmcf_tpu/pipelines/simulator.py).
 
 Where JAX runs a whole horizon as one ``lax.scan`` and a sequence's
 device-side metrics as one ``lax.map``, the port loops over the steps and
@@ -9,6 +9,14 @@ frames on the device and reads back once per sequence (or per
 device.  The semantics are the JAX package's, including its clipping of
 predictions to the boundary's bounding box (ROADMAP §3: with one boundary
 point that box is a point).
+
+Training (``make_train_step``, ``Simulator.run_train``) is JAX's BPTT step
+with the batch as a Python loop over items: each item's warm-up runs under
+``torch.no_grad``, its window unrolls with ``torch.utils.checkpoint`` per
+step (JAX's ``jax.checkpoint(step)``), and its loss, normalised by the
+full batch's ``sum(time_w) * B``, is back-propagated on its own.  The loss
+is a sum over items, so the summed gradients are the batch's, and only one
+item's window is held at a time (what JAX's ``grad_accum`` is for).
 """
 
 from __future__ import annotations
@@ -22,9 +30,11 @@ from glob import glob
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..data import get_rollout, pad_rollout_state, write_results
-from ..models.losses import density_loss
+from ..data import get_dataloader, get_rollout, pad_rollout_state, \
+    write_results
+from ..models.losses import density_loss, get_loss
 from ..ops.emd import emd_loss
 from ..ops.windows import get_window_func
 from ..rollout import rollout
@@ -37,6 +47,65 @@ _STATE_KEYS = ("pos", "vel", "grav", "box", "box_normals", "fluid_mask",
                "box_mask")
 
 
+def _clip_by_norm(g, norm):
+    """``g`` scaled to L2 norm ``norm`` when longer (each tensor on its
+    own, not by the global norm)."""
+    n = torch.sqrt((g * g).sum())
+    return torch.where(n > norm, g * (norm / n), g)
+
+
+def compute_time_weights(step, window_it, windows, window_bnds, time_blend):
+    """Per-unroll-step loss weights with the curriculum cross-fade: after a
+    window boundary the newly added trailing steps fade in linearly over
+    ``time_blend`` optimizer steps."""
+    window = windows[window_it]
+    time_w = np.ones((window,), np.float32)
+    if window_it > 0:
+        a = (step - window_bnds[window_it - 1] + 1) / time_blend
+        if a < 1.0:
+            diff = windows[window_it] - windows[window_it - 1]
+            time_w[-diff:] = np.clip(a - np.arange(diff) / diff, 0.0, 1.0)
+    return time_w
+
+
+def advance_curriculum(step, state, windows, window_bnds, max_warm_up,
+                       warm_up_bnds, iterations, its_bnds):
+    """Advance (window_it, warm_up_it, it_idx) past any boundaries crossed
+    at ``step``; returns the new state and whether the loader must be
+    rebuilt."""
+    window_it, warm_up_it, it_idx = state
+    rebuild = False
+    while window_it < min(len(windows) - 1, len(window_bnds)) \
+            and step >= window_bnds[window_it]:
+        window_it += 1
+        rebuild = True
+    while warm_up_it < min(len(max_warm_up) - 1, len(warm_up_bnds)) \
+            and step >= warm_up_bnds[warm_up_it]:
+        warm_up_it += 1
+        rebuild = True
+    while it_idx < min(len(iterations) - 1, len(its_bnds)) \
+            and step >= its_bnds[it_idx]:
+        it_idx += 1
+    return (window_it, warm_up_it, it_idx), rebuild
+
+
+def lr_schedule(opt_cfg):
+    """Piecewise-constant learning rate of the config's ``optimizer``
+    section: ``lr_values[i]`` from update ``lr_boundaries[i - 1]`` on
+    (update counted from 0; boundaries compared by ``step >= b``)."""
+    bounds = [int(b) for b in opt_cfg.get("lr_boundaries", [])]
+    values = [float(v) for v in opt_cfg.get("lr_values", [1e-3])]
+    return lambda step: values[sum(step >= b for b in bounds)]
+
+
+def make_optimizer(model, opt_cfg):
+    """Adam (eps 1e-6) and its LR schedule, as optax evaluates it: update
+    i uses ``lr(i)``.  Returns (optimizer, scheduler); call
+    ``scheduler.step()`` after each ``optimizer.step()``."""
+    opt = torch.optim.Adam(model.parameters(), lr=1.0, eps=1e-6)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_schedule(opt_cfg))
+
+
 class Simulator(BasePipeline):
     def __init__(self, model, dataset=None, name="Simulator",
                  main_log_dir="./logs", device="cuda", split="train",
@@ -44,6 +113,13 @@ class Simulator(BasePipeline):
         super().__init__(model=model, dataset=dataset, name=name,
                          main_log_dir=main_log_dir, device=device,
                          split=split, **kwargs)
+        self.loss_cfg = dict(self.cfg.get("loss_cfg") or {})
+        if not self.loss_cfg:
+            self.loss_cfg = {
+                "weighted_mse": {"typ": "weighted_mse", "fac": 1.0,
+                                 "gamma": 0.25, "neighbor_scale": 0.025}}
+        self.loss_fns = {k: get_loss(**dict(v))
+                         for k, v in self.loss_cfg.items()}
 
     @contextlib.contextmanager
     def _file_log(self, split):
@@ -355,7 +431,281 @@ class Simulator(BasePipeline):
     # training
     # ------------------------------------------------------------------
 
+    def _make_train_step(self, window, its, max_err, max_dens_err):
+        return make_train_step(
+            self.model, self.loss_fns, self.optimizer, self.scheduler,
+            window=window, its=its, max_err=max_err,
+            max_dens_err=max_dens_err,
+            w_decay=float(self.cfg.get("w_decay", 0) or 0),
+            grad_norm=float(self.cfg.get("grad_clip_norm", -1) or -1),
+            grad_accum=int(self.cfg.get("grad_accum", 1) or 1))
+
+    def _device_batch(self, batch):
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items() if v is not None}
+
+    def _emit_train_log(self, step, batch, time_w, lvec, pre_eff, stats):
+        losses = {k: float(v) for k, v in zip(self.loss_fns, lvec.tolist())}
+        losses["loss"] = float(sum(losses.values()))
+        losses["timesteps"] = float(np.sum(time_w))
+        losses["warmup"] = float(np.mean(batch["pre"]))
+        losses["warmup_diff"] = losses["warmup"] - float(
+            pre_eff.float().mean())
+        losses["max_neighbors"] = float(stats["max_neighbors"])
+        losses["avg_neighbors"] = float(stats["avg_neighbors"])
+        self._check_neighbor_overflow(losses["max_neighbors"],
+                                      f"train step {step}")
+        self._check_pair_overflow(float(stats["pair_overflow"]),
+                                  f"train step {step}")
+        log.info("step %d - %s", step, " ".join(
+            "%s: %.5f" % (k, v) for k, v in losses.items()))
+        losses["learning_rate"] = self.optimizer.param_groups[0]["lr"]
+        self.save_logs(self.writer, step, [losses], "train")
+        return dict(losses, step=step)
+
     def run_train(self):
-        raise NotImplementedError(
-            "training is ported in a later slice (ROADMAP queue 1 item 10: "
-            "the BPTT loop and the K-list conv's backward)")
+        """The BPTT training loop (curricula, loader rebuilds, logs to
+        ``metrics.jsonl``, checkpoints, valid / test per epoch).  Returns
+        the logged step entries (one dict per ``log_every`` steps)."""
+        with self._file_log("train"):
+            return self._run_train()
+
+    def _run_train(self):
+        cfg = self.cfg
+        if cfg.get("data_parallel", "auto") is True:
+            raise NotImplementedError(
+                "data_parallel: true (multi-GPU) is not ported yet (ROADMAP "
+                "queue 1 item 13)")
+        if cfg.get("grad_accum_host", False):
+            raise NotImplementedError(
+                "grad_accum_host is a TPU execution mode, not ported")
+        dg_cfg = dict(cfg.get("data_generator") or {})
+        train_cfg = dict(dg_cfg.pop("train", {}) or {})
+        dg_cfg.pop("valid", None)
+        dg_cfg.pop("test", None)
+
+        windows = list(cfg.get("windows", [2]))
+        window_bnds = list(cfg.get("window_bnds", []))
+        max_warm_up = list(cfg.get("max_warm_up", [0]))
+        warm_up_bnds = list(cfg.get("warm_up_bnds", []))
+        iterations = list(cfg.get("iterations", [0]))
+        its_bnds = list(cfg.get("its_bnds", []))
+        time_blend = int(cfg.get("time_blend", 1))
+        max_err = cfg.get("max_err", None)
+        max_dens_err = cfg.get("max_dens_err", None)
+        log_every = int(cfg.get("log_every", 10))
+
+        def make_loader(window, warm):
+            return get_dataloader(self.dataset.train,
+                                  batch_size=int(cfg.batch_size),
+                                  window=window, pre_frames=warm,
+                                  **dg_cfg, **train_cfg)
+
+        self.optimizer, self.scheduler = make_optimizer(
+            self.model, dict(cfg.get("optimizer") or {}))
+        start_ep = self.load_ckpt(
+            self.model_cfg.get("ckpt_path"),
+            is_resume=bool(self.model_cfg.get("is_resume", True)))
+        window_it, warm_up_it, it_idx = 0, 0, 0
+        logged = []
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+        log.info("Writing summary in %s.", self.tensorboard_dir)
+        log.info("Started training")
+        loader = make_loader(windows[0], max_warm_up[0])
+        try:
+            for epoch in range(start_ep, int(cfg.max_epoch) + 1):
+                log.info("=== EPOCH %d/%d ===", epoch, int(cfg.max_epoch))
+                for i in range(int(cfg.iter)):
+                    step = epoch * int(cfg.iter) + i
+                    (window_it, warm_up_it, it_idx), rebuild = \
+                        advance_curriculum(
+                            step, (window_it, warm_up_it, it_idx), windows,
+                            window_bnds, max_warm_up, warm_up_bnds,
+                            iterations, its_bnds)
+                    if rebuild:
+                        loader.close()
+                        loader = make_loader(windows[window_it],
+                                             max_warm_up[warm_up_it])
+                    batch = next(loader)
+                    time_w = compute_time_weights(step, window_it, windows,
+                                                  window_bnds, time_blend)
+                    train_step = self._make_train_step(
+                        windows[window_it], iterations[it_idx], max_err,
+                        max_dens_err)
+                    lvec, pre_eff, stats = train_step(
+                        self._device_batch(batch), time_w)
+                    if i == 0 and epoch == start_ep:
+                        log.info("Parameter count '%s': %d",
+                                 type(self.model).__name__,
+                                 sum(p.numel()
+                                     for p in self.model.parameters()))
+                    if i % log_every == 0:
+                        logged.append(self._emit_train_log(
+                            step, batch, time_w, lvec, pre_eff, stats))
+
+                if epoch % int(cfg.get("save_ckpt_freq", 1)) == 0:
+                    self.save_ckpt(epoch)
+                # True = every epoch, False/0 = never, int N = every N
+                valid_every = cfg.get("run_valid_every_epoch", True)
+                if valid_every and epoch % max(int(valid_every), 1) == 0:
+                    self.run_valid(epoch)
+                    self.save_logs(self.writer, epoch, [self.valid_loss],
+                                   "valid")
+                test_every = cfg.get("run_test_every_epoch", True)
+                if test_every and epoch % max(int(test_every), 1) == 0:
+                    self.run_test(epoch)
+        finally:
+            loader.close()
+        if self.device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(self.device) / 2 ** 30
+            log.info("peak device memory allocated: %.2f GiB", peak)
+            self.writer.scalar("train/peak_memory_gib", peak, 0)
+            self.writer.flush()
+        return logged
+
+
+def make_train_step(model, loss_fns, optimizer, scheduler=None, *, window,
+                    its=0, max_err=None, max_dens_err=None, w_decay=0.0,
+                    grad_norm=-1.0, grad_accum=1):
+    """The BPTT train step (standalone; used by ``Simulator.run_train``).
+
+    Returns ``step(batch, time_w) -> (lvec, pre_eff, stats)``: ``batch`` a
+    dict of device tensors (``pos``/``vel``[/``grav``] [B, T, N, 3],
+    ``box``/``box_normals`` [B, Nb, 3], masks, ``pre`` [B]), ``time_w``
+    the window's loss weights.  The step leaves the batch's gradients in
+    each parameter's ``.grad`` (after ``w_decay`` and the per-tensor clip),
+    then runs ``optimizer.step()`` and ``scheduler.step()``.  ``lvec`` is
+    the loss vector (one entry per loss, normalised by ``sum(time_w) *
+    B``), ``pre_eff`` [B] the warm-up steps kept, ``stats`` the step's
+    neighbour-budget health (``max_neighbors``, ``pair_overflow``,
+    ``avg_neighbors``).  ``grad_accum`` must divide B: items are
+    back-propagated one at a time, so any grouping gives the full batch's
+    gradient.
+    """
+    win_dens = get_window_func(getattr(model, "window_dens", None))
+    radius0 = float(model.particle_radii[0])
+    k = int(getattr(model, "neighbor_k", 64))
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def eval_losses(sample, pos, aux, target, target_prev, pre_eff):
+        mask = sample["fluid_mask"]
+        return torch.stack([
+            fn(target, pos, mask,
+               num_fluid_neighbors=aux["num_fluid_neighbors"],
+               input_pos=sample["pos"], target_prev=target_prev,
+               pre_steps=pre_eff, pos_correction=aux["pos_correction"])
+            for fn in loss_fns.values()])
+
+    def warmup(item, pre, make_sample):
+        """Self-rollout warm-up with the divergence guards (no grads)."""
+        pos, vel = item["pos"][0], item["vel"][0]
+        p, prev_err, prev_derr = 0, 0.0, 0.0
+        fm, bm = item["fluid_mask"], item["box_mask"]
+        with torch.no_grad():
+            while p < pre:
+                pos2, vel2, _ = model(make_sample(pos, vel), training=True)
+                diverged = False
+                tgt = item["pos"][p]
+                if max_err is not None:
+                    err = float(torch.where(
+                        fm, (pos2 - tgt).abs().sum(-1), 0.0).max())
+                    diverged |= p > 0 and err > prev_err and err > max_err
+                    prev_err = err
+                if max_dens_err is not None:
+                    allm = torch.cat([fm, bm])
+                    derr = float(density_loss(
+                        pos2, tgt, fm, fm,
+                        gt_in=torch.cat([pos2, item["box"]], 0),
+                        pred_in=torch.cat([tgt, item["box"]], 0),
+                        gt_in_mask=allm, pred_in_mask=allm, radius=radius0,
+                        win=win_dens, use_max=True, k=k))
+                    diverged |= p > 0 and derr > prev_derr \
+                        and derr > max_dens_err
+                    prev_derr = derr
+                if diverged:  # stop WITHOUT committing this step
+                    break
+                pos, vel, p = pos2, vel2, p + 1
+        # the final loop counter: pre - 1 when completed, else the break
+        pre_eff = max(pre - 1, 0) if p == pre else p
+        return pos, vel, pre_eff
+
+    def item_loss(item, time_w, denom):
+        """One item's warm-up and window; back-propagates its share of the
+        batch loss.  Returns (its lvec share, pre_eff, stats)."""
+        base = {k2: item[k2] for k2 in ("box", "box_normals", "fluid_mask",
+                                        "box_mask")}
+        grav0 = item["grav"][0] if "grav" in item else None
+
+        def make_sample(pos, vel):
+            s = dict(base, pos=pos, vel=vel)
+            if grav0 is not None:
+                s["grav"] = grav0
+            return s
+
+        pos, vel, pre_eff = warmup(item, int(item["pre"]), make_sample)
+
+        def step(pos, vel, t):
+            sample = make_sample(pos, vel)
+            target = item["pos"][t + pre_eff + 1]
+            target_prev = item["pos"][t + pre_eff]
+            pos2, vel2, aux = model(sample, training=True)
+            losses = [eval_losses(sample, pos2, aux, target, target_prev,
+                                  pre_eff)]
+            for _ in range(1, max(its, 1)):
+                pos2, vel2, aux = model(sample, training=True,
+                                        vel_corr=vel2)
+                losses.append(eval_losses(sample, pos2, aux, target,
+                                          target_prev, pre_eff))
+            lvec = torch.stack(losses).mean(dim=0)
+            stats = torch.stack([
+                aux["neighbor_overflow"].float(),
+                aux["pair_overflow"].float(), aux["avg_neighbors"].float()])
+            return pos2, vel2, lvec * time_w[t], stats
+
+        lvecs, stats = [], []
+        for t in range(window):
+            pos, vel, lvec, st = checkpoint(step, pos, vel, t,
+                                            use_reentrant=False)
+            lvecs.append(lvec)
+            stats.append(st)
+        lvec = torch.stack(lvecs).sum(dim=0) / denom
+        lvec.sum().backward()
+        st = torch.stack(stats)
+        return lvec.detach(), pre_eff, (st[:, 0].max(), st[:, 1].max(),
+                                        st[:, 2].mean())
+
+    def train_step(batch, time_w):
+        n_items = batch["pos"].shape[0]
+        if n_items % int(grad_accum):
+            raise ValueError(f"grad_accum {grad_accum} must divide the "
+                             f"batch {n_items}")
+        time_w = torch.as_tensor(np.asarray(time_w, np.float32),
+                                 device=batch["pos"].device)
+        denom = time_w.sum() * n_items
+        for p in params:
+            p.grad = None
+        lvec, pres, stats = 0.0, [], []
+        for b in range(n_items):
+            item = {k2: v[b] for k2, v in batch.items()}
+            lv, pre_eff, st = item_loss(item, time_w, denom)
+            lvec = lvec + lv
+            pres.append(pre_eff)
+            stats.append(torch.stack(st))
+        with torch.no_grad():
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                if w_decay > 0:
+                    p.grad.add_(p, alpha=2.0 * w_decay)
+                if grad_norm > 0:
+                    p.grad.copy_(_clip_by_norm(p.grad, grad_norm))
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        st = torch.stack(stats)
+        return lvec, torch.tensor(pres), {
+            "max_neighbors": st[:, 0].max(), "pair_overflow": st[:, 1].max(),
+            "avg_neighbors": st[:, 2].mean()}
+
+    return train_step

@@ -10,8 +10,9 @@ searches and dense pairs; ASCC output conv; postprocess), and (3) a
 ``torch.profiler`` trace summary: device time per step, the device's busy
 share of the wall time, and the ops with the most device time.  Needs a
 CUDA device; never falls back to the CPU.  ``graph_ms`` (a kernel's
-device time) and ``record_launches`` (the K-list conv calls of one step)
-serve ``chip_smoke.py`` and ``scripts/torch_klist_phases.py`` too.
+device time), ``record_launches`` (the K-list conv calls of one step) and
+``trace`` (a profiler summary of any callable) serve ``chip_smoke.py`` and
+``scripts/torch_klist_phases.py`` too.
 """
 
 from __future__ import annotations
@@ -135,25 +136,32 @@ def profile(steps=20, top=25):
             stages["postprocess"] += t_post / steps
         report["stage_ms"] = stages
 
-        n_prof = 5
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            _, prof_wall = _sync_time(
-                lambda: [model(sample) for _ in range(n_prof)])
+        report.update(trace(lambda: model(sample), reps=5, top=top))
+    return report
+
+
+def trace(fn, reps=5, top=25):
+    """``torch.profiler`` over ``reps`` calls of ``fn``: per call, the wall
+    time (``profiled_ms_per_step``), the device time and its share of the
+    wall, the kernel launches, and the kernels and host ops with the most
+    device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, prof_wall = _sync_time(lambda: [fn() for _ in range(reps)])
     kernels, ops = [], []
     for e in prof.key_averages():
-        row = (e.key, _device_us(e) / n_prof, e.count // n_prof)
+        row = (e.key, _device_us(e) / reps, e.count // reps)
         # device-side events are the kernels themselves; host ops carry
         # the device time of the kernels they launched
         (kernels if str(e.device_type).endswith("CUDA") else ops).append(row)
     kernels.sort(key=lambda r: -r[1])
     ops.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels) / 1e3
-    report["profiled_ms_per_step"] = prof_wall / n_prof
-    report["device_ms_per_step"] = device_ms
-    report["device_busy_share"] = device_ms / (prof_wall / n_prof)
-    report["kernel_launches_per_step"] = sum(r[2] for r in kernels)
+    report = {"profiled_ms_per_step": prof_wall / reps,
+              "device_ms_per_step": device_ms,
+              "device_busy_share": device_ms / (prof_wall / reps),
+              "kernel_launches_per_step": sum(r[2] for r in kernels)}
     for name, rows in (("top_kernels", kernels), ("top_ops", ops)):
         report[name] = [{"name": k, "device_us_per_step": us,
                          "calls_per_step": c}
@@ -162,11 +170,13 @@ def profile(steps=20, top=25):
 
 
 def print_report(report, top=None):
-    """Print a ``profile`` report, the first ``top`` rows of each table."""
-    print(f"device {report['device']}: {report['ms_per_step']:.3f} ms/step "
-          f"over {report['steps']} steps")
-    for k, v in report["stage_ms"].items():
-        print(f"  stage {k:12s} {v:9.3f} ms (synchronised wall)")
+    """Print a ``profile`` report (or a ``trace`` one: no stage times), the
+    first ``top`` rows of each table."""
+    if "stage_ms" in report:
+        print(f"device {report['device']}: {report['ms_per_step']:.3f} "
+              f"ms/step over {report['steps']} steps")
+        for k, v in report["stage_ms"].items():
+            print(f"  stage {k:12s} {v:9.3f} ms (synchronised wall)")
     print(f"profiler: {report['device_ms_per_step']:.3f} ms device time per "
           f"step in {report['kernel_launches_per_step']} kernel launches, "
           f"busy share {report['device_busy_share']:.3f} of "

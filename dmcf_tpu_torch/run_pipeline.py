@@ -1,14 +1,14 @@
-"""Validate / test entry point of the port (same CLI as the root
+"""Train / validate / test entry point of the port (same CLI as the root
 ``run_pipeline.py``):
 
     python -m dmcf_tpu_torch.run_pipeline \
-        --cfg_file configs/other/momentum.yml --split valid \
+        --cfg_file configs/other/momentum.yml --split train|valid|test \
         [--device cuda|cpu] [--pipeline.a.b value ...]
 
-A YAML config with dataset/model/pipeline sections plus dotted overrides.
-``--device`` defaults to ``cuda`` and raises without a GPU; ``cpu`` runs
-the plain PyTorch path.  ``--split train`` raises: training comes with a
-later slice.  Weights are drawn from a ``torch.Generator`` seeded with
+A YAML config with dataset/model/pipeline sections plus dotted overrides;
+the model section's ``loss`` configures the training losses.  ``--device``
+defaults to ``cuda`` and raises without a GPU; ``cpu`` runs the plain
+PyTorch path.  Weights are drawn from a ``torch.Generator`` seeded with
 ``pipeline.seed`` (default 42) unless a checkpoint is restored.
 """
 
@@ -26,7 +26,8 @@ import yaml
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="Validate or test a model")
+    parser = argparse.ArgumentParser(
+        description="Train, validate or test a model")
     parser.add_argument("-c", "--cfg_file", help="path to the config file")
     parser.add_argument("-m", "--model", help="network model")
     parser.add_argument("-p", "--pipeline", default="Simulator")
@@ -62,13 +63,10 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Runs the split and returns its result (the valid loss dict)."""
+    """Runs the split and returns its result: the logged train steps, the
+    valid loss dict, or None for test."""
     cmd_line = " ".join(sys.argv if argv is None else argv)
     args, extra_dict = parse_args(argv)
-    if args.split == "train":
-        raise NotImplementedError(
-            "--split train: training is ported in a later slice (ROADMAP "
-            "queue 1 item 10)")
 
     random.seed(42)
     np.random.seed(42)
@@ -110,7 +108,8 @@ def main(argv=None):
                         generator=torch.Generator().manual_seed(seed))
     pipeline = Pipeline(model, dataset, **cfg_pipeline, config=cfg,
                         restart=args.restart,
-                        model_cfg=cfg_model.to_dict())
+                        model_cfg=cfg_model.to_dict(),
+                        loss_cfg=cfg_model.get("loss"))
     pipeline.writer.text("config", pprint.pformat({
         "cmd_line": cmd_line, "dataset": cfg_dataset,
         "model": cfg_model, "pipeline": cfg_pipeline}, indent=2))
@@ -118,7 +117,9 @@ def main(argv=None):
     try:
         if args.split == "test":
             return pipeline.run_test()
-        return pipeline.run_valid()
+        if args.split == "valid":
+            return pipeline.run_valid()
+        return pipeline.run_train()
     finally:
         pipeline.writer.close()
 

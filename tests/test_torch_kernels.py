@@ -4,8 +4,12 @@ kernel has no CPU or interpret mode); run them on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -q`` (the
 suite's conftest sets up JAX, which a GPU machine need not have).
 
-Tolerance 2e-5 absolute: the kernel sums the K slots and the S*Cin filter
-product in another order than the twin's einsum/matmul (fp32, TF32 off).
+Tolerances: the forward 2e-5 absolute (the kernel sums the K slots and the
+S*Cin filter product in another order than the twin's einsum/matmul; fp32,
+TF32 off); each backward gradient within 1e-5 of that gradient's largest
+reference entry (sums over slots and queries in another order, float
+atomics); a train step's parameter gradients, card against CPU, within
+1e-4 of each tensor's largest (fp32 through a two-step window of 25 convs).
 """
 
 import numpy as np
@@ -13,6 +17,9 @@ import pytest
 import torch
 
 from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
+                                                cconv_klist_bwd_data,
+                                                cconv_klist_bwd_filter,
+                                                cconv_klist_bwd_reference,
                                                 cconv_klist_reference)
 from dmcf_tpu_torch.ops import cconv, coords, neighbors, windows
 from dmcf_tpu_torch.models.pbf import drop_coincident
@@ -235,3 +242,179 @@ def test_hats_mirror_on_card(cuda):
     w = coords.axis_interp_weights(t, 8, "linear")
     assert torch.equal(coords.axis_interp_weights(-t, 8, "linear"),
                        torch.flip(w, dims=(-1,)))
+
+
+def long_list_inputs(q, n, k, cin, cout, seed, device):
+    """The momentum model's downsampling-pair shape: N points in a square,
+    Q queries among them, the radius sized to ~0.8 K points."""
+    g = torch.Generator().manual_seed(seed)
+    side = 0.1
+    pts = torch.rand((n, 3), generator=g) * side
+    pts[:, 2] = 0.0
+    radius = side * (0.8 * k / (n * np.pi)) ** 0.5
+    nl = neighbors.search(pts, pts[:q], radius, k)
+    idx, a, t = cconv.klist_geometry(nl, 2 * radius, (1, 8, 8),
+                                     window_fn=windows.get_window_func(
+                                         "poly6"))
+    feats = torch.randn((n, cin), generator=g)
+    w = torch.randn((64 * cin, cout), generator=g) * w_scale(cin)
+    return [x.to(device) for x in (idx, a, t, feats, w)]
+
+
+BWD_CASES = [  # q, n, k, cin, cout, ksize, symmetric, geometry
+    (2688, 2688, 40, 32, 32, (1, 8, 8), False, "search"),  # trunk
+    (2688, 2688, 40, 32, 2, (1, 8, 8), True, "search"),    # ASCC
+    (2688, 2688, 40, 4, 8, (1, 8, 8), False, "search"),
+    (320, 320, 48, 16, 8, (1, 8, 8), False, "search"),     # momentum K 48
+    (160, 320, 96, 24, 8, (1, 8, 8), False, "long"),       # K 96
+    (80, 320, 256, 24, 4, (1, 8, 8), False, "long"),       # K 256
+    (80, 320, 256, 16, 8, (1, 8, 8), True, "long"),
+    (200, 200, 40, 32, 32, (1, 8, 8), False, "edges"),
+    (200, 200, 40, 8, 3, (4, 4, 4), True, "edges"),
+    (130, 130, 40, 8192, 3, (1, 1, 1), True, "search"),
+    (257, 257, 40, 128, 256, (1, 8, 8), False, "search"),
+]
+
+
+@pytest.mark.parametrize("q,n,k,cin,cout,ksize,symmetric,geometry",
+                         BWD_CASES)
+def test_bwd_kernels_match_reference(cuda, q, n, k, cin, cout, ksize,
+                                     symmetric, geometry):
+    if geometry == "long":
+        idx, a, t, feats, w = long_list_inputs(q, n, k, cin, cout, k + cin,
+                                               cuda)
+        qf = feats[:q].contiguous() if symmetric else None
+    else:
+        (idx, a, t, feats, w), qf = klist_inputs(
+            q, k, cin, cout, ksize, "poly6", symmetric, 7, cuda, geometry)
+    dout = torch.randn((q, cout), device=cuda)
+    before = (cconv_klist_bwd_data.launches, cconv_klist_bwd_filter.launches)
+    args = (dout, idx, a, t, feats, w, ksize, qf)
+    dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*args)
+    dw = cconv_klist_bwd_filter(*args)
+    torch.cuda.synchronize()
+    assert (cconv_klist_bwd_data.launches,
+            cconv_klist_bwd_filter.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = cconv_klist_bwd_reference(*args)
+    for name, got, want in zip(("dfeats", "dqfeats", "dw", "da", "dt"),
+                               (dfeats, dqfeats, dw, da, dt), ref):
+        if want is None:
+            assert got is None, name
+            continue
+        assert torch.isfinite(got).all(), name
+        # a zero gradient (dt of a [1, 1, 1] kernel: size-1 axes have no
+        # slope) must come out exactly zero
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * scale, (name, err, scale)
+
+
+def test_bwd_kernels_clamped_idx(cuda):
+    """Out-of-range indices: the gradient of a slot that read row N-1 lands
+    in row N-1, as in the plain backward."""
+    (idx, a, t, feats, w), _ = klist_inputs(256, 16, 8, 4, (1, 8, 8),
+                                            "poly6", False, 3, cuda)
+    small = feats[:40].contiguous()
+    assert int(idx.max()) >= 40
+    dout = torch.randn((256, 4), device=cuda)
+    args = (dout, idx, a, t, small, w, (1, 8, 8))
+    dfeats = cconv_klist_bwd_data(*args)[0]
+    dw = cconv_klist_bwd_filter(*args)
+    rf, _, rw, _, _ = cconv_klist_bwd_reference(*args)
+    assert float(dfeats[39].abs().max()) > 0
+    torch.testing.assert_close(dfeats, rf, rtol=0,
+                               atol=1e-5 * float(rf.abs().max()))
+    torch.testing.assert_close(dw, rw, rtol=0,
+                               atol=1e-5 * float(rw.abs().max()))
+
+
+def test_autograd_runs_the_bwd_kernels(cuda):
+    """Under autograd a CUDA K-list conv launches its forward kernel once
+    and, in the backward, the data kernel and the filter kernel once each;
+    the gradients are the plain backward's."""
+    (idx, a, t, feats, w), qf = klist_inputs(512, 24, 8, 4, (1, 8, 8),
+                                             "poly6", True, 5, cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (a, t, feats, w, qf)]
+    counts = [f.launches for f in (cconv_klist, cconv_klist_bwd_data,
+                                   cconv_klist_bwd_filter)]
+    out = cconv_klist(idx, *leaves[:4], (1, 8, 8), qfeats=leaves[4])
+    dout = torch.randn_like(out)
+    out.backward(dout)
+    assert [f.launches for f in (cconv_klist, cconv_klist_bwd_data,
+                                 cconv_klist_bwd_filter)] == \
+        [c + 1 for c in counts]
+    dfeats, dqfeats, dw, da, dt = cconv_klist_bwd_reference(
+        dout, idx, a, t, feats, w, (1, 8, 8), qf)
+    for got, want in zip([x.grad for x in leaves],
+                         (da, dt, dfeats, dw, dqfeats)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_symnet_train_step_grads_match_cpu(cuda):
+    """The gradient-cut fault closed: a two-step BPTT train step of a
+    narrow momentum SymNet on the card gives every trunk and ASCC conv
+    weight a non-zero gradient, equal to the CPU path's (the boundary conv
+    sees no neighbour in these scenes and learns nothing on either)."""
+    import copy
+    import os
+
+    import yaml
+
+    from dmcf_tpu_torch.data import batch_samples, gen_momentum_data
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.models.layers import ContinuousConv
+    from dmcf_tpu_torch.models.losses import get_loss
+    from dmcf_tpu_torch.pipelines.simulator import (make_optimizer,
+                                                    make_train_step)
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    with open(os.path.join(root, "configs", "other", "momentum.yml")) as f:
+        cfg = yaml.safe_load(f)["model"]
+    cfg.update(kernel_size=[1, 4, 4], sym_kernel_size=[1, 4, 4],
+               strides=[1, 2], particle_radii=[0.02, 0.04],
+               scale_size_factor=[1.0, 0.5], out_scale=[1e-2, 1e-2, 0.0],
+               neighbor_k=16, neighbor_k_gaps=[32],
+               layer_channels=[[[4]], [[4], [4]], [[4], [4]], [[4]], [[2]]])
+    np.random.seed(42)
+    scene = gen_momentum_data(data_cnt=1, timesteps=6, res=100, radius=12,
+                              dt=0.0025, speed=30.0)[0]
+    items = []
+    for st in (0, 2):
+        fr = scene[st:st + 3]
+        items.append({
+            "pos": np.stack([f["pos"] for f in fr]) * np.float32(0.9),
+            "vel": np.stack([f["vel"] for f in fr]) * np.float32(0.9),
+            "grav": None, "pre": 0,
+            "box": np.asarray(scene[0]["box"], np.float32).reshape(-1, 3),
+            "box_normals": np.zeros((1, 3), np.float32)})
+    batch = {k: torch.as_tensor(v) for k, v in batch_samples(items).items()
+             if v is not None}
+    loss = {"weighted_mse": get_loss(**cfg["loss"]["weighted_mse"])}
+    grads = []
+    # seed 42, run_pipeline's default (this narrow net's seed-0 weights
+    # leave every ReLU before the ASCC layer closed: no gradient anywhere)
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(42))
+    for dev in (cuda, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev)
+        opt, sch = make_optimizer(m, {})
+        counts = [cconv_klist_bwd_data.launches,
+                  cconv_klist_bwd_filter.launches]
+        make_train_step(m, loss, opt, sch, window=2)(
+            {k: v.to(dev) for k, v in batch.items()}, np.ones(2, np.float32))
+        if dev.type == "cuda":
+            # 2 items x 2 steps x 11 convs: the filter kernel every time,
+            # the data kernel but for the 2 scale-0 convs of step 0
+            assert cconv_klist_bwd_filter.launches - counts[1] == 44
+            assert cconv_klist_bwd_data.launches - counts[0] == 40
+        grads.append({n: p.grad.cpu() for n, p in m.named_parameters()})
+    convs = [n for n, mod in model.named_modules()
+             if isinstance(mod, ContinuousConv) and n != "obs_conv"]
+    for name, want in grads[1].items():
+        scale = float(want.abs().max())
+        err = float((grads[0][name] - want).abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)
+    for name in convs:
+        assert float(grads[0][f"{name}.kernel"].abs().max()) > 0, name

@@ -7,6 +7,7 @@ holds the Pallas kernel to, covering contraction order); integer outputs
 (indices, masks, counts) exactly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -378,3 +379,155 @@ def test_symmetric_conv_conserves_momentum():
                                 symmetric=True, query_features=feats)
     ratio = out.sum(0).abs() / out.abs().sum()
     assert bool((ratio < 1e-5).all()), ratio
+
+
+# ---------------------------------------------------------------------------
+# the K-list conv's VJP: the port's autograd (plain twin) and
+# ``cconv_klist_bwd_reference`` against jax.vjp of continuous_conv, with the
+# neighbour displacement and distance recomputed from the positions so that
+# the window weights and filter coordinates carry position gradients.
+# Tolerance: 1e-5 of each gradient's largest JAX entry (fp32 sums in another
+# order; measured ~1e-7).
+
+
+def _vjp_both(pts, feats, kern, nl, symmetric, win, ext=0.15):
+    """Gradients of sum(dout * conv) in (kernel, features, query features,
+    positions) from JAX and from the port's twin, and the port's contract
+    inputs.  ``feats`` may have fewer rows than ``pts`` (clamped gather)."""
+    idx, mask = np.asarray(nl.idx), np.asarray(nl.mask)
+    count = np.asarray(nl.count)
+    rng = np.random.RandomState(11)
+    dout = rng.randn(pts.shape[0], kern.shape[-1]).astype(np.float32)
+    qf = rng.randn(pts.shape[0], feats.shape[1]).astype(np.float32)
+
+    def jconv(kernel, f, q, p):
+        disp = jnp.where(mask[..., None], p[idx] - p[:, None], 0.0)
+        n = jnb.NeighborList(
+            idx=jnp.asarray(idx), mask=jnp.asarray(mask),
+            dist=jnp.where(mask, (disp ** 2).sum(-1), 0.0),
+            count=jnp.asarray(count), disp=disp)
+        return jcc.continuous_conv(
+            kernel, p, p, f, n, ext, window_fn=jwin.get_window_func(win),
+            symmetric=symmetric, query_features=q if symmetric else None)
+
+    _, vjp = jax.vjp(jconv, *(jnp.asarray(x) for x in (kern, feats, qf,
+                                                       pts)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    leaves = [T(x.copy()).requires_grad_(True) for x in (kern, feats, qf,
+                                                         pts)]
+    k_, f_, q_, p_ = leaves
+    ti, tm = T(idx.copy()), T(mask.copy())
+    disp = torch.where(tm[..., None], p_[ti.long()] - p_[:, None], 0.0)
+    tnl = neighbors.NeighborList(
+        idx=ti, mask=tm, dist=torch.where(tm, (disp ** 2).sum(-1), 0.0),
+        count=T(count), disp=disp)
+    out = cconv.continuous_conv(
+        k_, p_, p_, f_, tnl, ext, window_fn=windows.get_window_func(win),
+        symmetric=symmetric, query_features=q_ if symmetric else None)
+    got = torch.autograd.grad(out, leaves, T(dout), allow_unused=True)
+    got = [np.zeros_like(w) if g is None else g.numpy()
+           for g, w in zip(got, want)]
+    geom = cconv.klist_geometry(tnl, ext, kern.shape[:3],
+                                window_fn=windows.get_window_func(win))
+    return want, got, T(dout), geom, T(qf)
+
+
+def _close(got, want, what):
+    scale = np.abs(want).max()
+    assert scale > 0, what
+    np.testing.assert_allclose(got, want, atol=1e-5 * scale, err_msg=what)
+
+
+@pytest.mark.parametrize("symmetric,ksize,dim", [
+    (False, (4, 4, 4), 3), (True, (1, 8, 8), 2)])
+def test_klist_conv_vjp_matches_jax(symmetric, ksize, dim):
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_bwd_reference
+    rng = np.random.RandomState(12)
+    pts = random_cloud(rng, 200, dim=dim)
+    feats = rng.randn(200, 6).astype(np.float32)
+    kern = (rng.randn(*ksize, 6, 3) * 0.1).astype(np.float32)
+    if symmetric:
+        kern = np.asarray(jcc.build_symmetric_kernel(
+            jnp.asarray(kern[:, :4]), 1))
+    nl = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(pts), 0.075,
+                                 24, ignore_query_point=symmetric)
+    win = "peak" if symmetric else "poly6"
+    want, got, dout, (idx, a, t), qf = _vjp_both(pts, feats, kern, nl,
+                                                 symmetric, win)
+    names = ["kernel", "features", "query features"]
+    for g, w, name in zip(got[:3], want[:3], names):
+        if name != "query features" or symmetric:
+            _close(g, w, name)
+    _close(got[3][:, :2], want[3][:, :2], "x/y positions")
+    if dim == 3:
+        _close(got[3][:, 2], want[3][:, 2], "z positions")
+    # the plain backward on the contract: filter, features, query features
+    dfeats, dqfeats, dw, da, dt = cconv_klist_bwd_reference(
+        dout, idx, a, t, T(feats), T(kern).reshape(-1, 3), ksize,
+        qf if symmetric else None)
+    _close(dw.reshape(kern.shape).numpy(), want[0], "reference dw")
+    _close(dfeats.numpy(), want[1], "reference dfeats")
+    if symmetric:
+        _close(dqfeats.numpy(), want[2], "reference dqfeats")
+    assert da.shape == a.shape and dt.shape == t.shape
+    assert float(da.abs().max()) > 0 and float(dt.abs().max()) > 0
+
+
+def test_klist_conv_vjp_clamped_idx_lands_in_last_row():
+    """obs_conv's out-of-range gather (ROADMAP §3): a slot whose index is
+    past the feature rows reads row N-1, so the port's gradient (the twin's
+    autograd and ``cconv_klist_bwd_reference``) adds that slot into row
+    N-1.  JAX's forward reads row N-1 too, but the VJP of its gather drops
+    out-of-range slots: the two agree on every other row, and on row N-1
+    differ by exactly the clamped slots' share.  In the model only
+    obs_conv's box features meet this, and they take no gradient."""
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_bwd_reference
+    rng, pts, _, ext, nl = _conv_inputs(6, q=128, k=8)
+    feats = rng.randn(40, 4).astype(np.float32)
+    kern = (rng.randn(1, 4, 4, 4, 3) * 0.1).astype(np.float32)
+    want, got, dout, (idx, a, t), _ = _vjp_both(pts, feats, kern, nl,
+                                                False, "poly6", ext)
+    assert int(idx.max()) >= 40
+    _close(got[0], want[0], "kernel")
+    _close(got[1][:39], want[1][:39], "features, rows < N-1")
+    w2 = T(kern).reshape(-1, 3)
+    dfeats = cconv_klist_bwd_reference(dout, idx, a, t, T(feats), w2,
+                                       (1, 4, 4))[0].numpy()
+    np.testing.assert_allclose(dfeats, got[1], atol=1e-6)
+    clamped = cconv_klist_bwd_reference(
+        dout, idx, torch.where(idx >= 40, a, 0.0), t, T(feats), w2,
+        (1, 4, 4))[0].numpy()
+    assert not clamped[:39].any() and np.abs(clamped[39]).max() > 1e-2
+    np.testing.assert_allclose(got[1][39], want[1][39] + clamped[39],
+                               atol=1e-5 * np.abs(got[1]).max())
+
+
+def test_klist_conv_vjp_2d_kink_convention():
+    """On a 2D config the z axis has size 1: t_z is clamped to [0, 0] and
+    sits on the kinks of both the clamp and |.|.  The port's hats follow
+    PyTorch autograd (clamp' 1 at a bound, |u|'(0) = 0): its gradient in
+    t_z is exactly 0, where JAX's subgradients (clip' 1/4 at a degenerate
+    bound, |u|'(0) = 1) give -1/4 per hat.  Neither reaches the positions:
+    t_z is z scaled by (1 - 1) / 2 = 0, so both packages' z position
+    gradients are 0, and x/y agree."""
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_bwd_reference
+    rng = np.random.RandomState(13)
+    pts = random_cloud(rng, 150, dim=2)
+    feats = rng.randn(150, 4).astype(np.float32)
+    kern = (rng.randn(1, 4, 4, 4, 3) * 0.1).astype(np.float32)
+    nl = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(pts), 0.075,
+                                 24)
+    want, got, dout, (idx, a, t), _ = _vjp_both(pts, feats, kern, nl,
+                                                False, "poly6")
+    _close(got[3][:, :2], want[3][:, :2], "x/y positions")
+    assert not got[3][:, 2].any() and not want[3][:, 2].any()
+    assert not t[..., 0].any()
+    _, _, _, da, dt = cconv_klist_bwd_reference(
+        dout, idx, a, t, T(feats), T(kern).reshape(-1, 3), (1, 4, 4))
+    assert not dt[..., 0].any() and dt[..., 1:].abs().max() > 0
+    jgrad = jax.grad(lambda x: jcoords.axis_interp_weights(
+        x, 1, "linear").sum())(0.0)
+    tz = torch.zeros((), requires_grad=True)
+    (tgrad,) = torch.autograd.grad(
+        coords.axis_interp_weights(tz, 1, "linear").sum(), tz)
+    assert float(jgrad) == -0.25 and float(tgrad) == 0.0

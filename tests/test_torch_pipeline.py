@@ -300,11 +300,6 @@ def test_run_test_writes_the_same_hdf5(hrnet_pair):
                 np.testing.assert_allclose(g[()], w[()], atol=1e-5)
 
 
-def test_run_train_raises_naming_the_slice(hrnet_pair):
-    with pytest.raises(NotImplementedError, match="training"):
-        hrnet_pair[1].run_train()
-
-
 def narrow_momentum_cfg(tmp_path):
     with open(MOMENTUM) as f:
         cfg = yaml.safe_load(f)
@@ -391,9 +386,6 @@ def test_run_pipeline_valid_on_cpu(tmp_path, monkeypatch):
     assert set(loss) == FULL_KEYS
     assert all(np.isfinite(v) for v in loss.values())
     assert os.listdir(tmp_path / "cache")
-    with pytest.raises(NotImplementedError, match="training"):
-        run_pipeline.main(["--cfg_file", MOMENTUM, "--split", "train",
-                           "--device", "cpu"])
 
 
 def test_bench_fields_on_a_small_cpu_scene():

@@ -4,32 +4,35 @@
     python3 chip_smoke.py
 
 Drives the port (``dmcf_tpu_torch``) only: builds its CUDA kernels from
-the sources in this checkout, holds each kernel against its plain PyTorch
-twin on the card, runs the WaterRamps SymNet (``configs/WaterRamps.yml``,
-full width, random weights from a seeded ``torch.Generator``) on the bench
+the sources in this checkout, holds each kernel variant (fp32 and bf16)
+against its plain PyTorch twin on the card, runs the WaterRamps SymNet
+(``configs/WaterRamps.yml`` at its own precision, a bf16 trunk: full
+width, random weights from a seeded ``torch.Generator``) on the bench
 scene for one step and the bench's timed 600-step rollout
 (``dmcf_tpu_torch.bench.timed_rollout``), checks the bench's exactness
-gate and the kernels' launch counts, holds the kernel against its twin
-again at every launch of the first step (and times each: the conv
-inventory), checks a small-scene
-agreement with the plain path on the CPU, profiles where a step's time
-goes, runs the valid pipeline of ``configs/other/momentum.yml`` (phase 9:
-``Simulator.run_valid`` with the full metric suite, the kernel's launches
-on that path counted exactly, card against CPU, momentum drift), holds
-the two backward kernels against the plain backward at every launch shape
-of a momentum train step and at the WaterRamps trunk shape (phase 10),
-trains the momentum config on the card through ``run_pipeline --split
-train`` with every kernel's launches counted exactly and its first two
-steps held against the CPU path (phase 11), runs one WaterRamps train step
-at batch 16, window 3 (phase 12), and prints one ``kernels`` JSON line
-(launches on each path), the card's name and power limit, and a last
-``{"ok": true, ...}`` line.  A kernel's ``ms`` is the
-mean of calls issued back to back (CUDA events around the loop), its
-``device_ms`` the device time of one call by CUDA-graph replay; where the
-kernel is shorter than the wrapper's host cost the first reads the host.
-Every phase that fails
-ends the script with a non-zero exit; without a CUDA device it exits
-non-zero before doing anything.
+gate, the ASCC output's momentum ratio and each variant's launch counts,
+holds each kernel against its twin again at every launch of the first
+step of the bf16-trunk model and of the fp32 one (and times each: the
+conv inventory), checks a small-scene agreement with the plain path on the
+CPU, profiles where a step's time goes, runs the valid pipeline of
+``configs/other/momentum.yml`` (phase 9: ``Simulator.run_valid`` with the
+full metric suite, each variant's launches on that path counted exactly,
+card against CPU, momentum drift), holds the backward kernels of both
+variants against the plain backward at every launch shape of a momentum
+train step and at the WaterRamps trunk shape (phase 10), trains the
+momentum config on the card through ``run_pipeline --split train`` with
+every kernel variant's launches counted exactly and its first two steps
+held against the CPU path (phase 11), runs one WaterRamps train step at
+batch 16, window 3 (phase 12), runs the fp32 path (precision "highest": a
+100-step rollout and momentum train steps, phase 13), and prints one
+``kernels`` JSON line (each kernel variant, its launches on each path),
+the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
+kernel's ``ms`` is the mean of calls issued back to back (CUDA events
+around the loop), its ``device_ms`` the device time of one call by
+CUDA-graph replay; where the kernel is shorter than the wrapper's host
+cost the first reads the host.  Every phase that fails ends the script
+with a non-zero exit; without a CUDA device it exits non-zero before doing
+anything.
 """
 
 import copy
@@ -45,10 +48,21 @@ import numpy as np
 import torch
 
 HORIZON = 600
+FP32_STEPS = 100             # the fp32 (precision "highest") rollout
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peak
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 without tensor cores
 TF32_FLOP_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TOL = 2e-5                   # kernel vs plain twin, absolute (fp32 sums)
+BF16_TOL = 1e-4              # bf16 forward vs its twin, relative to max
+#   |out|: sums taken in another order before T's bf16 rounding can move an
+#   element of T by one bf16 step
+BF16_BWD_TOL = 2e-3          # bf16 backward kernels vs the plain backward,
+#   relative to each gradient's max; dfeats and dW (rounded to bf16 last)
+#   apart from elements exactly one bf16 step apart: sums taken in other
+#   orders meet a rounding midpoint for ~1e-4 of the elements, so at most
+#   max(4, 1e-3 of them)
+BF16_GRAD_TOL = 2e-2         # bf16 train-step gradients, card vs CPU
 VALID_FRAMES = 5             # frames of phase 9's card-vs-CPU comparison
 BWD_TOL = 1e-5               # backward kernels vs plain backward, relative
 #   to each gradient's max abs (sums over slots and queries in another order,
@@ -67,6 +81,32 @@ DRIFT_BOUND = 1e-4
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def bf16(kw):
+    """Whether a logged K-list call (its kwargs) ran the bf16 variant."""
+    from dmcf_tpu_torch.kernels.cconv_klist import is_bf16
+    return is_bf16(kw.get("precision", "highest"))
+
+
+def kernel_args(args, kw):
+    """A logged call's contract inputs as its kernel takes them: feats and
+    w converted to bf16 for the bf16 variant (the conversion the wrapper
+    does a conv is then not timed with the kernel)."""
+    if not bf16(kw):
+        return args
+    idx, a, t, feats, w, ks = args
+    return idx, a, t, feats.bfloat16(), w.bfloat16(), ks
+
+
+def fwd_check(name, out, ref, kw):
+    """One forward launch against its plain twin: fp32 within TOL
+    absolute, bf16 within BF16_TOL of max |ref|.  Returns the error."""
+    err = float((out - ref).abs().max())
+    tol = BF16_TOL * float(ref.abs().max()) if bf16(kw) else TOL
+    check(bool(torch.isfinite(out).all()), f"{name}: finite output")
+    check(err <= tol, f"{name}: kernel vs twin {err} <= {tol}")
+    return err
 
 
 def check(cond, what):
@@ -91,7 +131,7 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def bound(idx, a, t, feats, w, ksize, qfeats):
+def bound(idx, a, t, feats, w, ksize, qfeats, precision="highest"):
     """Least time the card could take for one K-list conv: its inputs read
     once and its output written once over the HBM rate, or the operations
     this call's data needs over the rate of the unit the kernel does them
@@ -102,14 +142,18 @@ def bound(idx, a, t, feats, w, ksize, qfeats):
     none): on the tensor cores with the 3xTF32 split (three TF32 products
     each, 495 / 3 = 165 TFLOP/s) for a non-symmetric conv, in fp32 for the
     symmetric one, whose self term adds the taps' sum times f_q on those
-    rows.  Returns (ms, "bytes" or "operations", bytes, operations)."""
-    from dmcf_tpu_torch.kernels.cconv_klist import _tap_tensor
+    rows; the bf16 variant reads feats and w as bf16 (2 bytes) and does the
+    product on the bf16 tensor cores (989 TFLOP/s).  Returns (ms, "bytes"
+    or "operations", bytes, operations)."""
+    from dmcf_tpu_torch.kernels.cconv_klist import _tap_tensor, is_bf16
+    half = is_bf16(precision)
     cin, cout = feats.shape[1], w.shape[1]
     nz = _tap_tensor(t, a, ksize) != 0          # [Q, K, S]
     nnz = int(nz.sum())
     rows = int(nz.any(dim=1).sum())             # non-zero rows T[q, s, :]
-    ins = [x for x in (idx, a, t, feats, w, qfeats) if x is not None]
+    ins = [x for x in (idx, a, t, qfeats) if x is not None]
     nbytes = sum(x.numel() * x.element_size() for x in ins) \
+        + (feats.numel() + w.numel()) * (2 if half else 4) \
         + idx.shape[0] * cout * 4
     accumulate = 2 * nnz * cin
     product = 2 * rows * cin * cout
@@ -117,8 +161,8 @@ def bound(idx, a, t, feats, w, ksize, qfeats):
         accumulate += nnz + 2 * rows * cin
         ops_ms = (accumulate + product) / FP32_FLOP_PER_S * 1e3
     else:
-        ops_ms = (accumulate / FP32_FLOP_PER_S
-                  + product / (TF32_FLOP_PER_S / 3)) * 1e3
+        ops_ms = (accumulate / FP32_FLOP_PER_S + product / (
+            BF16_FLOP_PER_S if half else TF32_FLOP_PER_S / 3)) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops = accumulate + product
     if bytes_ms >= ops_ms:
@@ -129,7 +173,8 @@ def bound(idx, a, t, feats, w, ksize, qfeats):
 BWD_NAMES = ("dfeats", "dqfeats", "dw", "da", "dt")
 
 
-def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats):
+def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats,
+              precision="highest"):
     """Least time the card could take for one backward kernel, as
     ``bound`` for the forward, all operations at the fp32 rate.  data:
     reads idx, a, t, feats, w, qfeats, dout, writes dfeats, dqfeats, da,
@@ -137,9 +182,11 @@ def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats):
     (2 Cin Cout each) and, per touched tap, the dA dot product and the dg
     update (4 Cin).  filter: reads the same but w, writes dW; rebuilds T
     over the non-zero taps (2 Cin each) and multiplies it by dout over the
-    touched rows (2 Cin Cout each).  Returns (ms, by)."""
-    from dmcf_tpu_torch.kernels.cconv_klist import _tap_tensor
+    touched rows (2 Cin Cout each).  The bf16 variants read feats and w as
+    bf16 and write dfeats and dW in fp32.  Returns (ms, by)."""
+    from dmcf_tpu_torch.kernels.cconv_klist import _tap_tensor, is_bf16
     cin, cout = feats.shape[1], w.shape[1]
+    half = 2 if is_bf16(precision) else 4
 
     def nbytes(xs):
         return sum(x.numel() * x.element_size() for x in xs if x is not None)
@@ -148,63 +195,83 @@ def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats):
         hz = _tap_tensor(t, torch.ones_like(a), ksize) != 0
         ops = 2 * int(hz.any(dim=1).sum()) * cin * cout \
             + 4 * int(hz.sum()) * cin
-        moved = nbytes((idx, a, t, feats, w, qfeats, dout)) \
-            + nbytes((feats, qfeats, a, t))
+        moved = nbytes((idx, a, t, qfeats, dout)) \
+            + (feats.numel() + w.numel()) * half \
+            + feats.numel() * 4 + nbytes((qfeats, a, t))
     else:
         nz = _tap_tensor(t, a, ksize) != 0
         ops = 2 * int(nz.sum()) * cin + 2 * int(nz.any(dim=1).sum()) * cin \
             * cout
-        moved = nbytes((idx, a, t, feats, qfeats, dout)) + nbytes((w,))
+        moved = nbytes((idx, a, t, qfeats, dout)) + feats.numel() * half \
+            + nbytes((w,))
     ops_ms = ops / FP32_FLOP_PER_S * 1e3
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
 
 
-def bwd_check(args, qfeats, seed):
-    """Both backward kernels at one launch shape (the forward's inputs
-    ``args``) against the plain backward, on a random dout: per gradient
-    the max abs error over that gradient's max abs (0 where both are 0),
-    and the max abs error."""
+def bwd_check(args, qfeats, seed, precision="highest"):
+    """Both backward kernels (the ``precision``'s variant) at one launch
+    shape (the forward's inputs ``args``) against the plain backward, on a
+    random dout: per gradient the max abs error over that gradient's max
+    abs (0 where both are 0), and the max abs error; the bf16 variant's
+    dfeats and dW apart from one-step rounding flips, whose count is
+    checked and printed."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
         cconv_klist_bwd_data, cconv_klist_bwd_filter,
-        cconv_klist_bwd_reference)
+        cconv_klist_bwd_reference, is_bf16, rounding_flips)
     idx, a, t, feats, w, ksize = args
+    half = is_bf16(precision)
+    if half:
+        feats, w = feats.bfloat16(), w.bfloat16()
     g = torch.Generator(device=feats.device).manual_seed(seed)
     dout = torch.randn((idx.shape[0], w.shape[1]), generator=g,
                        device=feats.device)
     full = (dout, idx, a, t, feats, w, ksize, qfeats)
-    dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*full)
-    got = (dfeats, dqfeats, cconv_klist_bwd_filter(*full), da, dt)
+    kw = dict(precision=precision)
+    dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*full, **kw)
+    got = (dfeats, dqfeats, cconv_klist_bwd_filter(*full, **kw), da, dt)
     torch.cuda.synchronize()
-    rel, abs_err = {}, {}
+    tol = BF16_BWD_TOL if half else BWD_TOL
+    rel, abs_err, flips = {}, {}, {}
     for name, x, want in zip(BWD_NAMES, got, cconv_klist_bwd_reference(
-            *full)):
+            *full, **kw)):
         if want is None:
             continue
-        check(bool(torch.isfinite(x).all()), f"{name}: finite")
+        check(bool(torch.isfinite(x.float()).all()), f"{name}: finite")
         scale = float(want.abs().max())
-        err = float((x - want).abs().max())
+        if half and name in ("dfeats", "dw"):
+            err, flips[name] = rounding_flips(x, want)
+            check(flips[name] <= max(4, 1e-3 * want.numel()),
+                  f"{name}: {flips[name]} one-step rounding flips")
+        else:
+            err = float((x - want).abs().max())
         rel[name] = err / scale if scale > 0 else err
         abs_err[name] = err
-        check(err <= BWD_TOL * scale,
-              f"{name}: kernel vs plain backward {err} > {BWD_TOL} x {scale}")
+        check(err <= tol * scale,
+              f"{name}: kernel vs plain backward {err} > {tol} x {scale}")
+    if flips:
+        print("    one-step bf16 rounding flips: " + ", ".join(
+            f"{k} {v} of {got[BWD_NAMES.index(k)].numel()}"
+            for k, v in flips.items()))
     return rel, abs_err, full
 
 
-def bwd_times(full):
+def bwd_times(full, precision="highest"):
     """(data ms, data device ms, filter ms, filter device ms, plain ms,
     data bound (ms, by), filter bound (ms, by)) at one launch shape."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
         cconv_klist_bwd_data, cconv_klist_bwd_filter,
         cconv_klist_bwd_reference)
     from dmcf_tpu_torch.profile_step import graph_ms
-    return (cuda_ms(lambda: cconv_klist_bwd_data(*full), iters=20),
-            graph_ms(lambda: cconv_klist_bwd_data(*full)),
-            cuda_ms(lambda: cconv_klist_bwd_filter(*full), iters=20),
-            graph_ms(lambda: cconv_klist_bwd_filter(*full)),
-            cuda_ms(lambda: cconv_klist_bwd_reference(*full), iters=10),
-            bwd_bound("data", *full), bwd_bound("filter", *full))
+    kw = dict(precision=precision)
+    return (cuda_ms(lambda: cconv_klist_bwd_data(*full, **kw), iters=20),
+            graph_ms(lambda: cconv_klist_bwd_data(*full, **kw)),
+            cuda_ms(lambda: cconv_klist_bwd_filter(*full, **kw), iters=20),
+            graph_ms(lambda: cconv_klist_bwd_filter(*full, **kw)),
+            cuda_ms(lambda: cconv_klist_bwd_reference(*full, **kw),
+                    iters=10),
+            bwd_bound("data", *full, **kw), bwd_bound("filter", *full, **kw))
 
 
 def close(got, want, rtol, atol, what):
@@ -218,9 +285,10 @@ def close(got, want, rtol, atol, what):
 
 def valid_phase(root, dev):
     """Phase 9: ``Simulator.run_valid`` of the momentum config on the card
-    (full width, seed-0 weights, its 2 valid scenes of 40 frames), with
-    every metric finite and the K-list kernel's launches counted exactly
-    (its K 96 and K 256 pairs held against the twin first); then the card
+    (full width, seed-0 weights, its 2 valid scenes of 40 frames; the
+    config's precision, a bf16 trunk), with every metric finite and each
+    K-list kernel variant's launches counted exactly (every launch of a
+    step, K 48, 96 and 256, held against its twin first); then the card
     against the same pipeline on the CPU over the first VALID_FRAMES frames
     of scene 0, and the momentum drift of the card's rollout.
 
@@ -271,47 +339,56 @@ def valid_phase(root, dev):
 
     # each ContinuousConv runs once a step: the 2 scale-0 convs, every
     # (output scale, input scale) pair of every trunk layer, the ASCC stack
+    n_sym = len(model.sym_convs)       # fp32 (ASCC) launches a step
     per_step = 2 + sum(len(row) for layer in model.convs for row in layer) \
-        + len(model.sym_convs)
+        + n_sym
+    half = model.precision != "highest"
+    per_variant = ([n_sym, per_step - n_sym] if half else [per_step, 0])
     seqs = sequences(dg["scale"])
     state = pad_rollout_state(seqs[0])
     pipe = simulator(model, dev, dg["scale"])
     (_, _, aux), log = record_launches(model, pipe._device_state(state, 0))
     torch.cuda.synchronize()
-    max_err = step_device_ms = step_bound_ms = 0.0
+    max_err = {False: 0.0, True: 0.0}
+    step_device_ms = step_bound_ms = 0.0
     with torch.no_grad():
         for name, args, kw, out in log:
-            err = float((out - cconv_klist_reference(*args, **kw))
-                        .abs().max())
-            d_ms = graph_ms(lambda: cconv_klist(*args, **kw))
-            b_ms, b_by, _, _ = bound(*args, kw["qfeats"])
+            err = fwd_check(name, out, cconv_klist_reference(*args, **kw),
+                            kw)
+            kargs = kernel_args(args, kw)
+            d_ms = graph_ms(lambda: cconv_klist(*kargs, **kw))
+            b_ms, b_by, _, _ = bound(*args, kw["qfeats"], kw["precision"])
             step_device_ms += d_ms
             step_bound_ms += b_ms
             idx_, _, _, f_, w_, _ = args
             print(f"  {name:9s} Q {idx_.shape[0]:3d} K {idx_.shape[1]:3d} "
                   f"N {f_.shape[0]:3d} Cin {f_.shape[1]:2d} Cout "
-                  f"{w_.shape[1]:2d}: device time {d_ms:.4f} ms, bound "
-                  f"{b_ms:.5f} ms ({b_by}), max_abs_err {err:.3e}")
-            check(bool(torch.isfinite(out).all()), f"{name}: finite")
-            check(err <= TOL, f"{name}: kernel vs twin {err} <= {TOL}")
-            max_err = max(max_err, err)
+                  f"{w_.shape[1]:2d} {'bf16' if bf16(kw) else 'fp32'}: "
+                  f"device time {d_ms:.4f} ms, bound {b_ms:.5f} ms "
+                  f"({b_by}), max_abs_err {err:.3e}")
+            max_err[bf16(kw)] = max(max_err[bf16(kw)], err)
     print(f"  per step ({len(log)} launches): device time "
           f"{step_device_ms:.4f} ms, bound {step_bound_ms:.5f} ms")
     ks = {args[0].shape[1] for _, args, _, _ in log}
-    check(len(log) == per_step and {96, 256} <= ks,
-          f"{len(log)} launches a step (want {per_step}), K {sorted(ks)}")
-    print(f"  one step: {per_step} launches, K {sorted(ks)}, max "
+    kinds = [sum(not bf16(kw) for _, _, kw, _ in log),
+             sum(bf16(kw) for _, _, kw, _ in log)]
+    check(len(log) == per_step and {48, 96, 256} <= ks
+          and kinds == per_variant,
+          f"{len(log)} launches a step (want {per_step}), K {sorted(ks)}, "
+          f"fp32/bf16 {kinds} (want {per_variant})")
+    print(f"  one step: {per_step} launches (fp32 {kinds[0]}, bf16 "
+          f"{kinds[1]}), K {sorted(ks)}, max "
           f"|pos_correction| {float(aux['pos_correction'].abs().max()):.3e}"
           f", neighbor_overflow {int(aux['neighbor_overflow'])}, "
           f"pair_overflow {int(aux['pair_overflow'])}")
 
-    cconv_klist.launches = 0       # the valid path starts here
+    zero_counts()                  # the valid path starts here
     torch.cuda.synchronize()
     t0 = time.time()
     loss = pipe.run_valid(epoch=0)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = cconv_klist.launches  # the valid path ends here
+    launches = counts()[:2]        # the valid path ends here
     steps = sum(2 * (s["pos"].shape[0] - 1) for s in seqs)
     keys = {"mse_val", "chamfer_val", "chamfer_val_2", "dens_val",
             "max_dens_val", "emd", "vel_diff_val", "vel_diff_val_2",
@@ -327,8 +404,8 @@ def valid_phase(root, dev):
     print("  " + " ".join(f"{k} {v:.6e}" for k, v in loss.items()))
     check(set(loss) == keys, f"valid keys {sorted(loss)}")
     check(all(np.isfinite(v) for v in loss.values()), "finite valid metrics")
-    check(launches == per_step * steps,
-          f"{launches} launches == {per_step} x {steps}")
+    check(launches == [x * steps for x in per_variant],
+          f"fp32/bf16 launches {launches} == {per_variant} x {steps}")
 
     win = get_window_func("poly6")
     r0 = float(cfg["model"]["particle_radii"][0])
@@ -387,7 +464,7 @@ def valid_phase(root, dev):
               f"{DRIFT_BOUND})")
         check(drift <= DRIFT_BOUND, f"momentum drift {drift}")
     tmp.cleanup()
-    return {"launches": launches, "launches_per_step": per_step,
+    return {"launches": launches, "launches_per_step": per_variant,
             "max_abs_err": max_err, "step_device_ms": step_device_ms,
             "step_bound_ms": step_bound_ms}
 
@@ -401,9 +478,11 @@ def momentum_cfg(root):
 def bwd_phase(root, dev, wr_shapes):
     """Phase 10: both backward kernels against the plain backward at every
     launch shape of the first momentum train step (its first batch item,
-    data scaled by 0.9; K 48, 96 and 256, the ASCC conv symmetric) and at
-    the WaterRamps trunk and ASCC shapes, each timed beside its bound and
-    the plain backward.  Returns the numbers for the kernels line."""
+    data scaled by 0.9; K 48, 96 and 256, the ASCC conv symmetric), each
+    non-symmetric shape in both variants (the step's own, bf16, and fp32),
+    and at the WaterRamps trunk (both variants) and ASCC shapes, each timed
+    beside its bound and the plain backward.  Returns the numbers for the
+    kernels line, per variant ("highest", "default")."""
     from dmcf_tpu_torch.data import DatasetGroup, get_dataloader
     from dmcf_tpu_torch.models import build_model
     from dmcf_tpu_torch.profile_step import record_launches
@@ -424,91 +503,114 @@ def bwd_phase(root, dev, wr_shapes):
               for k in ("pos", "vel", "box", "box_normals", "fluid_mask",
                         "box_mask")}
     _, log = record_launches(model, sample)
-    worst, worst_abs = {}, {}
-    totals = dict(data_ms=0.0, data_device_ms=0.0, filter_ms=0.0,
-                  filter_device_ms=0.0, plain_ms=0.0, data_bound_ms=0.0,
-                  filter_bound_ms=0.0)
-    for i, (name, args, kw, _) in enumerate(log):
-        rel, err, full = bwd_check(args, kw["qfeats"], i)
+    precisions = ("highest", "default")
+    worst = {p: {} for p in precisions}
+    worst_abs = {p: {} for p in precisions}
+    totals = {p: dict(data_ms=0.0, data_device_ms=0.0, filter_ms=0.0,
+                      filter_device_ms=0.0, plain_ms=0.0, data_bound_ms=0.0,
+                      filter_bound_ms=0.0) for p in precisions}
+
+    def one(args, qfeats, seed, prec, what):
+        rel, err, full = bwd_check(args, qfeats, seed, prec)
+        tm = bwd_times(full, prec)
         for k, v in err.items():
-            worst_abs[k] = max(worst_abs.get(k, 0.0), v)
-        tm = bwd_times(full)
-        for key, v in zip(("data_ms", "data_device_ms", "filter_ms",
-                           "filter_device_ms", "plain_ms"), tm[:5]):
-            totals[key] += v
-        totals["data_bound_ms"] += tm[5][0]
-        totals["filter_bound_ms"] += tm[6][0]
+            worst_abs[prec][k] = max(worst_abs[prec].get(k, 0.0), v)
         for k, v in rel.items():
-            worst[k] = max(worst.get(k, 0.0), v)
+            worst[prec][k] = max(worst[prec].get(k, 0.0), v)
+        print(f"  {what} {'bf16' if prec == 'default' else 'fp32'}: data "
+              f"{tm[0]:.4f} ms (device {tm[1]:.4f}, bound {tm[5][0]:.5f} "
+              f"{tm[5][1]}), filter {tm[2]:.4f} ms (device {tm[3]:.4f}, "
+              f"bound {tm[6][0]:.5f} {tm[6][1]}), plain {tm[4]:.4f} ms; rel "
+              "err " + " ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        return tm
+
+    for i, (name, args, kw, _) in enumerate(log):
         idx_, _, _, f_, w_, _ = args
-        print(f"  {name:9s} Q {idx_.shape[0]:3d} K {idx_.shape[1]:3d} "
-              f"N {f_.shape[0]:3d} Cin {f_.shape[1]:2d} Cout "
-              f"{w_.shape[1]:2d}: data {tm[0]:.4f} ms (device {tm[1]:.4f},"
-              f" bound {tm[5][0]:.5f} {tm[5][1]}), filter {tm[2]:.4f} ms "
-              f"(device {tm[3]:.4f}, bound {tm[6][0]:.5f} {tm[6][1]}), plain"
-              f" {tm[4]:.4f} ms; rel err " + " ".join(
-                  f"{k} {v:.2e}" for k, v in rel.items()))
+        what = (f"{name:9s} Q {idx_.shape[0]:3d} K {idx_.shape[1]:3d} N "
+                f"{f_.shape[0]:3d} Cin {f_.shape[1]:2d} Cout {w_.shape[1]:2d}")
+        for prec in (("highest", "default") if bf16(kw) else ("highest",)):
+            tm = one(args, kw["qfeats"], i, prec, what)
+            t = totals[prec]
+            for key, v in zip(("data_ms", "data_device_ms", "filter_ms",
+                               "filter_device_ms", "plain_ms"), tm[:5]):
+                t[key] += v
+            t["data_bound_ms"] += tm[5][0]
+            t["filter_bound_ms"] += tm[6][0]
     ks = {args[0].shape[1] for _, args, _, _ in log}
     check({48, 96, 256} <= ks and any(kw["qfeats"] is not None
-                                      for _, _, kw, _ in log),
+                                      for _, _, kw, _ in log)
+          and any(bf16(kw) for _, _, kw, _ in log),
           f"momentum launch shapes K {sorted(ks)}")
-    print(f"  per momentum step ({len(log)} shapes): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in totals.items()))
+    for prec in precisions:
+        print(f"  per momentum step ({len(log)} shapes), "
+              f"{'bf16' if prec == 'default' else 'fp32'}: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in totals[prec].items()))
     out = {"momentum_step": totals}
-    for name in ("trunk", "ascc"):
-        i_, a_, t_, f_, w_, ks_, qf_ = wr_shapes[name]
-        rel, err, full = bwd_check((i_, a_, t_, f_, w_, ks_), qf_, 100)
-        for k, v in err.items():
-            worst_abs[k] = max(worst_abs.get(k, 0.0), v)
-        tm = bwd_times(full)
-        for k, v in rel.items():
-            worst[k] = max(worst.get(k, 0.0), v)
-        print(f"  WaterRamps {name} (Q {i_.shape[0]} K {i_.shape[1]} Cin "
-              f"{f_.shape[1]} Cout {w_.shape[1]}): data {tm[0]:.4f} ms "
-              f"(device {tm[1]:.4f}, bound {tm[5][0]:.5f} {tm[5][1]}), "
-              f"filter {tm[2]:.4f} ms (device {tm[3]:.4f}, bound "
-              f"{tm[6][0]:.5f} {tm[6][1]}), plain {tm[4]:.4f} ms; rel err "
-              + " ".join(f"{k} {v:.2e}" for k, v in rel.items()))
-        out[name] = tm
-    print("  worst rel err over all shapes (tol %g): " % BWD_TOL + " ".join(
-        f"{k} {v:.2e}" for k, v in worst.items()))
+    i_, a_, t_, f_, w_, ks_, _ = wr_shapes["trunk"]
+    for prec in precisions:
+        out[("trunk", prec)] = one((i_, a_, t_, f_, w_, ks_), None, 100,
+                                   prec, "WaterRamps trunk (Q "
+                                   f"{i_.shape[0]} K {i_.shape[1]} Cin "
+                                   f"{f_.shape[1]} Cout {w_.shape[1]})")
+    i_, a_, t_, f_, w_, ks_, qf_ = wr_shapes["ascc"]
+    out[("ascc", "highest")] = one((i_, a_, t_, f_, w_, ks_), qf_, 101,
+                                   "highest", "WaterRamps ASCC")
+    for prec in precisions:
+        tol = BF16_BWD_TOL if prec == "default" else BWD_TOL
+        print(f"  worst rel err over all shapes, "
+              f"{'bf16' if prec == 'default' else 'fp32'} (tol {tol:g}): "
+              + " ".join(f"{k} {v:.2e}" for k, v in worst[prec].items()))
     out["worst"], out["worst_abs"] = worst, worst_abs
     return out
 
 
 def counts():
+    """Launches of each kernel variant: [forward fp32, forward bf16, data
+    fp32, data bf16, filter fp32, filter bf16]."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
         cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
-    return [f.launches for f in (cconv_klist, cconv_klist_bwd_data,
-                                 cconv_klist_bwd_filter)]
+    return [n for f in (cconv_klist, cconv_klist_bwd_data,
+                        cconv_klist_bwd_filter)
+            for n in (f.launches, f.launches_bf16)]
 
 
 def zero_counts():
     from dmcf_tpu_torch.kernels.cconv_klist import (
         cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
     for f in (cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter):
-        f.launches = 0
+        f.launches = f.launches_bf16 = 0
 
 
-def expected_train_launches(items, window, convs):
-    """Launches of one train step over ``items`` items: the forward kernel
-    twice a conv a step (the forward and its recompute under the per-step
-    checkpoint), the filter kernel once a conv a step, the data kernel the
-    same but for the two scale-0 convs of step 0, whose inputs (the
-    detached starting state) take no gradient."""
-    return [2 * items * window * convs, items * (window * convs - 2),
-            items * window * convs]
+def expected_train_launches(items, window, convs, bf16_convs):
+    """Launches of one train step over ``items`` items, as ``counts``
+    orders them, of a model with ``convs`` K-list convs of which
+    ``bf16_convs`` (the scale-0 and trunk convs at the default precision)
+    run the bf16 variants: each variant's forward kernel twice a conv a
+    step (the forward and its recompute under the per-step checkpoint), its
+    filter kernel once a conv a step, its data kernel the same but for the
+    two scale-0 convs of step 0, whose inputs (the detached starting state)
+    take no gradient."""
+    n = {False: convs - bf16_convs, True: bf16_convs}
+    scale0 = {False: 2 - min(2, bf16_convs), True: min(2, bf16_convs)}
+    out = [0] * 6
+    for half in (False, True):
+        out[int(half)] = 2 * items * window * n[half]
+        out[2 + int(half)] = items * (window * n[half] - scale0[half])
+        out[4 + int(half)] = items * window * n[half]
+    return out
 
 
 def train_phase(root, dev):
     """Phase 11: ``run_pipeline --split train`` of the momentum config on
-    the card (data scaled by 0.9, TRAIN_ITERS iterations of batch 2, window
-    3, then its per-epoch ``run_valid``) with every kernel's launches
-    counted exactly and the losses finite; then the first two train steps
-    of a seeded loader on the card and on the CPU from the same weights
-    (the CPU model takes the card's weights before each step): loss
-    vectors and every parameter's gradient compared, every trunk and ASCC
-    conv weight's gradient non-zero; then the card's s per train step."""
+    the card (its precision: a bf16 trunk; data scaled by 0.9, TRAIN_ITERS
+    iterations of batch 2, window 3, then its per-epoch ``run_valid``) with
+    every kernel variant's launches counted exactly and the losses finite;
+    then the first two train steps of a seeded loader on the card and on
+    the CPU from the same weights (the CPU model takes the card's weights
+    before each step): loss vectors and every parameter's gradient
+    compared (bf16: within BF16_GRAD_TOL, the card and the CPU rounding
+    sums taken in other orders), every trunk and ASCC conv weight's
+    gradient non-zero; then the card's s per train step."""
     from dmcf_tpu_torch import run_pipeline
     from dmcf_tpu_torch.data import DatasetGroup, get_dataloader, get_rollout
     from dmcf_tpu_torch.models import build_model
@@ -532,6 +634,9 @@ def train_phase(root, dev):
     convs = [n for n, m in model.named_modules()
              if isinstance(m, ContinuousConv)]
     per_step = len(convs)
+    n_bf16 = sum(model.get_submodule(n).precision != "highest"
+                 for n in convs)
+    grad_tol = BF16_GRAD_TOL if n_bf16 else GRAD_TOL
     batch_size, window = int(pcfg["batch_size"]), int(pcfg["windows"][0])
     tmp = tempfile.TemporaryDirectory()
     args = ["--cfg_file", os.path.join(root, "configs", "other",
@@ -552,15 +657,17 @@ def train_phase(root, dev):
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = counts()         # the training path ends here
-    step = expected_train_launches(batch_size, window, per_step)
-    want = [TRAIN_ITERS * step[0] + per_step * valid_steps,
-            TRAIN_ITERS * step[1], TRAIN_ITERS * step[2]]
+    step = expected_train_launches(batch_size, window, per_step, n_bf16)
+    want = [TRAIN_ITERS * x for x in step]
+    want[0] += (per_step - n_bf16) * valid_steps   # run_valid's forwards
+    want[1] += n_bf16 * valid_steps
     losses = [e["loss"] for e in logged]
     print(f"  run_pipeline --split train: {TRAIN_ITERS} iterations + "
           f"run_valid ({valid_steps} model steps) in {seconds:.3f} s; "
-          f"launches cconv_klist {launches[0]}, bwd_data {launches[1]}, "
-          f"bwd_filter {launches[2]} (want {want}: a step "
-          f"{step}, {per_step} convs, batch {batch_size}, window {window})")
+          f"launches (fp32, bf16) cconv_klist {launches[0:2]}, bwd_data "
+          f"{launches[2:4]}, bwd_filter {launches[4:6]} (want {want}: a "
+          f"step {step}, {per_step} convs of which {n_bf16} bf16, batch "
+          f"{batch_size}, window {window})")
     print("  losses " + " ".join(f"{v:.6e}" for v in losses))
     check(len(losses) == TRAIN_ITERS and all(np.isfinite(losses)),
           "finite train losses")
@@ -596,14 +703,14 @@ def train_phase(root, dev):
             scale = float(pc.grad.abs().max())
             err = float((pg.grad.cpu() - pc.grad).abs().max())
             grad_err = max(grad_err, err / scale if scale else err)
-            check(err <= GRAD_TOL * scale,
-                  f"step {i} {name}: grad card vs CPU {err} > {GRAD_TOL} x "
+            check(err <= grad_tol * scale,
+                  f"step {i} {name}: grad card vs CPU {err} > {grad_tol} x "
                   f"{scale}")
             if name.endswith(".kernel") and name[:-7] in convs \
                     and float(pg.grad.abs().max()) == 0:
                 zero.append(name)
         print(f"  step {i}: gradients card vs CPU within {grad_err:.2e} of "
-              f"each tensor's max (tol {GRAD_TOL}); conv weights with a "
+              f"each tensor's max (tol {grad_tol}); conv weights with a "
               f"zero gradient: {zero}")
         # the one boundary point is far from the fluid: obs_conv sees only
         # itself and its output reaches no fluid particle
@@ -630,11 +737,64 @@ def train_phase(root, dev):
             "step_s": step_s, "grad_rel_err": grad_err, "seconds": seconds}
 
 
-def waterramps_train_phase(root, dev, model, sample, klist):
+def fp32_train_phase(root, dev, steps=3):
+    """Phase 13's training half: momentum train steps (batch 2, window 3,
+    data scaled by 0.9) of the model at precision "highest", seconds a step
+    over ``steps`` after a warm-up step, the launches (all fp32) counted
+    exactly."""
+    from dmcf_tpu_torch.data import DatasetGroup, get_dataloader
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.models.layers import ContinuousConv
+    from dmcf_tpu_torch.models.losses import get_loss
+    from dmcf_tpu_torch.pipelines.simulator import (make_optimizer,
+                                                    make_train_step)
+
+    cfg = momentum_cfg(root)
+    pcfg = cfg["pipeline"]
+    model = build_model(dict(cfg["model"], precision="highest"), device=dev,
+                        generator=torch.Generator().manual_seed(42))
+    convs = sum(isinstance(m, ContinuousConv) for m in model.modules())
+    group = DatasetGroup(split="train", cache_dir=None, **cfg["dataset"])
+    dg = dict(pcfg["data_generator"], scale=[0.9, 0.9, 0.0])
+    split = {k: v for k, v in dg.items() if k not in ("train", "valid",
+                                                      "test")}
+    batch_size, window = int(pcfg["batch_size"]), int(pcfg["windows"][0])
+    loader = get_dataloader(group.train, batch_size=batch_size,
+                            window=window, **split,
+                            **dict(dg["train"], seed=0))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                next(loader).items() if v is not None}
+               for _ in range(steps + 1)]
+    loader.close()
+    loss = {k: get_loss(**v) for k, v in cfg["model"]["loss"].items()}
+    step = make_train_step(model, loss, *make_optimizer(
+        model, pcfg["optimizer"]), window=window)
+    time_w = np.ones(window, np.float32)
+    step(batches[0], time_w)
+    zero_counts()                # the fp32 training path starts here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for b in batches[1:]:
+        step(b, time_w)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / steps
+    got = counts()               # and ends here
+    want = [steps * x for x in expected_train_launches(batch_size, window,
+                                                       convs, 0)]
+    print(f"  fp32 momentum train step (batch {batch_size}, window "
+          f"{window}): {step_s:.4f} s over {steps} steps; launches {got} "
+          f"(want {want})")
+    check(got == want, f"fp32 train launches {got} == {want}")
+    return step_s
+
+
+def waterramps_train_phase(root, dev, model, sample, klist, klist_bf16):
     """Phase 12: one WaterRamps train step at the config's first
-    curriculum stage (batch 16, window 3, ``dense_n_chunk`` 256) on a
-    4-frame sequence the port's rollout makes from the bench scene: time,
-    peak device memory, a finite loss, the launches counted exactly."""
+    curriculum stage (batch 16, window 3, ``dense_n_chunk`` 256) and its
+    precision (a bf16 trunk) on a 4-frame sequence the port's rollout makes
+    from the bench scene: time, peak device memory, a finite loss, the
+    launches of each kernel variant counted exactly (``klist`` K-list convs
+    a step, ``klist_bf16`` of them bf16)."""
     import yaml
 
     from dmcf_tpu_torch.models.losses import get_loss
@@ -669,13 +829,13 @@ def waterramps_train_phase(root, dev, model, sample, klist):
     seconds = time.time() - t0
     launches = counts()          # and ends here
     peak = torch.cuda.max_memory_allocated(dev)
-    want = expected_train_launches(batch_size, window, klist)
+    want = expected_train_launches(batch_size, window, klist, klist_bf16)
     print(f"  batch {batch_size} x window {window}, {n} fluid rows: "
           f"{seconds:.3f} s, peak memory allocated {peak / 2 ** 30:.3f} GiB"
           f", loss {float(lvec.sum()):.6e}, max_neighbors "
           f"{float(stats['max_neighbors']):.0f}, pair_overflow "
           f"{float(stats['pair_overflow']):.0f}; launches {launches} (want "
-          f"{want}: {klist} K-list convs a step)")
+          f"{want}: {klist} K-list convs a step, {klist_bf16} bf16)")
     check(bool(torch.isfinite(lvec).all()), "finite WaterRamps loss")
     check(launches == want, f"WaterRamps train launches {launches}")
     check(all(bool(torch.isfinite(p.grad).all())
@@ -770,14 +930,16 @@ def main(argv):
     for name, log in logs.items():
         print(f"{name}: {'compiled' if log else 'already built'}")
         for line in log.splitlines():
-            if "entry function" in line:  # the variant: <false> trunk,
-                print(f"  {line.split(chr(39))[1]}")  # <true> symmetric
+            if "entry function" in line:  # the variant: <kSym, kTaps,
+                print(f"  {line.split(chr(39))[1]}")  # kBF16> and so on
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}")
     lib = build.load_library("cconv_klist")
-    for cin, cout, sym in ((32, 32, 0), (4, 8, 0), (32, 2, 1)):
+    for cin, cout, sym, half in ((32, 32, 0, 0), (32, 32, 0, 1),
+                                 (4, 8, 0, 1), (32, 2, 1, 0)):
         print(f"  dynamic shared memory, S 64 Cin {cin} Cout {cout} sym "
-              f"{sym}: {lib.cconv_klist_smem_bytes(cin, cout, 1, 8, 8, sym)}"
+              f"{sym} bf16 {half}: "
+              f"{lib.cconv_klist_smem_bytes(cin, cout, 1, 8, 8, sym, half)}"
               f" B a block")
 
     phase("3 kernel vs plain twin")
@@ -788,39 +950,53 @@ def main(argv):
     shapes = waterramps_shapes(cfg, sample, dev)
     q, k = shapes["trunk"][0].shape
     ksize = shapes["trunk"][5]
-    max_err = 0.0
-    for name, (i_, a_, t_, f_, w_, ks_, qf_) in shapes.items():
-        got = cconv_klist(i_, a_, t_, f_, w_, ks_, qfeats=qf_)
-        again = cconv_klist(i_, a_, t_, f_, w_, ks_, qfeats=qf_)
+    max_err = {False: 0.0, True: 0.0}
+    checks = [(name, "highest") for name in shapes] + [("trunk", "default")]
+    for name, prec in checks:
+        i_, a_, t_, f_, w_, ks_, qf_ = shapes[name]
+        kw = dict(qfeats=qf_, precision=prec)
+        got = cconv_klist(i_, a_, t_, f_, w_, ks_, **kw)
+        again = cconv_klist(i_, a_, t_, f_, w_, ks_, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(got, again), f"{name}: two launches bitwise equal")
-        ref = cconv_klist_reference(i_, a_, t_, f_, w_, ks_, qfeats=qf_)
-        err = float((got - ref).abs().max())
+        what = f"{name} {'bf16' if bf16(kw) else 'fp32'}"
+        check(torch.equal(got, again), f"{what}: two launches bitwise equal")
+        ref = cconv_klist_reference(i_, a_, t_, f_, w_, ks_, **kw)
+        err = fwd_check(what, got, ref, kw)
         ratio = float((got.sum(0).abs() / got.abs().sum()).max())
-        print(f"{name}: Q {q} K {k} Cin {f_.shape[1]} Cout {w_.shape[1]} "
-              f"max_abs_err {err:.3e} (tol {TOL}) momentum_ratio "
-              f"{ratio:.3e}")
-        check(bool(torch.isfinite(got).all()), f"{name}: finite output")
-        check(err <= TOL, f"{name}: kernel vs twin {err} <= {TOL}")
+        print(f"{what}: Q {q} K {k} Cin {f_.shape[1]} Cout {w_.shape[1]} "
+              f"max_abs_err {err:.3e} (tol "
+              f"{BF16_TOL * float(ref.abs().max()) if bf16(kw) else TOL:.3e})"
+              f" momentum_ratio {ratio:.3e}")
         if name == "ascc":
             check(ratio < 1e-5, f"ASCC momentum ratio {ratio} < 1e-5")
-        max_err = max(max_err, err)
+        max_err[bf16(kw)] = max(max_err[bf16(kw)], err)
+    trunk = {}
     i_, a_, t_, f_, w_, _, _ = shapes["trunk"]
-    kernel_ms = cuda_ms(lambda: cconv_klist(i_, a_, t_, f_, w_, ksize))
-    device_ms = graph_ms(lambda: cconv_klist(i_, a_, t_, f_, w_, ksize))
-    plain_ms = cuda_ms(lambda: cconv_klist_reference(i_, a_, t_, f_, w_,
-                                                     ksize))
-    bound_ms, bound_by, nbytes, ops = bound(i_, a_, t_, f_, w_, ksize, None)
-    print(f"trunk shape: kernel {kernel_ms:.4f} ms (device time "
-          f"{device_ms:.4f}), plain twin {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} FLOP), share "
-          f"of bound {bound_ms / kernel_ms:.3f} (of device time "
-          f"{bound_ms / device_ms:.3f})")
+    for prec in ("highest", "default"):
+        kw = dict(precision=prec)
+        kargs = kernel_args((i_, a_, t_, f_, w_, ksize), kw)
+        trunk[prec] = dict(
+            ms=cuda_ms(lambda: cconv_klist(*kargs, **kw)),
+            device_ms=graph_ms(lambda: cconv_klist(*kargs, **kw)),
+            plain_ms=cuda_ms(lambda: cconv_klist_reference(
+                i_, a_, t_, f_, w_, ksize, **kw)))
+        b_ms, b_by, nbytes, ops = bound(i_, a_, t_, f_, w_, ksize, None,
+                                        prec)
+        trunk[prec].update(bound_ms=b_ms, bound_by=b_by)
+        tm = trunk[prec]
+        print(f"trunk shape {'bf16' if bf16(kw) else 'fp32'}: kernel "
+              f"{tm['ms']:.4f} ms (device time {tm['device_ms']:.4f}), "
+              f"plain twin {tm['plain_ms']:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}: {nbytes} B, {ops} FLOP), share of bound "
+              f"{b_ms / tm['ms']:.3f} (of device time "
+              f"{b_ms / tm['device_ms']:.3f})")
 
-    phase("4 one WaterRamps SymNet step")
+    phase("4 one WaterRamps SymNet step (the config's precision: a bf16 "
+          "trunk)")
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(0))
-    cconv_klist.launches = 0   # main path starts here
+    check(model.precision == "default", f"precision {model.precision}")
+    zero_counts()              # main path starts here
     t0 = time.time()
     # keeps each kernel launch of this step (its conv's module name, inputs
     # and output) for phase 6
@@ -830,59 +1006,76 @@ def main(argv):
     check(p1.shape == sample["pos"].shape, "step output shape")
     check(bool(torch.isfinite(p1[fm]).all() and torch.isfinite(v1[fm]).all()),
           "finite step output")
-    step_launches = cconv_klist.launches
+    step_launches = counts()[:2]
     print(f"first step {1e3 * (time.time() - t0):.1f} ms, kernel launches "
-          f"{step_launches}, neighbor_overflow "
-          f"{int(aux['neighbor_overflow'])}, pair_overflow "
+          f"fp32 {step_launches[0]} bf16 {step_launches[1]}, "
+          f"neighbor_overflow {int(aux['neighbor_overflow'])}, pair_overflow "
           f"{int(aux['pair_overflow'])}, scale_counts "
           f"{aux['scale_counts'].tolist()} caps "
           f"{aux['scale_caps'].tolist()}")
-    check(step_launches == 19 == len(launch_log),
-          f"{step_launches} kernel launches per step")
+    check(step_launches == [1, 18] and len(launch_log) == 19,
+          f"{step_launches} fp32/bf16 kernel launches per step")
 
-    phase(f"5 rollout ({steps} steps, the bench's timed rollout)")
+    phase(f"5 rollout ({steps} steps, the bench's timed rollout, bf16 "
+          "trunk)")
     pos, vel, gate, dt = timed_rollout(model, sample, steps)
-    launches = cconv_klist.launches   # main path ends here
+    launches = counts()[:2]    # main path ends here
     finite = bool(torch.isfinite(pos[fm]).all())
-    print(f"steps {steps}, {1e3 * dt / steps:.3f} ms/step "
-          f"({steps / dt:.2f} steps/s), finite {finite}, gate {gate}")
+    ms_step = 1e3 * dt / steps
+    print(f"steps {steps}, {ms_step:.3f} ms/step ({steps / dt:.2f} "
+          f"steps/s), finite {finite}, gate {gate}")
     check(finite, "finite rollout")
     check(gate["exact"], f"exactness gate {gate}")
-    expected = 19 * (1 + steps)
+    expected = [1 + steps, 18 * (1 + steps)]
     check(launches == expected, f"{launches} launches == {expected}")
+    end = dict(sample, pos=pos, vel=vel)
+    _, end_log = record_launches(model, end)
+    sym = [out for name, _, _, out in end_log if name == "sym_conv0"][0]
+    ratio = float((sym.sum(0).abs() / sym.abs().sum()).max())
+    print(f"ASCC output after the rollout: |sum out| / sum |out| "
+          f"{ratio:.3e} (< 1e-5)")
+    check(ratio < 1e-5, f"ASCC momentum ratio after the rollout {ratio}")
 
-    phase("6 kernel vs plain twin at each launch of the first step")
-    step_ms = step_device_ms = step_plain_ms = step_bound_ms = 0.0
+    phase("6 kernel vs plain twin at each launch of the first step, both "
+          "variants")
+    fp32_model = build_model(dict(cfg, precision="highest"), device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    _, fp32_log = record_launches(fp32_model, sample)
+    per_launch = {}  # (model, bf16 launch): [launches, ms, device ms,
+    #                  plain ms, bound ms] summed over a step
+    runs = [("model_bf16", e) for e in launch_log] \
+        + [("model_fp32", e) for e in fp32_log]
     with torch.no_grad():
-        for name, args, kw, out in launch_log:
-            ref = cconv_klist_reference(*args, **kw)
-            err = float((out - ref).abs().max())
-            check(bool(torch.isfinite(out).all()), f"{name}: finite output")
-            check(err <= TOL, f"{name}: kernel vs twin {err} <= {TOL}")
-            max_err = max(max_err, err)
-            ms = cuda_ms(lambda: cconv_klist(*args, **kw), iters=20)
-            d_ms = graph_ms(lambda: cconv_klist(*args, **kw))
+        for key, (name, args, kw, out) in runs:
+            err = fwd_check(name, out, cconv_klist_reference(*args, **kw),
+                            kw)
+            max_err[bf16(kw)] = max(max_err[bf16(kw)], err)
+            kargs = kernel_args(args, kw)
+            ms = cuda_ms(lambda: cconv_klist(*kargs, **kw), iters=20)
+            d_ms = graph_ms(lambda: cconv_klist(*kargs, **kw))
             p_ms = cuda_ms(lambda: cconv_klist_reference(*args, **kw),
                            iters=20)
-            b_ms, b_by, _, _ = bound(*args, kw["qfeats"])
-            step_ms += ms
-            step_device_ms += d_ms
-            step_plain_ms += p_ms
-            step_bound_ms += b_ms
+            b_ms, b_by, _, _ = bound(*args, kw["qfeats"], kw["precision"])
+            sums = per_launch.setdefault((key, bf16(kw)), [0, 0.0, 0.0,
+                                                           0.0, 0.0])
+            for n_, v in enumerate((1, ms, d_ms, p_ms, b_ms)):
+                sums[n_] += v
             idx_, _, _, f_, w_, ks_ = args
             print(f"{name:11s} Q {idx_.shape[0]:4d} K {idx_.shape[1]} "
                   f"N {f_.shape[0]:4d} Cin {f_.shape[1]:2d} "
                   f"Cout {w_.shape[1]:2d} S {int(np.prod(ks_))} "
+                  f"{'bf16' if bf16(kw) else 'fp32'} "
                   f"sym {kw['qfeats'] is not None:d}: kernel {ms:.4f} ms "
                   f"(device time {d_ms:.4f}), plain twin {p_ms:.4f} ms, "
                   f"bound {b_ms:.5f} ms ({b_by}), max_abs_err {err:.3e}")
-    print(f"per step ({len(launch_log)} launches): kernel {step_ms:.4f} ms "
-          f"(device time {step_device_ms:.4f}), plain twin "
-          f"{step_plain_ms:.4f} ms, bound {step_bound_ms:.5f} ms, share of "
-          f"bound {step_bound_ms / step_ms:.3f} (of device time "
-          f"{step_bound_ms / step_device_ms:.3f})")
+    for (key, half), (n_, ms, d_ms, p_ms, b_ms) in per_launch.items():
+        print(f"per step, {key} model, {'bf16' if half else 'fp32'} "
+              f"launches ({n_}): kernel {ms:.4f} ms (device time "
+              f"{d_ms:.4f}), plain twin {p_ms:.4f} ms, bound {b_ms:.5f} ms,"
+              f" share of bound {b_ms / ms:.3f} (of device time "
+              f"{b_ms / d_ms:.3f})")
 
-    phase("7 small scene: card vs plain path on the CPU")
+    phase("7 small scene: card vs plain path on the CPU (bf16 trunk)")
     small = build_scene(256)
     s_gpu = bench_sample(*small, device=dev)
     s_cpu = bench_sample(*small, device="cpu")
@@ -895,85 +1088,119 @@ def main(argv):
     scale = float(pcc.abs().max())
     diff = float((pcg - pcc).abs().max())
     print(f"pos_correction max {scale:.3e}, card vs CPU max diff "
-          f"{diff:.3e}; positions max diff "
-          f"{float((pg.cpu() - pc).abs().max()):.3e}")
+          f"{diff:.3e} (tol {1e-4 * scale:.3e}); positions max diff "
+          f"{float((pg.cpu() - pc).abs().max()):.3e} (tol 1e-6)")
     check(scale > 0 and diff <= 1e-4 * scale,
           f"card vs CPU pos_correction {diff} <= 1e-4 * {scale}")
     check(torch.allclose(pg.cpu(), pc, atol=1e-6, rtol=0),
           "card vs CPU positions within 1e-6")
 
-    phase("8 where a step's time goes")
+    phase("8 where a step's time goes (bf16 trunk)")
     print_report(profile(steps=10), top=12)
 
     phase("9 valid pipeline on the card (configs/other/momentum.yml)")
     valid = valid_phase(root, dev)
-    max_err = max(max_err, valid["max_abs_err"])
+    for half in (False, True):
+        max_err[half] = max(max_err[half], valid["max_abs_err"][half])
 
-    phase("10 backward kernels vs the plain backward")
+    phase("10 backward kernels vs the plain backward, both variants")
     bwd = bwd_phase(root, dev, shapes)
 
-    phase("11 momentum training on the card (run_pipeline --split train)")
+    phase("11 momentum training on the card (run_pipeline --split train, "
+          "bf16 trunk)")
     train = train_phase(root, dev)
 
-    phase("12 one WaterRamps train step (batch 16, window 3)")
-    wr_train = waterramps_train_phase(root, dev, model, sample,
-                                      step_launches)
+    phase("12 one WaterRamps train step (batch 16, window 3, bf16 trunk)")
+    wr_train = waterramps_train_phase(root, dev, model, sample, 19, 18)
 
-    kernels = [{
-        "name": "cconv_klist",
-        "route": "cuda",
-        "source": "dmcf_tpu_torch/csrc/cconv_klist.cu",
-        "replaces": "dmcf_tpu/experimental/pallas_cconv.py:136 "
-                    "(pallas_continuous_conv)",
-        "launches": launches,
-        "launches_per_step": step_launches,
-        "valid_launches": valid["launches"],
-        "valid_launches_per_step": valid["launches_per_step"],
-        "valid_step_device_ms": valid["step_device_ms"],
-        "valid_step_bound_ms": valid["step_bound_ms"],
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "device_ms": device_ms,
-        "step_ms": step_ms,
-        "step_device_ms": step_device_ms,
-        "step_plain_ms": step_plain_ms,
-        "step_bound_ms": step_bound_ms,
-        "train_launches": train["launches"][0],
-        "waterramps_train_launches": wr_train["launches"][0],
-    }]
-    replaces = ("none (no TPU kernel): the VJP of "
-                "dmcf_tpu/ops/cconv.py:173 continuous_conv, XLA autodiff")
-    grads = {"data": ("dfeats", "dqfeats", "da", "dt"), "filter": ("dw",)}
-    for i, which in ((1, "data"), (2, "filter")):
-        tm = bwd["trunk"]
-        off = 0 if which == "data" else 2
-        bnd = tm[5] if which == "data" else tm[6]
-        mom = bwd["momentum_step"]
+    phase(f"13 the fp32 path: {FP32_STEPS}-step rollout and momentum train "
+          "steps at precision highest")
+    with torch.no_grad():
+        fp32_model(sample)                          # warm-up step
+    zero_counts()              # the fp32 rollout starts here
+    pos32, _, gate32, dt32 = timed_rollout(fp32_model, sample, FP32_STEPS)
+    fp32_launches = counts()[:2]   # and ends here
+    print(f"steps {FP32_STEPS}, {1e3 * dt32 / FP32_STEPS:.3f} ms/step, "
+          f"gate {gate32}; launches fp32 {fp32_launches[0]} bf16 "
+          f"{fp32_launches[1]}; the bf16 rollout above {ms_step:.3f} "
+          f"ms/step")
+    check(bool(torch.isfinite(pos32[fm]).all()), "finite fp32 rollout")
+    check(gate32["exact"], f"fp32 exactness gate {gate32}")
+    check(fp32_launches == [19 * FP32_STEPS, 0],
+          f"fp32 rollout launches {fp32_launches}")
+    fp32_train_s = fp32_train_phase(root, dev)
+
+    pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
+        "(pallas_continuous_conv)"
+    vjp = "none (no TPU kernel): the VJP of dmcf_tpu/ops/cconv.py:173 " \
+        "continuous_conv, XLA autodiff"
+    kernels = []
+    for half, prec in ((False, "highest"), (True, "default")):
+        tm = trunk[prec]
+        row = per_launch.get(("model_bf16" if half else "model_fp32", half))
         kernels.append({
-            "name": f"cconv_klist_bwd_{which}",
+            "name": "cconv_klist_bf16" if half else "cconv_klist",
             "route": "cuda",
-            "source": "dmcf_tpu_torch/csrc/cconv_klist_bwd.cu",
-            "replaces": replaces,
-            "launches": train["launches"][i],
-            "launches_per_train_step": train["launches_per_step"][i],
-            "waterramps_train_launches": wr_train["launches"][i],
-            "max_abs_err": max(bwd["worst_abs"][g] for g in grads[which]),
-            "max_rel_err": max(bwd["worst"][g] for g in grads[which]),
-            "ms": tm[off],
-            "device_ms": tm[off + 1],
-            "plain_ms": tm[4],
-            "bound_ms": bnd[0],
-            "bound_by": bnd[1],
+            "source": "dmcf_tpu_torch/csrc/cconv_klist.cu",
+            "replaces": pallas,
+            "launches": launches[int(half)],
+            "launches_per_step": step_launches[int(half)],
+            "fp32_rollout_launches": fp32_launches[int(half)],
+            "valid_launches": valid["launches"][int(half)],
+            "valid_launches_per_step":
+                valid["launches_per_step"][int(half)],
+            "train_launches": train["launches"][int(half)],
+            "waterramps_train_launches": wr_train["launches"][int(half)],
+            "max_abs_err": max_err[half],
+            "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"],
             "library_ms": None,
-            "momentum_step_device_ms": mom[f"{which}_device_ms"],
-            "momentum_step_bound_ms": mom[f"{which}_bound_ms"],
+            "device_ms": tm["device_ms"],
+            "step_launches_timed": row[0],
+            "step_ms": row[1],
+            "step_device_ms": row[2],
+            "step_plain_ms": row[3],
+            "step_bound_ms": row[4],
         })
+    grads = {"data": ("dfeats", "dqfeats", "da", "dt"), "filter": ("dw",)}
+    for half, prec in ((False, "highest"), (True, "default")):
+        for i, which in ((2, "data"), (4, "filter")):
+            tm = bwd[("trunk", prec)]
+            off = 0 if which == "data" else 2
+            bnd = tm[5] if which == "data" else tm[6]
+            mom = bwd["momentum_step"][prec]
+            kernels.append({
+                "name": f"cconv_klist_bwd_{which}"
+                        + ("_bf16" if half else ""),
+                "route": "cuda",
+                "source": "dmcf_tpu_torch/csrc/cconv_klist_bwd.cu",
+                "replaces": vjp,
+                "launches": train["launches"][i + int(half)],
+                "launches_per_train_step":
+                    train["launches_per_step"][i + int(half)],
+                "waterramps_train_launches":
+                    wr_train["launches"][i + int(half)],
+                "max_abs_err": max(bwd["worst_abs"][prec].get(g, 0.0)
+                                   for g in grads[which]),
+                "max_rel_err": max(bwd["worst"][prec].get(g, 0.0)
+                                   for g in grads[which]),
+                "ms": tm[off],
+                "device_ms": tm[off + 1],
+                "plain_ms": tm[4],
+                "bound_ms": bnd[0],
+                "bound_by": bnd[1],
+                "library_ms": None,
+                "momentum_step_device_ms": mom[f"{which}_device_ms"],
+                "momentum_step_bound_ms": mom[f"{which}_bound_ms"],
+            })
+    print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "
+          f"fp32 {1e3 * dt32 / FP32_STEPS:.3f} ms/step ({FP32_STEPS} "
+          f"steps)")
     print(f"train: momentum {train['step_s']:.4f} s a step (batch 2, "
-          f"window 3); WaterRamps batch 16 x window 3 "
+          f"window 3, bf16 trunk), {fp32_train_s:.4f} s at fp32; WaterRamps "
+          f"batch 16 x window 3 "
           f"{wr_train['seconds']:.3f} s, peak "
           f"{wr_train['peak_bytes'] / 2 ** 30:.3f} GiB")
     print(json.dumps({"kernels": kernels}))

@@ -9,8 +9,9 @@ Builds the SymNet of ``configs/WaterRamps.yml`` at full width and depth
 (``scene.build_scene()``: 2304 fluid, 350 boundary), runs one warm-up step
 and then the 600-step rollout, timed by the host clock and ending in
 ``torch.cuda.synchronize()``, and prints exactly one JSON line with the
-root bench's fields.  Exits 1 when the exactness gate fails (a conv
-dropped an in-radius neighbour somewhere in the rollout).
+root bench's fields and the precision it ran (``detail.precision``: the
+config's, "default", a bf16 trunk).  Exits 1 when the exactness gate fails (a conv dropped an in-radius
+neighbour somewhere in the rollout).
 
 Fields that are the TPU bench's own are null here: ``canyon`` (its scene
 file is not in the repository), ``flops_per_step`` (XLA's cost analysis
@@ -99,6 +100,7 @@ def run(device="cuda", steps=HORIZON, n_fluid=2304):
             "n_fluid": int(pos.shape[0]),
             "n_boundary": int(box.shape[0]),
             "ms_per_step": round(1000.0 * dt / steps, 3),
+            "precision": model.precision,
             "finite": bool(torch.isfinite(p[fm]).all()),
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),

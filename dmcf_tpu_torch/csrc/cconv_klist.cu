@@ -1,4 +1,6 @@
-// K-list continuous convolution for Hopper (sm_90a), fp32 results.
+// K-list continuous convolution for Hopper (sm_90a), fp32 results, in two
+// variants: fp32 throughout, and bf16 (the JAX package's default
+// precision).
 //
 // Replaces the TPU kernel dmcf_tpu/experimental/pallas_cconv.py
 // `pallas_continuous_conv` (pallas_call at :193, body `_kernel` :95), whose
@@ -52,7 +54,19 @@
 // - Shapes whose T tile exceeds the shared-memory budget are built and
 //   contracted in chunks of tap rows (or of channels, for a single tap row
 //   wider than the budget), re-walking the slots for each chunk.
+//
+// The bf16 variant (template flag kBF16, no symmetric form) computes JAX's
+// fast_bf16 contraction (dmcf_tpu/ops/cconv.py:continuous_conv at
+// precision "default", :241, :279-312): features and W arrive as bf16
+// tensors (the gather moves half the bytes); each tap weight comes from
+// the same fp32 expression and is rounded once to bf16; T's elements are
+// summed in fp32 (the products of two bf16 values are exact) and rounded
+// once to bf16 when the filter product loads them; the product is
+// mma.sync.m16n8k16 bf16 x bf16 -> fp32 over 16-deep k-steps (one MMA where
+// 3xTF32 takes three, at twice the TF32 rate), each k-step's result joining
+// the fp32 sum with an IEEE add; the output is fp32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -74,9 +88,11 @@ struct Params {
   const int* idx;
   const float* a;
   const float* t;
-  const float* feats;
+  const float* feats;           // fp32 variant
   const float* qfeats;
   const float* w;
+  const uint16_t* feats_h;      // bf16 variant: the bits of bf16 values
+  const uint16_t* w_h;
   float* out;
   int Q, K, N, Cin, Cout, kz, ky, kx, S;
   int RC, CW, ncc, nchunks;  // chunking: RC tap rows x CW channels
@@ -127,6 +143,15 @@ __device__ __forceinline__ bool row_set(const unsigned* m, int r) {
   return (m[r >> 5] >> (r & 31)) & 1u;
 }
 
+// bf16 bits -> fp32 (exact) and fp32 -> bf16 (round to nearest even)
+__device__ __forceinline__ float bf16_val(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ float hat(float tc, float half, int i) {
   return fmaxf(1.0f - fabsf(tc - (static_cast<float>(i) - half)), 0.0f);
 }
@@ -171,8 +196,10 @@ __device__ __forceinline__ Slots load_group(const Params& p, int q, int k) {
 
 // This lane's slot -> its non-zero taps inside the chunk's tap rows
 // [s0, s0 + nr): (row relative to s0, weight bits) in tp.  Returns the
-// count, <= kTaps (kTaps = 4 when an axis of the kernel has size 1).
-template <int kTaps>
+// count, <= kTaps (kTaps = 4 when an axis of the kernel has size 1).  The
+// bf16 variant rounds each weight to bf16 (a weight that rounds to 0 is
+// dropped: it adds nothing).
+template <int kTaps, bool kBF16>
 __device__ __forceinline__ int slot_taps(const Params& p, const Slots& sl,
                                          int s0, int nr, int2* tp) {
   if (sl.a == 0.0f) return 0;
@@ -190,7 +217,8 @@ __device__ __forceinline__ int slot_taps(const Params& p, const Slots& sl,
         const float wz = jz ? z.w1 : z.w0;
         const float wy = jy ? y.w1 : y.w0;
         const float wx = jx ? x.w1 : x.w0;
-        const float wt = ((wz * wy) * wx) * sl.a;  // the twin's order
+        float wt = ((wz * wy) * wx) * sl.a;  // the twin's order
+        if (kBF16) wt = round_bf16(wt);
         const int r = ((z.i0 + jz) * p.ky + y.i0 + jy) * p.kx + x.i0 + jx
             - s0;
         if (wt != 0.0f && r >= 0 && r < nr)
@@ -205,7 +233,7 @@ __device__ __forceinline__ int slot_taps(const Params& p, const Slots& sl,
 // CPL (the channels' power of two, at most 32) and r = j0 modulo 32 / CPL:
 // every element has one writer, so the slots need no barrier between them
 // and are summed in a fixed order.
-template <int kTaps>
+template <int kTaps, bool kBF16>
 __device__ void build_T(const Params& p, const SharedLayout& sh, int q0,
                         int s0, int nr, int clo, int cw) {
   const int warp = threadIdx.x >> 5;
@@ -224,7 +252,8 @@ __device__ void build_T(const Params& p, const SharedLayout& sh, int q0,
     Slots nxt{0, 0.0f, 0.0f, 0.0f, 0.0f};
     if (k0 + 32 < p.K)  // the next group's slots load under this one
       nxt = load_group(p, q, k0 + 32 + lane);
-    const int ntap = slot_taps<kTaps>(p, cur, s0, nr, tp + lane * kTaps);
+    const int ntap = slot_taps<kTaps, kBF16>(p, cur, s0, nr,
+                                             tp + lane * kTaps);
     // the group's tap rows into the tile's mask: one OR-reduction and one
     // atomic per mask word, not one atomic per tap
     int wlo = kMaxWords, whi = -1;
@@ -266,9 +295,12 @@ __device__ void build_T(const Params& p, const SharedLayout& sh, int q0,
 #pragma unroll
         for (int i = 0; i < kU; ++i) {  // all gathers first
           const int id = __shfl_sync(0xffffffffu, cur.idx, src[i]);
-          const int row = min(max(id, 0), p.N - 1);
-          g[i] = (i < n && cval)
-              ? p.feats[static_cast<size_t>(row) * p.Cin + c] + qv : 0.0f;
+          const size_t e = static_cast<size_t>(min(max(id, 0), p.N - 1))
+              * p.Cin + c;
+          if (kBF16)
+            g[i] = (i < n && cval) ? bf16_val(p.feats_h[e]) : 0.0f;
+          else
+            g[i] = (i < n && cval) ? p.feats[e] + qv : 0.0f;
         }
         int nts[kU];
 #pragma unroll
@@ -338,6 +370,49 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two fp32 values rounded to bf16 and packed (lo in the low half), as an
+// mma operand register holds two consecutive k elements.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Warp 0 lists the kStep-deep k-steps of the chunk's ce T columns whose
+// tap rows some query of the tile touched; returns their count.
+template <int kStep>
+__device__ int list_steps(const SharedLayout& sh, int ce, int cw) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nks = (ce + kStep - 1) / kStep;
+  if (warp == 0) {
+    int cnt = 0;
+    for (int b = 0; b < nks; b += 32) {
+      const int ks = b + lane;
+      bool on = false;
+      if (ks < nks) {
+        const int r1 = min(ks * kStep + kStep - 1, ce - 1) / cw;
+        for (int r = ks * kStep / cw; r <= r1 && !on; ++r)
+          on = row_set(sh.tmask, r);
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, on);
+      if (on) sh.steps[cnt + __popc(bal & ((1u << lane) - 1))] = ks;
+      cnt += __popc(bal);
+    }
+    if (lane == 0) sh.steps[kChunkMax / 8] = cnt;
+  }
+  __syncthreads();
+  return sh.steps[kChunkMax / 8];
+}
+
 // out tile += T_chunk @ W_chunk on the tensor cores (3xTF32).  The 8-deep
 // k-steps that some query of the tile touched are listed first.  Warp w
 // then owns the n-tiles ng * kNTW .. + kNTW - 1 (acc[j]), ng = w mod NG, and
@@ -350,25 +425,7 @@ __device__ void contract_mma(const Params& p, const SharedLayout& sh,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int ce = nr * cw;
-  const int nks = (ce + 7) >> 3;
-  if (warp == 0) {  // list the k-steps whose tap rows a query touched
-    int cnt = 0;
-    for (int b = 0; b < nks; b += 32) {
-      const int ks = b + lane;
-      bool on = false;
-      if (ks < nks) {
-        const int r1 = min(ks * 8 + 7, ce - 1) / cw;
-        for (int r = ks * 8 / cw; r <= r1 && !on; ++r)
-          on = row_set(sh.tmask, r);
-      }
-      const unsigned bal = __ballot_sync(0xffffffffu, on);
-      if (on) sh.steps[cnt + __popc(bal & ((1u << lane) - 1))] = ks;
-      cnt += __popc(bal);
-    }
-    if (lane == 0) sh.steps[kChunkMax / 8] = cnt;
-  }
-  __syncthreads();
-  const int cnt = sh.steps[kChunkMax / 8];
+  const int cnt = list_steps<8>(sh, ce, cw);
   const int kp = warp / p.NG;
   if (kp >= p.KS) return;
   const int nt0 = (warp - kp * p.NG) * kNTW;
@@ -414,6 +471,73 @@ __device__ void contract_mma(const Params& p, const SharedLayout& sh,
         mma_tf32(c, as, bb);
         mma_tf32(c, ab, bs);
         mma_tf32(c, ab, bb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += c[e];
+      }
+    }
+  }
+}
+
+// out tile += bf16(T_chunk) @ W16_chunk on the tensor cores: as
+// contract_mma over 16-deep k-steps, one bf16 MMA a k-step and n-tile.  T
+// is rounded to bf16 as its fragments are packed; W's bf16 pairs come
+// straight from L2.  A row past the chunk's ce columns is zero in T and
+// masked in W.
+__device__ void contract_mma_bf16(const Params& p, const SharedLayout& sh,
+                                  int nr, int cw, size_t base,
+                                  float (*acc)[4]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ce = nr * cw;
+  const int cnt = list_steps<16>(sh, ce, cw);
+  const int kp = warp / p.NG;
+  if (kp >= p.KS) return;
+  const int nt0 = (warp - kp * p.NG) * kNTW;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const float* Tg = sh.T + g * p.LD + 2 * tq;
+  for (int i0 = kp; i0 < cnt; i0 += kUB * p.KS) {
+    uint32_t av[kUB][4], bv[kUB][kNTW][2];
+#pragma unroll
+    for (int u = 0; u < kUB; ++u) {  // every load of the batch first
+      const int i = i0 + u * p.KS;
+      const int k = i < cnt ? sh.steps[i] * 16 : 0;
+      const float2 x0 = *reinterpret_cast<const float2*>(Tg + k);
+      const float2 x1 = *reinterpret_cast<const float2*>(Tg + 8 * p.LD + k);
+      const float2 x2 = *reinterpret_cast<const float2*>(Tg + k + 8);
+      const float2 x3 =
+          *reinterpret_cast<const float2*>(Tg + 8 * p.LD + k + 8);
+      av[u][0] = pack_bf16(x0.x, x0.y);
+      av[u][1] = pack_bf16(x1.x, x1.y);
+      av[u][2] = pack_bf16(x2.x, x2.y);
+      av[u][3] = pack_bf16(x3.x, x3.y);
+      const int r = k + 2 * tq;  // this lane's B rows r, r+1, r+8, r+9
+      const uint16_t* wr = p.w_h + (base + r) * p.Cout + nt0 * 8 + g;
+      const bool live = i < cnt;
+#pragma unroll
+      for (int j = 0; j < kNTW; ++j) {
+        const bool col = live && (nt0 + j) * 8 + g < p.Cout;
+        const uint32_t w0 = col && r < ce ? __ldg(wr + 8 * j) : 0u;
+        const uint32_t w1 =
+            col && r + 1 < ce ? __ldg(wr + p.Cout + 8 * j) : 0u;
+        const uint32_t w8 =
+            col && r + 8 < ce ? __ldg(wr + 8 * p.Cout + 8 * j) : 0u;
+        const uint32_t w9 =
+            col && r + 9 < ce ? __ldg(wr + 9 * p.Cout + 8 * j) : 0u;
+        bv[u][j][0] = w0 | (w1 << 16);
+        bv[u][j][1] = w8 | (w9 << 16);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUB; ++u) {
+      if (i0 + u * p.KS >= cnt) break;
+#pragma unroll
+      for (int j = 0; j < kNTW; ++j) {
+        if (nt0 + j >= p.NT) break;
+        // each k-step's product starts from 0 and joins the running sum
+        // with an IEEE add, as in contract_mma
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(c, av[u], bv[u][j]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] += c[e];
       }
@@ -481,7 +605,7 @@ __device__ void contract_fma(const Params& p, const SharedLayout& sh,
   }
 }
 
-template <bool kSym, int kTaps>
+template <bool kSym, int kTaps, bool kBF16>
 __global__ void __launch_bounds__(kThreads)
 cconv_klist_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -510,10 +634,12 @@ cconv_klist_kernel(const Params p) {
       T4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int i = tid; i < p.MW; i += kThreads) sh.tmask[i] = 0u;
     __syncthreads();
-    build_T<kTaps>(p, sh, q0, s0, nr, clo, cw);
+    build_T<kTaps, kBF16>(p, sh, q0, s0, nr, clo, cw);
     __syncthreads();
     if (kSym)
       contract_fma(p, sh, nr, cw, base);
+    else if (kBF16)
+      contract_mma_bf16(p, sh, nr, cw, base, acc);
     else
       contract_mma(p, sh, nr, cw, base, acc);
     __syncthreads();
@@ -563,7 +689,7 @@ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 // Chunking and tiling of one launch (shared by the launcher and the
 // shared-memory report).
 Params plan(int Q, int K, int N, int Cin, int Cout, int kz, int ky,
-            int kx) {
+            int kx, bool bf16) {
   Params p{};
   p.Q = Q;
   p.K = K;
@@ -584,7 +710,9 @@ Params plan(int Q, int K, int N, int Cin, int Cout, int kz, int ky,
     p.ncc = (Cin + kChunkMax - 1) / kChunkMax;
   }
   p.nchunks = (p.S + p.RC - 1) / p.RC * p.ncc;
-  p.LD = round_up(p.RC * p.CW, 32) + 4;  // +4: conflict-free A fragments
+  // +4: conflict-free TF32 A fragments; +8 for the bf16 variant's float2
+  // fragment loads
+  p.LD = round_up(p.RC * p.CW, 32) + (bf16 ? 8 : 4);
   p.NT = (Cout + 7) / 8;
   p.NG = (p.NT + kNTW - 1) / kNTW;
   p.KS = kWarps / p.NG;
@@ -593,10 +721,10 @@ Params plan(int Q, int K, int N, int Cin, int Cout, int kz, int ky,
   return p;
 }
 
-template <bool kSym, int kTaps>
+template <bool kSym, int kTaps, bool kBF16>
 int launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p, kSym);
-  auto kernel = cconv_klist_kernel<kSym, kTaps>;
+  auto kernel = cconv_klist_kernel<kSym, kTaps, kBF16>;
   // set on every launch: the attribute is per device, and the call is cheap
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -611,37 +739,47 @@ int launch(const Params& p, cudaStream_t stream) {
 // Plain C entry point for ctypes.  Shapes: idx/a [Q,K], t [Q,K,3] (tz,ty,tx),
 // feats [N,Cin], qfeats [Q,Cin] or null (the symmetric conv), w
 // [kz*ky*kx*Cin, Cout], out [Q,Cout]; all contiguous, idx int32 (clamped
-// into [0, N) here), the rest fp32.  Requires kz*ky*kx <= 1024,
+// into [0, N) here), the rest fp32 but, with bf16 != 0 (the bf16 variant,
+// qfeats null), feats and w bf16.  Requires kz*ky*kx <= 1024,
 // kz*ky*kx*Cin <= 8192, 1 <= Cout <= 256, K >= 1 and N >= 1.  Returns the
 // CUDA error code of the launch (0 on success).
 extern "C" int cconv_klist_launch(const int* idx, const float* a,
-                                  const float* t, const float* feats,
-                                  const float* qfeats, const float* w,
+                                  const float* t, const void* feats,
+                                  const float* qfeats, const void* w,
                                   float* out, int Q, int K, int N, int Cin,
-                                  int Cout, int kz, int ky, int kx,
+                                  int Cout, int kz, int ky, int kx, int bf16,
                                   void* stream) {
   const int S = kz * ky * kx;
   if (Q <= 0) return 0;
   if (K <= 0 || N <= 0 || Cin <= 0 || Cout <= 0 || Cout > 256 || kz <= 0 ||
-      ky <= 0 || kx <= 0 || S > 1024 || S * Cin > 8192)
+      ky <= 0 || kx <= 0 || S > 1024 || S * Cin > 8192 ||
+      (bf16 && qfeats != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p = plan(Q, K, N, Cin, Cout, kz, ky, kx);
+  Params p = plan(Q, K, N, Cin, Cout, kz, ky, kx, bf16 != 0);
   p.idx = idx;
   p.a = a;
   p.t = t;
-  p.feats = feats;
   p.qfeats = qfeats;
-  p.w = w;
   p.out = out;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    p.feats_h = static_cast<const uint16_t*>(feats);
+    p.w_h = static_cast<const uint16_t*>(w);
+    return p.taps == 4 ? launch<false, 4, true>(p, st)
+                       : launch<false, 8, true>(p, st);
+  }
+  p.feats = static_cast<const float*>(feats);
+  p.w = static_cast<const float*>(w);
   if (qfeats != nullptr)
-    return p.taps == 4 ? launch<true, 4>(p, st) : launch<true, 8>(p, st);
-  return p.taps == 4 ? launch<false, 4>(p, st) : launch<false, 8>(p, st);
+    return p.taps == 4 ? launch<true, 4, false>(p, st)
+                       : launch<true, 8, false>(p, st);
+  return p.taps == 4 ? launch<false, 4, false>(p, st)
+                     : launch<false, 8, false>(p, st);
 }
 
 // Dynamic shared memory (bytes) one block of the launch above takes.
 extern "C" int cconv_klist_smem_bytes(int Cin, int Cout, int kz, int ky,
-                                      int kx, int symmetric) {
-  const Params p = plan(1, 1, 1, Cin, Cout, kz, ky, kx);
+                                      int kx, int symmetric, int bf16) {
+  const Params p = plan(1, 1, 1, Cin, Cout, kz, ky, kx, bf16 != 0);
   return static_cast<int>(smem_bytes(p, symmetric != 0));
 }

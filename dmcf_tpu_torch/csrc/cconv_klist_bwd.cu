@@ -1,4 +1,6 @@
-// Backward of the K-list continuous convolution for Hopper (sm_90a), fp32.
+// Backward of the K-list continuous convolution for Hopper (sm_90a), in the
+// forward's two variants: fp32, and bf16 (the JAX package's default
+// precision).
 //
 // The forward is csrc/cconv_klist.cu.  No TPU kernel is replaced: the JAX
 // package trains by XLA autodiff of dmcf_tpu/ops/cconv.py:continuous_conv
@@ -55,7 +57,21 @@
 //   product over the rows a query touched is added into dW with one float
 //   atomic an element a tile.  Two launches may differ in the last bits.
 // Plain fp32 FMAs throughout; no tensor cores, TMA or wgmma (a later PR).
+//
+// The bf16 variant (template flag kBF16; feats and W arrive as bf16, no
+// symmetric form) is the derivative of the bf16 forward, rounded where
+// JAX's VJP of its fast_bf16 contraction rounds (dmcf_tpu/ops/cconv.py
+// :279-312): A = bf16(H a) and g = bf16(feats) as in the forward;
+//   data:   dT = bf16(sum_o W16 dout)            (rounded once)
+//           dA = bf16(sum_c dT g)                (rounded once a tap)
+//           dg = sum_s A dT, added into dfeats in fp32; the caller rounds
+//           dfeats to bf16 once.  JAX rounds each slot's dg to bf16 and
+//           scatter-adds them in bf16 (ROADMAP §3).
+//   filter: T = bf16(sum_k A g), rebuilt with shared-memory atomics and
+//           then rounded; dW = T^T dout in fp32, rounded once by the caller
+//           (JAX's filter gradient is bf16).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,9 +87,11 @@ struct Params {
   const int* idx;
   const float* a;
   const float* t;
-  const float* feats;
+  const float* feats;        // fp32 variant
   const float* qfeats;
   const float* w;
+  const uint16_t* feats_h;   // bf16 variant: the bits of bf16 values
+  const uint16_t* w_h;
   const float* dout;
   float* dfeats;
   float* dqfeats;
@@ -158,6 +176,27 @@ __device__ __forceinline__ Taps slot_taps(const Params& p, float tz, float ty,
   return tp;
 }
 
+// bf16 bits -> fp32 (exact) and fp32 -> bf16 (round to nearest even)
+__device__ __forceinline__ float bf16_val(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The variant's tap weight A = H a (rounded to bf16 in the bf16 variant).
+template <bool kBF16>
+__device__ __forceinline__ float tap_weight(float h, float a) {
+  return kBF16 ? round_bf16(h * a) : h * a;
+}
+
+// A feature read (bf16 values widened exactly in the bf16 variant).
+template <bool kBF16>
+__device__ __forceinline__ float feat(const Params& p, size_t e) {
+  return kBF16 ? bf16_val(p.feats_h[e]) : p.feats[e];
+}
+
 __device__ __forceinline__ bool row_set(const unsigned* m, int r) {
   return (m[r >> 5] >> (r & 31)) & 1u;
 }
@@ -171,6 +210,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Data gradients: one block a query.  Shared memory: dT [S*Cin], dout
 // [Cout], the touched-row mask [ceil(S/32)].
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
 cconv_klist_bwd_data_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -201,8 +241,27 @@ cconv_klist_bwd_data_kernel(const Params p) {
   // == 0: each thread's row is whole cache lines)
   for (int e = tid; e < p.S * p.Cin; e += kThreads) {
     if (!row_set(mask, e / p.Cin)) continue;
-    const float* wr = p.w + static_cast<size_t>(e) * p.Cout;
     float s = 0.0f;
+    if (kBF16) {  // 4 bf16 values a load when Cout % 4 == 0
+      const uint16_t* wr = p.w_h + static_cast<size_t>(e) * p.Cout;
+      if ((p.Cout & 3) == 0 &&
+          (reinterpret_cast<uintptr_t>(p.w_h) & 7) == 0) {
+        const uint2* w4 = reinterpret_cast<const uint2*>(wr);
+        for (int o = 0; o < p.Cout / 4; ++o) {
+          const uint2 v = __ldg(w4 + o);
+          s = fmaf(__uint_as_float(v.x << 16), dq[4 * o], s);
+          s = fmaf(__uint_as_float(v.x & 0xffff0000u), dq[4 * o + 1], s);
+          s = fmaf(__uint_as_float(v.y << 16), dq[4 * o + 2], s);
+          s = fmaf(__uint_as_float(v.y & 0xffff0000u), dq[4 * o + 3], s);
+        }
+      } else {
+        for (int o = 0; o < p.Cout; ++o)
+          s = fmaf(bf16_val(__ldg(wr + o)), dq[o], s);
+      }
+      dT[e] = round_bf16(s);
+      continue;
+    }
+    const float* wr = p.w + static_cast<size_t>(e) * p.Cout;
     if ((p.Cout & 3) == 0 && (reinterpret_cast<uintptr_t>(p.w) & 15) == 0) {
       const float4* w4 = reinterpret_cast<const float4*>(wr);
       for (int o = 0; o < p.Cout / 4; ++o) {
@@ -230,7 +289,7 @@ cconv_klist_bwd_data_kernel(const Params p) {
     for (int cb = 0; cb < p.Cin; cb += 32) {
       const int c = cb + lane;
       if (c >= p.Cin) break;
-      float g = p.feats[static_cast<size_t>(row) * p.Cin + c];
+      float g = feat<kBF16>(p, static_cast<size_t>(row) * p.Cin + c);
       if (p.qfeats != nullptr)
         g += p.qfeats[static_cast<size_t>(q) * p.Cin + c];
       float dg = 0.0f;
@@ -239,7 +298,7 @@ cconv_klist_bwd_data_kernel(const Params p) {
         if (!tap_on(tp, j)) continue;
         const float dtv = dT[tp.row[j] * p.Cin + c];
         dA[j] = fmaf(dtv, g, dA[j]);
-        dg = fmaf(tp.h[j] * ak, dtv, dg);
+        dg = fmaf(tap_weight<kBF16>(tp.h[j], ak), dtv, dg);
       }
       if (ak != 0.0f && tp.on != 0u) {  // an empty slot adds exactly 0
         atomicAdd(p.dfeats + static_cast<size_t>(row) * p.Cin + c, dg);
@@ -251,7 +310,8 @@ cconv_klist_bwd_data_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (!tap_on(tp, j)) continue;  // uniform across the warp
-      const float v = warp_sum(dA[j]);
+      float v = warp_sum(dA[j]);
+      if (kBF16) v = round_bf16(v);
       das = fmaf(v, tp.h[j], das);
       dz = fmaf(v, tp.gz[j], dz);
       dy = fmaf(v, tp.gy[j], dy);
@@ -268,6 +328,7 @@ cconv_klist_bwd_data_kernel(const Params p) {
 
 // Filter gradient: one block a tile of QT queries.  Shared memory: T
 // [QT][kFE], dout [QT][Cout], the chunk's touched-row mask.
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
 cconv_klist_bwd_filter_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -308,12 +369,13 @@ cconv_klist_bwd_filter_kernel(const Params p) {
       const int row = min(max(p.idx[e], 0), p.N - 1);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float wt = tp.h[j] * ak;
+        const float wt = tap_weight<kBF16>(tp.h[j], ak);
         const int r = tp.row[j] - s0;
         if (!tap_on(tp, j) || wt == 0.0f || r < 0 || r >= nr) continue;
         if (lane == 0) atomicOr(mask + (r >> 5), 1u << (r & 31));
         for (int c = lane; c < cw; c += 32) {
-          float g = p.feats[static_cast<size_t>(row) * p.Cin + clo + c];
+          float g = feat<kBF16>(p, static_cast<size_t>(row) * p.Cin + clo
+                                + c);
           if (p.qfeats != nullptr)
             g += p.qfeats[static_cast<size_t>(q) * p.Cin + clo + c];
           atomicAdd(Tq + r * cw + c, wt * g);
@@ -321,6 +383,11 @@ cconv_klist_bwd_filter_kernel(const Params p) {
       }
     }
     __syncthreads();
+    if (kBF16) {  // T's sums complete: round them as the forward does
+      for (int i = tid; i < p.QT * kFE; i += kThreads)
+        T[i] = round_bf16(T[i]);
+      __syncthreads();
+    }
     // the tile's product over the touched rows, added into dW
     const int ne = nr * cw;
     for (int i = tid; i < ne * p.Cout; i += kThreads) {
@@ -393,52 +460,67 @@ int launch(Kernel kernel, int blocks, size_t smem, const Params& p,
 
 // Plain C entry points for ctypes.  Shapes as the forward's
 // (cconv_klist_launch) plus dout [Q, Cout]; all contiguous, idx int32, the
-// rest fp32.  Outputs: dfeats [N, Cin] and dqfeats [Q, Cin] (null unless
-// qfeats is given) are ADDED into (the caller zeroes them); da [Q, K] and
-// dt [Q, K, 3] are written; dw [kz*ky*kx*Cin, Cout] is added into.
-// Requires kz*ky*kx <= 1024, kz*ky*kx*Cin <= 8192, 1 <= Cout <= 256, K, N
-// >= 1.  Each returns the CUDA error code of its launch (0 on success).
+// rest fp32 but, with bf16 != 0 (the bf16 variant, qfeats null), feats and
+// w bf16.  Outputs, fp32: dfeats [N, Cin] and dqfeats [Q, Cin] (null
+// unless qfeats is given) are ADDED into (the caller zeroes them); da
+// [Q, K] and dt [Q, K, 3] are written; dw [kz*ky*kx*Cin, Cout] is added
+// into.  Requires kz*ky*kx <= 1024, kz*ky*kx*Cin <= 8192, 1 <= Cout <= 256,
+// K, N >= 1.  Each returns the CUDA error code of its launch (0 on
+// success).
 extern "C" int cconv_klist_bwd_data_launch(
-    const int* idx, const float* a, const float* t, const float* feats,
-    const float* qfeats, const float* w, const float* dout, float* dfeats,
+    const int* idx, const float* a, const float* t, const void* feats,
+    const float* qfeats, const void* w, const float* dout, float* dfeats,
     float* dqfeats, float* da, float* dt, int Q, int K, int N, int Cin,
-    int Cout, int kz, int ky, int kx, void* stream) {
+    int Cout, int kz, int ky, int kx, int bf16, void* stream) {
   if (Q <= 0) return 0;
   Params p{};
   if (!plan(p, Q, K, N, Cin, Cout, kz, ky, kx))
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((qfeats == nullptr) != (dqfeats == nullptr))
+  if ((qfeats == nullptr) != (dqfeats == nullptr) ||
+      (bf16 && qfeats != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   p.idx = idx;
   p.a = a;
   p.t = t;
-  p.feats = feats;
   p.qfeats = qfeats;
-  p.w = w;
   p.dout = dout;
   p.dfeats = dfeats;
   p.dqfeats = dqfeats;
   p.da = da;
   p.dt = dt;
-  return launch(cconv_klist_bwd_data_kernel, Q, data_smem(p), p,
-                static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    p.feats_h = static_cast<const uint16_t*>(feats);
+    p.w_h = static_cast<const uint16_t*>(w);
+    return launch(cconv_klist_bwd_data_kernel<true>, Q, data_smem(p), p, st);
+  }
+  p.feats = static_cast<const float*>(feats);
+  p.w = static_cast<const float*>(w);
+  return launch(cconv_klist_bwd_data_kernel<false>, Q, data_smem(p), p, st);
 }
 
 extern "C" int cconv_klist_bwd_filter_launch(
-    const int* idx, const float* a, const float* t, const float* feats,
+    const int* idx, const float* a, const float* t, const void* feats,
     const float* qfeats, const float* dout, float* dw, int Q, int K, int N,
-    int Cin, int Cout, int kz, int ky, int kx, void* stream) {
+    int Cin, int Cout, int kz, int ky, int kx, int bf16, void* stream) {
   if (Q <= 0) return 0;
   Params p{};
-  if (!plan(p, Q, K, N, Cin, Cout, kz, ky, kx))
+  if (!plan(p, Q, K, N, Cin, Cout, kz, ky, kx) || (bf16 && qfeats))
     return static_cast<int>(cudaErrorInvalidValue);
   p.idx = idx;
   p.a = a;
   p.t = t;
-  p.feats = feats;
   p.qfeats = qfeats;
   p.dout = dout;
   p.dw = dw;
-  return launch(cconv_klist_bwd_filter_kernel, (Q + p.QT - 1) / p.QT,
-                filter_smem(p), p, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (Q + p.QT - 1) / p.QT;
+  if (bf16) {
+    p.feats_h = static_cast<const uint16_t*>(feats);
+    return launch(cconv_klist_bwd_filter_kernel<true>, blocks,
+                  filter_smem(p), p, st);
+  }
+  p.feats = static_cast<const float*>(feats);
+  return launch(cconv_klist_bwd_filter_kernel<false>, blocks,
+                filter_smem(p), p, st);
 }

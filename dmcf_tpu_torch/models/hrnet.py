@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.neighbors import NeighborList
 from .pbf import PBFNet, drop_coincident
 
 
@@ -101,8 +102,11 @@ class HRNet(PBFNet):
                         ignore_query=self.ignore_query_points
                         and scale == inp_scale)
                     conv = self.convs[layer][scale][inp_scale]
+                    cached = (isinstance(nl, NeighborList)
+                              and self.caches_taps(nl))
                     ans_conv = conv(f * importance, pos[inp_scale],
-                                    pos[scale], ext, nl, n_chunk=nck)
+                                    pos[scale], ext, nl, n_chunk=nck,
+                                    cached_taps=cached)
                     if scale == inp_scale:
                         ans_conv = ans_conv + self.denses[layer][scale](f)
                         if ans_conv.shape[-1] == \

@@ -29,7 +29,9 @@ class ContinuousConv(nn.Module):
 
     Dispatches on the neighbor structure: a ``NeighborList`` runs the
     K-list conv (the hand-written kernel on CUDA), a ``DensePair`` the
-    dense plain-PyTorch conv.  Not ported in this slice (raise):
+    dense plain-PyTorch conv.  ``precision`` is the ops' ("highest" fp32,
+    None / "default" JAX's bf16 contraction, which has no symmetric form).
+    Not ported in this slice (raise):
     ``circular`` kernels, ``k_chunk``, lazy dense pairs, ``inp_importance``.
     """
 
@@ -41,6 +43,7 @@ class ContinuousConv(nn.Module):
                  window_function: Optional[Callable] = None,
                  symmetric: bool = False, sym_axis: int = 2,
                  circular: bool = False, k_chunk: int = 0,
+                 precision: Optional[str] = "highest",
                  generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
@@ -58,6 +61,7 @@ class ContinuousConv(nn.Module):
         self.window_function = window_function
         self.symmetric = symmetric
         self.sym_axis = sym_axis
+        self.precision = precision
         shape = list(self.kernel_size)
         if symmetric:
             if shape[sym_axis] % 2:
@@ -75,7 +79,10 @@ class ContinuousConv(nn.Module):
         return self.kernel
 
     def forward(self, inp_features, inp_positions, out_positions, extents,
-                neighbors, query_features=None, n_chunk: int = 0):
+                neighbors, query_features=None, n_chunk: int = 0,
+                cached_taps: bool = False):
+        """``cached_taps``: the K-list conv computes what the reference's
+        conv over a model-cached tap tensor does (``ops.cconv``)."""
         kernel = self.full_kernel()
         if isinstance(neighbors, DensePair):
             if self.symmetric or self.normalize:
@@ -90,7 +97,8 @@ class ContinuousConv(nn.Module):
                 kernel, neighbors.rel, a, inp_features,
                 coordinate_mapping=self.coordinate_mapping,
                 interpolation=self.interpolation,
-                align_corners=self.align_corners, n_chunk=n_chunk)
+                align_corners=self.align_corners, n_chunk=n_chunk,
+                precision=self.precision)
         elif isinstance(neighbors, NeighborList):
             if self.symmetric and query_features is None:
                 query_features = inp_features
@@ -100,7 +108,8 @@ class ContinuousConv(nn.Module):
                 coordinate_mapping=self.coordinate_mapping,
                 interpolation=self.interpolation,
                 align_corners=self.align_corners, normalize=self.normalize,
-                symmetric=self.symmetric, query_features=query_features)
+                symmetric=self.symmetric, query_features=query_features,
+                precision=self.precision, cached_taps=cached_taps)
         else:
             raise NotImplementedError(
                 f"neighbor structure {type(neighbors).__name__} is not "

@@ -9,13 +9,23 @@ fluid->all and box->all convs by subsetting.
 
 Left out on purpose: the reference's batched pair prefetch and tap-tensor
 caching are TPU launch-count devices that give bitwise-identical lists
-(the K-list kernel builds its taps inline).  Options this slice does not
+(the K-list kernel builds its taps inline; the reference's cached bf16
+taps equal the inline ones rounded once).  Options this slice does not
 port raise instead of being ignored; config keys the port has no use for
-(the reference's TPU tuning knobs, ``precision``, the density-feature
-constants) are dropped with a warning by ``build_model``.  ``window_dens``
-and ``rest_dens`` are kept on the module, as in the reference, because the
+(the reference's TPU tuning knobs, the density-feature constants) are
+dropped with a warning by ``build_model``.  ``window_dens`` and
+``rest_dens`` are kept on the module, as in the reference, because the
 valid suite's max-density metric reads ``window_dens`` from the model.
-Everything runs fp32 (the bf16 trunk is a later slice).
+
+``precision`` is the reference's trunk knob (``pbf.py:300-304``): its
+default "default" (or None) runs every conv that ``make_cconv`` builds —
+the scale-0 convs and the trunk — in JAX's bf16 contraction, "highest" in
+fp32; the ASCC convs pin "highest" (``symnet.py``).  The ``Dense`` layers
+and all geometry stay fp32, and the weights are fp32 at either precision.
+The reference's K-list convs run over cached tap tensors wherever the
+pair's Q*K*S is at most 32M (``pbf.py:498-519``), and
+bf16-built taps round the window weights to bf16 before the tap product;
+the port's convs do the same there (``caches_taps``).
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from .. import resolve_device
 from ..ops.neighbors import DensePair, NeighborList, search
 from ..ops.sph import get_dilated_pos, masked_positions
 from ..ops.windows import get_window_func
+from ..kernels.cconv_klist import is_bf16
 from .layers import ContinuousConv, Dense
 
 
@@ -112,8 +123,11 @@ class PBFNet(nn.Module):
         transpose_search_reuse=False, conv_k_chunk=0, dense_pair_min_k=0,
         dense_n_chunk=0, dense_n_chunk_eval=None,
         dense_lazy_min_elems=1 << 24, boundary_crop_max=0,
-        scale_size_factor=1.0, search_method="auto",
+        scale_size_factor=1.0, search_method="auto", precision="default",
     )
+    # the reference caches a pair's taps up to this many elements
+    # (``pbf.py:498``, a TPU memory knob no shipped config sets)
+    TAP_CACHE_MAX_ELEMS = 32 * 1024 * 1024
 
     def __init__(self, *, generator=None, device="cuda", **cfg):
         super().__init__()
@@ -124,6 +138,7 @@ class PBFNet(nn.Module):
         for k, v in {**self.defaults, **cfg}.items():
             setattr(self, k, v)
         self.device = resolve_device(device)
+        is_bf16(self.precision)  # raises on an unknown precision
         self._check_supported()
         self._radii = tuple(float(r) for r in self.particle_radii)
         self._transform_cfg = dict(self.transformation or {})
@@ -171,8 +186,9 @@ class PBFNet(nn.Module):
 
     def make_cconv(self, name, in_channels, filters, kernel_size=None,
                    window_func=None, normalize=False, symmetric=False,
-                   sym_axis=2, use_bias=True):
-        """Conv factory registered under the flax module name."""
+                   sym_axis=2, use_bias=True, precision=None):
+        """Conv factory registered under the flax module name; ``precision``
+        defaults to the model's (the ASCC convs pin "highest")."""
         conv = ContinuousConv(
             in_channels, filters,
             tuple(kernel_size or self.kernel_size), use_bias=use_bias,
@@ -181,7 +197,9 @@ class PBFNet(nn.Module):
             normalize=normalize,
             window_function=get_window_func(window_func),
             symmetric=symmetric, sym_axis=sym_axis, circular=self.circular,
-            k_chunk=self.conv_k_chunk, generator=self._generator,
+            k_chunk=self.conv_k_chunk,
+            precision=precision if precision is not None else self.precision,
+            generator=self._generator,
             device=self.device)
         self.add_module(name, conv)
         return conv
@@ -192,6 +210,14 @@ class PBFNet(nn.Module):
         if name is not None:
             self.add_module(name, dense)
         return dense
+
+    def caches_taps(self, nl, kernel_size=None):
+        """Whether the reference caches the taps of a K-list conv over
+        ``nl`` (``pbf.py:pair_taps``: Q*K*S at most
+        ``TAP_CACHE_MAX_ELEMS``)."""
+        q, k = nl.idx.shape
+        return q * k * int(np.prod(kernel_size or self.kernel_size)) \
+            <= self.TAP_CACHE_MAX_ELEMS
 
     def dense_chunk_for(self, training):
         if training:
@@ -353,14 +379,17 @@ class PBFNet(nn.Module):
                                 torch.cat(box_feats, dim=-1), 0.0)
 
         ext0 = filter_extent[0]
+        # the reference's scale-0 convs share the all->all pair's taps
+        cached = self.caches_taps(nl_all0)
         ans_conv = self.fluid_obs(fluid_feats * self.part_scale, pos,
-                                  all_pos, ext0, nl_fluid0)
+                                  all_pos, ext0, nl_fluid0,
+                                  cached_taps=cached)
         ans_dense = self.fluid_dense(fluid_feats)
         # nl_box0 indexes all_pos (offset by n_fluid) while the features
         # are box rows: continuous_conv clamps the gather exactly as the
         # reference's JAX gather does (ROADMAP §3, obs_conv gather offset)
         ans_obs = self.obs_conv(box_feats * self.part_scale, box_pos,
-                                all_pos, ext0, nl_box0)
+                                all_pos, ext0, nl_box0, cached_taps=cached)
         ans_dense = torch.cat([ans_dense, self.obs_dense(box_feats)], dim=0)
         feats = torch.cat([ans_conv, ans_obs, ans_dense], dim=-1)
         feats = torch.where(all_mask[:, None], feats, 0.0)

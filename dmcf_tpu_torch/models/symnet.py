@@ -3,7 +3,9 @@
 
 The trunk's finest-scale output passes through antisymmetric convs over
 all particles at the finest radius (coincident points dropped), giving a
-position correction whose pairwise exchanges cancel; they run fp32.
+position correction whose pairwise exchanges cancel; they run fp32
+("highest") whatever the trunk's ``precision``, as in the reference
+(``symnet.py:43-46``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ class SymNet(HRNet):
             self.sym_convs.append(self.make_cconv(
                 f"sym_conv{i}", cin, ch, use_bias=False, symmetric=True,
                 kernel_size=self.sym_kernel_size,
-                window_func=self.window_sym, sym_axis=self.sym_axis))
+                window_func=self.window_sym, sym_axis=self.sym_axis,
+                precision="highest"))
             cin = ch
 
     def net_forward(self, ctx, data, training=False):

@@ -16,13 +16,20 @@ carries the gradients of ``a`` and ``t`` back through the plain geometry
 into the positions.  ``continuous_conv_reference`` runs the
 same geometry into the plain twin on any device.  ``continuous_conv_dense``
 (every source point a candidate) is plain PyTorch in this slice.
+
+``precision`` is the JAX package's: "highest" computes fp32 throughout
+(the default here, as in JAX's ``continuous_conv``); None or "default"
+is JAX's bf16 contraction (``kernels/cconv_klist.py`` states it), for the
+dense conv too, whose tap-field and filter products stay plain matrix
+products of bf16-rounded operands with fp32 sums and outputs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.cconv_klist import cconv_klist, cconv_klist_reference
+from ..kernels.cconv_klist import (cconv_klist, cconv_klist_reference,
+                                   is_bf16, round_bf16)
 from .coords import axis_interp_weights, compute_centered_filter_coordinates
 from .neighbors import NeighborList
 
@@ -48,12 +55,13 @@ def klist_geometry(neighbors: NeighborList, extents, filter_size, *,
                    out_positions=None, inp_positions=None,
                    window_fn=None,
                    coordinate_mapping="ball_to_cube_volume_preserving",
-                   align_corners=True):
+                   align_corners=True, bf16_window=False):
     """Per-slot inputs of the K-list contraction: (idx, a, t).
 
     idx [Q, K] int32 as the list holds them (the contraction clamps
-    out-of-range entries); a [Q, K] = mask * window(d^2/r^2); t [Q, K, 3]
-    centred filter coordinates (tz, ty, tx).
+    out-of-range entries); a [Q, K] = mask * window(d^2/r^2), the window
+    rounded to bf16 first with ``bf16_window``; t [Q, K, 3] centred filter
+    coordinates (tz, ty, tx).
     """
     idx, mask = neighbors.idx, neighbors.mask
     rel_scale, r_sq = _radius_terms(extents, neighbors.dist)
@@ -67,14 +75,21 @@ def klist_geometry(neighbors: NeighborList, extents, filter_size, *,
     t = torch.stack([tz, ty, tx], dim=-1)
     a = mask.to(neighbors.dist.dtype)
     if window_fn is not None:
-        a = a * window_fn(neighbors.dist / r_sq)
+        win = window_fn(neighbors.dist / r_sq)
+        a = a * (round_bf16(win) if bf16_window else win)
     return idx.to(torch.int32).contiguous(), a.contiguous(), t.contiguous()
 
 
 def _continuous_conv(contract, kernel, out_positions, inp_positions,
                      inp_features, neighbors, extents, *, window_fn,
                      coordinate_mapping, interpolation, align_corners,
-                     normalize, inp_importance, symmetric, query_features):
+                     normalize, inp_importance, symmetric, query_features,
+                     precision, cached_taps):
+    if symmetric and is_bf16(precision):
+        raise NotImplementedError(
+            "a symmetric conv at bf16 precision is not ported (JAX's "
+            "depends on the platform; the model's ASCC convs run "
+            "'highest')")
     if interpolation != "linear":
         raise NotImplementedError(
             f"interpolation {interpolation!r} is not ported yet (the "
@@ -85,7 +100,8 @@ def _continuous_conv(contract, kernel, out_positions, inp_positions,
     idx, a, t = klist_geometry(
         neighbors, extents, (kz, ky, kx), out_positions=out_positions,
         inp_positions=inp_positions, window_fn=window_fn,
-        coordinate_mapping=coordinate_mapping, align_corners=align_corners)
+        coordinate_mapping=coordinate_mapping, align_corners=align_corners,
+        bf16_window=cached_taps and is_bf16(precision))
     qf = None
     if symmetric:
         if query_features is None:
@@ -93,7 +109,7 @@ def _continuous_conv(contract, kernel, out_positions, inp_positions,
         qf = query_features.contiguous()
     out = contract(idx, a, t, inp_features.contiguous(),
                    kernel.reshape(kz * ky * kx * cin, cout).contiguous(),
-                   (kz, ky, kx), qfeats=qf)
+                   (kz, ky, kx), qfeats=qf, precision=precision)
     if normalize:
         if window_fn is not None:
             denom = a.sum(dim=1)
@@ -108,15 +124,21 @@ def continuous_conv(kernel, out_positions, inp_positions, inp_features,
                     coordinate_mapping="ball_to_cube_volume_preserving",
                     interpolation="linear", align_corners=True,
                     normalize=False, inp_importance=None, symmetric=False,
-                    query_features=None):
+                    query_features=None, precision="highest",
+                    cached_taps=False):
     """K-list continuous conv at ``out_positions`` -> [Q, Cout].
 
     kernel [kz, ky, kx, Cin, Cout] (already expanded for symmetric
     variants); inp_features [N, Cin]; ``neighbors`` a padded NeighborList of
     input points per output point; ``extents`` the scalar filter diameter.
     ``symmetric`` adds the antisymmetric self term and needs
-    ``query_features`` [Q, Cin].  CUDA tensors run the hand-written
-    kernels, forward and backward.
+    ``query_features`` [Q, Cin] (fp32 only).  CUDA tensors run the
+    hand-written kernels of the ``precision``'s variant, forward and
+    backward.  ``cached_taps`` computes what JAX's conv computes over a
+    tap tensor the model cached (``dmcf_tpu/models/pbf.py:pair_taps``,
+    built in bf16 at the default precision: the window weights are
+    rounded to bf16 before the tap product, :517-519 and
+    ``ops/cconv.py:build_tap_tensor``); it changes nothing at "highest".
     """
     return _continuous_conv(
         cconv_klist, kernel, out_positions, inp_positions, inp_features,
@@ -124,7 +146,8 @@ def continuous_conv(kernel, out_positions, inp_positions, inp_features,
         coordinate_mapping=coordinate_mapping, interpolation=interpolation,
         align_corners=align_corners, normalize=normalize,
         inp_importance=inp_importance, symmetric=symmetric,
-        query_features=query_features)
+        query_features=query_features, precision=precision,
+        cached_taps=cached_taps)
 
 
 def continuous_conv_reference(kernel, out_positions, inp_positions,
@@ -134,7 +157,8 @@ def continuous_conv_reference(kernel, out_positions, inp_positions,
                               "ball_to_cube_volume_preserving",
                               interpolation="linear", align_corners=True,
                               normalize=False, inp_importance=None,
-                              symmetric=False, query_features=None):
+                              symmetric=False, query_features=None,
+                              precision="highest", cached_taps=False):
     """Plain PyTorch twin of :func:`continuous_conv` on any device."""
     return _continuous_conv(
         cconv_klist_reference, kernel, out_positions, inp_positions,
@@ -142,13 +166,15 @@ def continuous_conv_reference(kernel, out_positions, inp_positions,
         coordinate_mapping=coordinate_mapping, interpolation=interpolation,
         align_corners=align_corners, normalize=normalize,
         inp_importance=inp_importance, symmetric=symmetric,
-        query_features=query_features)
+        query_features=query_features, precision=precision,
+        cached_taps=cached_taps)
 
 
 def _dense_T(rel, a, feats, filter_size, coordinate_mapping, interpolation,
-             align_corners):
+             align_corners, bf16):
     """T[q, s, c] = sum_n (a[q, n] * w[q, n, s]) f[n, c] for one source
-    slice.  The tap field is built source-minor, [q, s, n], so the
+    slice, in fp32 (with ``bf16``, of the tap field and features rounded
+    to bf16).  The tap field is built source-minor, [q, s, n], so the
     contraction is one [q*s, n] x [n, c] product with no transpose copy
     of the (largest) tap field."""
     q, n = a.shape
@@ -161,24 +187,29 @@ def _dense_T(rel, a, feats, filter_size, coordinate_mapping, interpolation,
     wzy = (wz[:, :, None, :] * wy[:, None, :, :]).reshape(q, fz * fy, n)
     A = (wzy[:, :, None, :] * wx[:, None, :, :]).reshape(q, fz * fy * fx, n)
     A = A * a[:, None, :]
+    if bf16:
+        return round_bf16(A) @ round_bf16(feats)
     return A @ feats
 
 
 def continuous_conv_dense(kernel, rel, a, inp_features, *,
                           coordinate_mapping="ball_to_cube_volume_preserving",
                           interpolation="linear", align_corners=True,
-                          n_chunk: int = 0):
+                          n_chunk: int = 0, precision="highest"):
     """Continuous conv evaluated densely over ALL source points.
 
     rel [Q, N, 3] displacement ``src - query`` already scaled by 1/radius;
     a [Q, N] validity * window weights (0 for out-of-radius or masked
     pairs); inp_features [N, Cin].  With ``0 < n_chunk < N`` the source
     dimension is summed in slices of that width, bounding the [Q, chunk, S]
-    tap field; the result equals the unchunked one to summation order.
+    tap field; the result equals the unchunked one to summation order (at
+    bf16, the chunks' fp32 sums are added and T is rounded once, as JAX's
+    chunked scan does).
     """
     kz, ky, kx, cin, cout = kernel.shape
     q, n = a.shape
     fsz = (kz, ky, kx)
+    bf16 = is_bf16(precision)
     if 0 < n_chunk < n:
         T = torch.zeros((q, kz * ky * kx, cin), dtype=inp_features.dtype,
                         device=inp_features.device)
@@ -186,8 +217,11 @@ def continuous_conv_dense(kernel, rel, a, inp_features, *,
             sl = slice(start, start + n_chunk)
             T = T + _dense_T(rel[:, sl], a[:, sl], inp_features[sl], fsz,
                              coordinate_mapping, interpolation,
-                             align_corners)
+                             align_corners, bf16)
     else:
         T = _dense_T(rel, a, inp_features, fsz, coordinate_mapping,
-                     interpolation, align_corners)
-    return T.reshape(q, kz * ky * kx * cin) @ kernel.reshape(-1, cout)
+                     interpolation, align_corners, bf16)
+    w = kernel.reshape(-1, cout)
+    if bf16:
+        T, w = round_bf16(T), round_bf16(w)
+    return T.reshape(q, kz * ky * kx * cin) @ w

@@ -2,11 +2,12 @@
 
     python -m dmcf_tpu_torch.profile_step [--steps N] [--out FILE.json]
 
-Builds the model of ``configs/WaterRamps.yml`` (random weights, seed 0) on
-the bench scene, then reports (1) steady-state wall time per step, (2) the
-synchronised wall time of each stage of a step (preprocess: advection,
-voxel pyramid, finest search, scale-0 convs; trunk: HRNet convs with their
-searches and dense pairs; ASCC output conv; postprocess), and (3) a
+Builds the model of ``configs/WaterRamps.yml`` (random weights, seed 0; the
+config's precision, a bf16 trunk) on the bench scene, then reports its precision and (1) steady-state
+wall time per step, (2) the synchronised wall time of each stage of a step
+(preprocess: advection, voxel pyramid, finest search, scale-0 convs;
+trunk: HRNet convs with their searches and dense pairs; ASCC output conv;
+postprocess), and (3) a
 ``torch.profiler`` trace summary: device time per step, the device's busy
 share of the wall time, and the ops with the most device time.  Needs a
 CUDA device; never falls back to the CPU.  ``graph_ms`` (a kernel's
@@ -112,7 +113,8 @@ def profile(steps=20, top=25):
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(0))
     sample = bench_sample(*build_scene(), device=dev)
-    report = {"device": torch.cuda.get_device_name(0), "steps": steps}
+    report = {"device": torch.cuda.get_device_name(0), "steps": steps,
+              "precision": model.precision}
 
     with torch.no_grad():
         for _ in range(3):
@@ -173,7 +175,8 @@ def print_report(report, top=None):
     """Print a ``profile`` report (or a ``trace`` one: no stage times), the
     first ``top`` rows of each table."""
     if "stage_ms" in report:
-        print(f"device {report['device']}: {report['ms_per_step']:.3f} "
+        print(f"device {report['device']}, precision "
+              f"{report['precision']}: {report['ms_per_step']:.3f} "
               f"ms/step over {report['steps']} steps")
         for k, v in report["stage_ms"].items():
             print(f"  stage {k:12s} {v:9.3f} ms (synchronised wall)")

@@ -1,5 +1,6 @@
 """Where the port's K-list kernel spends its time, phase by phase, at the 19
-launches of one WaterRamps SymNet step on the bench scene.
+launches of one WaterRamps SymNet step on the bench scene (at the config's
+precision: 18 launches of the bf16 variant and the fp32 ASCC conv).
 
     python -m scripts.torch_klist_phases
 
@@ -30,14 +31,17 @@ import torch
 import yaml
 
 from dmcf_tpu_torch.kernels import build
+from dmcf_tpu_torch.kernels.cconv_klist import is_bf16
 from dmcf_tpu_torch.models import build_model
 from dmcf_tpu_torch.profile_step import graph_ms, record_launches
 from dmcf_tpu_torch.scene import bench_sample, build_scene
 
 CUTS = {
     "full": [],
-    "no_T": [("build_T<kTaps>(p, sh, q0, s0, nr, clo, cw);", "")],
+    "no_T": [("build_T<kTaps, kBF16>(p, sh, q0, s0, nr, clo, cw);", "")],
     "no_product": [("contract_fma(p, sh, nr, cw, base);", "(void)0;"),
+                   ("contract_mma_bf16(p, sh, nr, cw, base, acc);",
+                    "(void)0;"),
                    ("contract_mma(p, sh, nr, cw, base, acc);", "(void)0;")],
     "no_accum": [("while (bits) {", "while (false) {")],
 }
@@ -64,7 +68,7 @@ def build_variants():
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
         fn = ctypes.CDLL(str(so)).cconv_klist_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fns[name] = fn
     return fns
@@ -84,6 +88,9 @@ def main():
     print(f"device {torch.cuda.get_device_name(0)}; device ms per launch")
     for conv, (idx, a, t, feats, w, ksize), kw, _ in log:
         qf = kw.get("qfeats")
+        half = is_bf16(kw.get("precision", "highest"))
+        if half:  # the bf16 variant takes bf16 features and filter
+            feats, w = feats.bfloat16(), w.bfloat16()
         q, k = idx.shape
         n, cin = feats.shape
         cout = w.shape[1]
@@ -94,12 +101,12 @@ def main():
                 fn(idx.data_ptr(), a.data_ptr(), t.data_ptr(),
                    feats.data_ptr(), None if qf is None else qf.data_ptr(),
                    w.data_ptr(), out.data_ptr(), q, k, n, cin, cout, *ksize,
-                   torch.cuda.current_stream().cuda_stream)
+                   int(half), torch.cuda.current_stream().cuda_stream)
             ms = graph_ms(call)
             totals[name] += ms
             row.append(f"{name} {ms:.4f}")
         print(f"{conv:11s} Q {q:4d} Cin {cin:2d} Cout {cout:2d} "
-              f"sym {qf is not None:d}: " + ", ".join(row))
+              f"sym {qf is not None:d} bf16 {half:d}: " + ", ".join(row))
     print("sum of the launches: "
           + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()))
 

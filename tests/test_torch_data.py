@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from dmcf_tpu.data import dataflow as jflow
 from dmcf_tpu.data import dataset as jdataset
@@ -17,6 +18,9 @@ from dmcf_tpu.data import generators as jgen
 from dmcf_tpu.utils.config import Config as JConfig
 from dmcf_tpu_torch.data import dataflow, dataset, generators
 from dmcf_tpu_torch.utils.config import Config
+
+# two intra-op threads: the suite runs files side by side on a few cores
+torch.set_num_threads(2)
 
 MOMENTUM = os.path.join(os.path.dirname(__file__), "..", "configs", "other",
                         "momentum.yml")

@@ -7,6 +7,10 @@ import ast
 import pathlib
 
 import pytest
+import torch
+
+# two intra-op threads: the suite runs files side by side on a few cores
+torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dmcf_tpu")

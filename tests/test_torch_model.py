@@ -3,7 +3,8 @@ with bridged weights, on a narrow WaterRamps-shaped model (kernel [1,4,4],
 channels <= 8, same 3-scale trunk, dense downsampling pairs, ASCC output)
 over a 256-fluid bench scene moved so the fluid touches the boundary (the
 boundary convs see real neighbors).  The JAX model is built with
-``precision: highest``: this slice of the port computes everything fp32.
+``precision: highest`` (fp32 in both packages; the bf16 trunk of the
+default precision is held in ``test_torch_precision.py``).
 
 Tolerances: the position correction to 1e-5 of its own magnitude (fp32
 contraction order through 27 convs); positions to 1e-6 (fp32 rounding of
@@ -30,6 +31,9 @@ from dmcf_tpu_torch.ops import cconv
 from dmcf_tpu_torch.profile_step import record_launches
 from dmcf_tpu_torch.rollout import rollout
 from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+# two intra-op threads: the suite runs files side by side on a few cores
+torch.set_num_threads(2)
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
 
@@ -170,14 +174,18 @@ def test_record_launches_keeps_each_klist_conv(bridged):
         assert torch.equal(out, cconv_klist_reference(*args, **kw)), name
 
 
-def test_symnet_correction_sums_to_zero_without_boundary():
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_symnet_correction_sums_to_zero_without_boundary(precision):
     """Momentum twin of tests/test_models.py::TestMomentumConservation:
     with no boundary particles the ASCC correction sums to ~0 over the
-    fluid (Liquid3d, 3D, sym kernel 6x6x6)."""
+    fluid (Liquid3d, 3D, sym kernel 6x6x6), with the trunk in bf16 (the
+    config's default) or fp32: the ASCC conv runs fp32 either way."""
     cfg = model_cfg("Liquid3d.yml")
     cfg["out_scale"] = [1.0, 1.0, 1.0]
     cfg["conv_k_chunk"] = 0  # chunking is summation-exact; not ported
+    cfg["precision"] = precision
     model = build_model(cfg, device="cpu")
+    assert model.sym_conv0.precision == "highest"
     rng = np.random.RandomState(6)
     pos = rng.uniform(-0.2, 0.2, (64, 3)).astype(np.float32)
     sample = {

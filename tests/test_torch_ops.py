@@ -23,6 +23,9 @@ from dmcf_tpu.ops import windows as jwin
 from dmcf_tpu_torch.models.pbf import drop_coincident
 from dmcf_tpu_torch.ops import cconv, coords, neighbors, sph, windows
 
+# two intra-op threads: the suite runs files side by side on a few cores
+torch.set_num_threads(2)
+
 T = torch.from_numpy
 
 

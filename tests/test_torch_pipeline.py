@@ -5,7 +5,8 @@ weights carried from the flax tree (``interop.params_from_flax``), the
 boundary-bbox clip of the valid suite (ROADMAP §3), and the port's
 ``run_pipeline`` and ``bench`` entry points.
 
-JAX models are built with ``precision: highest`` (the port is fp32).
+Both packages' models are built with ``precision: highest`` (fp32; the
+port's bf16 trunk, its default, is held in ``test_torch_precision.py``).
 Tolerances: 1e-5 for the op-level comparisons (fp32, reductions in another
 order); trajectories 1e-5 absolute; valid metrics 1e-4 relative (plus 1e-7
 absolute for metrics at round-off size), since they sum per-frame fp32
@@ -44,6 +45,9 @@ from dmcf_tpu_torch.ops import emd, sph
 from dmcf_tpu_torch.ops.windows import get_window_func
 from dmcf_tpu_torch.pipelines import Simulator, metrics
 from tests.test_pipeline import _make_scenes
+
+# two intra-op threads: the suite runs files side by side on a few cores
+torch.set_num_threads(2)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 MOMENTUM = os.path.join(ROOT, "configs", "other", "momentum.yml")
@@ -200,7 +204,7 @@ def hrnet_pair(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("hrnet")
     scenes = _make_scenes(n_scenes=2, frames=8, n=6)
     jmodel = JHRNet(precision="highest", **hrnet_kwargs())
-    model = HRNet(device="cpu", **hrnet_kwargs())
+    model = HRNet(device="cpu", precision="highest", **hrnet_kwargs())
     return simulators(tmp, scenes, jmodel, model)
 
 

@@ -5,7 +5,8 @@ clip, the divergence-guarded warm-up, ``grad_accum``) on a narrow SymNet
 with weights carried from the flax tree, and ``run_pipeline --split train``
 with a checkpoint that resumes.
 
-JAX models are built with ``precision: highest`` (the port is fp32).
+Both packages' models are built with ``precision: highest`` (fp32; the
+bf16 trunk, the default, is held in ``test_torch_precision.py``).
 Tolerances: losses 1e-6 relative (same formulas); the train step's loss
 vector 1e-4 relative and each parameter's gradient within 1e-4 of that
 tensor's largest JAX gradient (fp32 sums in another order through a
@@ -41,6 +42,9 @@ from dmcf_tpu_torch.models import build_model
 from dmcf_tpu_torch.models import losses
 from dmcf_tpu_torch.pipelines import simulator as sim
 from tests.test_pipeline import _make_scenes
+
+# two intra-op threads: the suite runs files side by side on a few cores
+torch.set_num_threads(2)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 MOMENTUM = os.path.join(ROOT, "configs", "other", "momentum.yml")

@@ -24,7 +24,15 @@ momentum config on the card through ``run_pipeline --split train`` with
 every kernel variant's launches counted exactly and its first two steps
 held against the CPU path (phase 11), runs one WaterRamps train step at
 batch 16, window 3 (phase 12), runs the fp32 path (precision "highest": a
-100-step rollout and momentum train steps, phase 13), and prints one
+100-step rollout and momentum train steps, phase 13), holds the column
+solver kernel (``csrc/column_sph.cu``) against its plain version and the
+JAX package's fixture and generates the column splits at full size (phase
+14), trains and validates the column configs through ``run_pipeline``
+with data from that kernel (phase 15), runs ``configs/Liquid3d.yml`` at
+full width (K-list launches up to K 1856 in chunks, the 6x6x6 ASCC conv,
+a 50-step rollout, a batch-8 train step; phase 16), ``configs/WBC-SPH.yml``
+upright and turned by 30 degrees (``grav_eqvar``, phase 17) and the
+CConv and PointNet baselines (phase 18), and prints one
 ``kernels`` JSON line (each kernel variant, its launches on each path),
 the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
 kernel's ``ms`` is the mean of calls issued back to back (CUDA events
@@ -887,6 +895,558 @@ def waterramps_shapes(cfg, sample, dev):
     return shapes
 
 
+# the column kernel against the JAX package's solver at full size
+# (tests/data/torch_column_ref.npz: 3 scenes of 9-12 particles, 100 frames
+# of up to 10,000 projection iterations): the port sums each particle's
+# pairs in another order than XLA, and the iterations carry the rounding
+# on.  Measured on the CPU for a 12-particle scene over the same 100
+# frames: positions 3.3e-6, velocities 4.2e-3 (solver units, |v| <= 4.4);
+# about 15 times that:
+COLUMN_X_TOL = 5e-5
+COLUMN_V_TOL = 5e-2
+COLUMN_SPLITS = ("train", "valid", "test")
+COLUMN_ITERS = 20            # phase 15's run_train iterations
+LIQUID_BLOCK = (22, 6, 22)   # phase 16's fluid block (particles an axis)
+LIQUID_STEPS = 50
+WBC_STEPS = 20
+BASELINE_STEPS = 20
+
+
+def column_config(root, name="symnet.yml"):
+    import yaml
+
+    with open(os.path.join(root, "configs", "column", name)) as f:
+        return yaml.safe_load(f)
+
+
+def column_split(ds, split=None):
+    """A column split's generator arguments as DatasetGroup merges them
+    (with no split, the arguments the splits share)."""
+    base = {k: v for k, v in ds.items()
+            if k not in ("name", "type", "train", "valid", "test")}
+    return {**ds[split], **base} if split else base
+
+
+def column_ops(counts, iters, frames):
+    """Floating-point operations the column solver's data needs: per frame
+    37 n^2 + 10 n for the viscosity step and 34 n^2 + 20 n an iteration
+    (the operations of ``csrc/column_sph.cu``'s leaves and updates, n the
+    scene's particles; padding slots cost none)."""
+    n = np.asarray(counts, np.float64)[:, None]
+    return float((frames * (37 * n ** 2 + 10 * n)).sum()
+                 + ((34 * n ** 2 + 20 * n) * iters).sum())
+
+
+def column_bound(counts, iters, frames, p):
+    """(bound ms, by): the larger of the operations at the fp32 rate and
+    the bytes (x0, v0, counts in; xs, vs, iters out) at HBM's rate."""
+    ops = column_ops(counts, iters, frames)
+    s = len(counts)
+    nbytes = s * p * 8 + s * 4 + s * frames * (p * 8 + 4)
+    t_ops, t_bytes = ops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def column_phase(root, dev):
+    """Phase 14: the column kernel (``csrc/column_sph.cu``) against its
+    plain version on the card (4 scenes of 1-40 fluid particles, 5 frames,
+    the full 10,000-iteration cap), against the JAX package's solver at
+    full size (the fixture), two launches bitwise equal, then each split of
+    ``configs/column/symnet.yml`` generated at its full size: time,
+    projection iterations, bound."""
+    from dmcf_tpu_torch.data.generators import column_problem
+    from dmcf_tpu_torch.kernels.column_sph import (column_solve,
+                                                   column_solve_reference)
+
+    ds = column_config(root)["dataset"]
+    base = column_split(ds)
+    out = {}
+
+    def on_card(problem):
+        x0, v0, counts, kw = problem
+        return [torch.as_tensor(a, device=dev) for a in (x0, v0, counts)], kw
+
+    args, kw = on_card(column_problem(4, 5, pts_cnt=[1, 10, 25, 40],
+                                      **base))
+    got = column_solve(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = column_solve_reference(*args, **kw)
+    torch.cuda.synchronize()
+    out["plain_ms"] = 1e3 * (time.time() - t0)
+    out["ms"] = cuda_ms(lambda: column_solve(*args, **kw), iters=3,
+                        warmup=1)
+    err = max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2]))
+    same = all(torch.equal(g, r) for g, r in zip(got, ref))
+    iters = got[2].cpu().numpy()
+    out["bound_ms"], out["bound_by"] = column_bound(
+        args[2].tolist(), iters, 5, args[0].shape[1])
+    out["max_abs_err"] = err
+    print(f"  4 scenes x 5 frames, iterations a frame {iters.tolist()}: "
+          f"kernel {out['ms']:.3f} ms, plain version {out['plain_ms']:.1f} "
+          f"ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']}; the "
+          f"solver is latency-bound), kernel vs plain max |diff| {err:.3e},"
+          f" bitwise equal {same}")
+    check(same and err == 0.0, "column kernel bitwise equal to its plain "
+          "version (the same operations and pair-sum tree)")
+
+    fx = np.load(os.path.join(root, "tests", "data",
+                              "torch_column_ref.npz"))
+    args, kw = on_card(column_problem(
+        len(fx["pts_cnt"]), int(fx["timesteps"]), pts_cnt=fx["pts_cnt"],
+        res=int(fx["res"]), gravity=float(fx["gravity"]),
+        dt=float(fx["dt"]), max_iter=int(fx["max_iter"])))
+    got = column_solve(*args, **kw)
+    again = column_solve(*args, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          "two column launches bitwise equal")
+    t_, n_ = got[0].shape[1:]
+    dx = float(np.abs(got[0].cpu().numpy() - fx["xs"][:, :t_, :n_]).max())
+    dv = float(np.abs(got[1].cpu().numpy() - fx["vs"][:, :t_, :n_]).max())
+    print(f"  against the JAX fixture ({len(fx['pts_cnt'])} scenes, "
+          f"{int(fx['timesteps'])} frames, {int(got[2].sum())} "
+          f"iterations): positions {dx:.3e} (tol {COLUMN_X_TOL:g}), "
+          f"velocities {dv:.3e} (tol {COLUMN_V_TOL:g}); two launches "
+          f"bitwise equal")
+    check(dx <= COLUMN_X_TOL and dv <= COLUMN_V_TOL,
+          f"column kernel vs JAX fixture {dx}, {dv}")
+    out["fixture_err"] = [dx, dv]
+
+    out["splits"] = {}
+    for split in COLUMN_SPLITS:
+        cfg = column_split(ds, split)
+        np.random.seed(cfg.pop("seed"))
+        args, kw = on_card(column_problem(**cfg))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        xs, vs, it = column_solve(*args, **kw)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        it = it.cpu().numpy()
+        b_ms, b_by = column_bound(args[2].tolist(), it, kw["timesteps"],
+                                  args[0].shape[1])
+        check(bool(torch.isfinite(xs).all() and torch.isfinite(vs).all()),
+              f"finite {split} split")
+        out["splits"][split] = dict(seconds=sec, iterations=int(it.sum()),
+                                    bound_ms=b_ms)
+        print(f"  symnet.yml {split}: {args[0].shape[0]} scenes x "
+              f"{kw['timesteps']} frames in {sec:.3f} s, {int(it.sum())} "
+              f"projection iterations ({it.mean():.1f} a frame, "
+              f"{100 * (it == kw['max_iter']).mean():.1f} % of frames at "
+              f"max_iter), {1e6 * sec / it.max(axis=0).sum():.3f} us an "
+              f"iteration of the longest scene; bound {b_ms:.6f} ms "
+              f"({b_by})")
+    return out
+
+
+def column_configs_phase(root, dev):
+    """Phase 15: ``run_pipeline`` on the column configs on the card, data
+    from the column kernel (``--dataset.cache_dir none``): symnet.yml
+    trains COLUMN_ITERS iterations and then validates; hrnet.yml and
+    symnet_wide.yml train one step each.  Every loss logged; whether the
+    loss falls is reported, not checked.  Returns the launches of each
+    kernel on this path."""
+    from dmcf_tpu_torch import run_pipeline
+    from dmcf_tpu_torch.kernels.column_sph import column_solve
+
+    tmp = tempfile.TemporaryDirectory()
+    out = {}
+
+    def run(name, split, *extra):
+        args = ["--cfg_file", os.path.join(root, "configs", "column", name),
+                "--split", split, "--device", dev.type,
+                "--dataset.cache_dir", "none",
+                "--main_log_dir", os.path.join(tmp.name, "logs"),
+                "--output_dir", os.path.join(tmp.name, "out"),
+                "--pipeline.train_sum_dir", os.path.join(tmp.name, "sum"),
+                *extra]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = run_pipeline.main(args)
+        torch.cuda.synchronize()
+        return res, time.time() - t0
+
+    train_args = ("--pipeline.max_epoch", "0", "--pipeline.log_every", "1",
+                  "--pipeline.run_valid_every_epoch", "false",
+                  "--pipeline.run_test_every_epoch", "false")
+    column_solve.launches = 0
+    zero_counts()                # the column path starts here
+    # DatasetGroup makes all three splits; a split the run does not read
+    # is cut to 2 frames (the kernel still makes it)
+    logged, sec = run("symnet.yml", "train", "--pipeline.iter",
+                      str(COLUMN_ITERS), "--dataset.test.timesteps", "2",
+                      *train_args)
+    losses = [e["loss"] for e in logged]
+    print(f"  symnet.yml train: {len(losses)} iterations in {sec:.3f} s "
+          f"(the kernel makes the splits first)")
+    print("  losses " + " ".join(f"{v:.6e}" for v in losses))
+    print(f"  loss of the last 5 iterations / the first 5: "
+          f"{np.mean(losses[-5:]) / np.mean(losses[:5]):.4f}")
+    check(len(losses) == COLUMN_ITERS and all(np.isfinite(losses)),
+          "finite column train losses")
+    valid, sec = run("symnet.yml", "valid", "--dataset.train.timesteps",
+                     "2", "--dataset.test.timesteps", "2")
+    print(f"  symnet.yml valid in {sec:.3f} s: " + ", ".join(
+        f"{k} {v:.4e}" for k, v in valid.items()
+        if isinstance(v, float)))
+    check(all(np.isfinite(v) for v in valid.values()
+              if isinstance(v, float)), "finite column valid metrics")
+    out["launches"] = counts()
+    out["column_launches"] = column_solve.launches   # and ends here
+    print(f"  launches on this path: column_sph {out['column_launches']}, "
+          f"K-list (fp32, bf16) fwd {out['launches'][0:2]} bwd_data "
+          f"{out['launches'][2:4]} bwd_filter {out['launches'][4:6]}")
+    check(out["column_launches"] == 2 * len(COLUMN_SPLITS),
+          f"column kernel launches {out['column_launches']}")
+    check(all(out["launches"]), f"every K-list variant launched on the "
+          f"column path {out['launches']}")
+    for name in ("hrnet.yml", "symnet_wide.yml"):
+        logged, sec = run(name, "train", "--pipeline.iter", "1",
+                          "--dataset.valid.timesteps", "2",
+                          "--dataset.test.timesteps", "2", *train_args)
+        print(f"  {name}: one train step, loss {logged[0]['loss']:.6e} "
+              f"({sec:.3f} s with its data)")
+        check(len(logged) == 1 and np.isfinite(logged[0]["loss"]),
+              f"{name} train step")
+    tmp.cleanup()
+    out["losses"] = losses
+    return out
+
+
+def liquid_scene(shape=LIQUID_BLOCK, spacing=0.05, seed=0):
+    """A block of fluid at the DeepLagrangianFluids spacing (0.05, particle
+    radius 0.025), ``shape`` particles an axis with a 1 % jitter, resting
+    in an open box of boundary particles at the same spacing (a floor one
+    spacing below the block, four walls one spacing outside it, as high as
+    the block).  Returns (pos, box, box_normals) fp32."""
+    rng = np.random.RandomState(seed)
+    nx, ny, nz = shape
+    axes = [np.arange(n) * spacing for n in shape]
+    pos = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    pos = pos + rng.normal(scale=spacing * 0.01, size=pos.shape)
+    bx = np.arange(-1, nx + 1) * spacing
+    bz = np.arange(-1, nz + 1) * spacing
+    by = np.arange(0, ny + 1) * spacing
+    fx, fz = np.meshgrid(bx, bz, indexing="ij")
+    parts = [np.stack([fx.ravel(), np.full(fx.size, -spacing), fz.ravel()],
+                      -1)]
+    nrms = [np.tile([0.0, 1.0, 0.0], (fx.size, 1))]
+    yy, zz = np.meshgrid(by, bz, indexing="ij")
+    for x, n in ((bx[0], 1.0), (bx[-1], -1.0)):
+        parts.append(np.stack([np.full(yy.size, x), yy.ravel(), zz.ravel()],
+                              -1))
+        nrms.append(np.tile([n, 0.0, 0.0], (yy.size, 1)))
+    xx, yy = np.meshgrid(bx[1:-1], by, indexing="ij")
+    for z, n in ((bz[0], 1.0), (bz[-1], -1.0)):
+        parts.append(np.stack([xx.ravel(), yy.ravel(), np.full(xx.size, z)],
+                              -1))
+        nrms.append(np.tile([0.0, 0.0, n], (xx.size, 1)))
+    return (pos.astype(np.float32), np.concatenate(parts).astype(np.float32),
+            np.concatenate(nrms).astype(np.float32))
+
+
+def launch_checks(log, what, max_err):
+    """Every logged K-list launch against its plain version (fwd_check);
+    prints each launch's shape.  Updates max_err {bf16: err}."""
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_reference
+
+    with torch.no_grad():
+        for name, args, kw, out in log:
+            err = fwd_check(f"{what} {name}", out,
+                            cconv_klist_reference(*args, **kw), kw)
+            max_err[bf16(kw)] = max(max_err[bf16(kw)], err)
+            idx_, _, _, f_, w_, ks_ = args
+            print(f"    {name:12s} Q {idx_.shape[0]:4d} K {idx_.shape[1]:4d}"
+                  f" N {f_.shape[0]:4d} Cin {f_.shape[1]:2d} Cout "
+                  f"{w_.shape[1]:2d} S {int(np.prod(ks_)):3d} "
+                  f"{'bf16' if bf16(kw) else 'fp32'} sym "
+                  f"{kw['qfeats'] is not None:d}: max_abs_err {err:.3e}")
+
+
+def train_step_phase(root, cfg_path, dev, model, sample, what):
+    """One train step at the config's batch and first window (its first
+    curriculum stage, its precision) on a sequence the port's rollout makes
+    from ``sample``: time, peak device memory, a finite loss and
+    gradients, each kernel variant's launches counted exactly against the
+    forward launches of one step of ``model`` on ``sample``."""
+    import yaml
+
+    from dmcf_tpu_torch.models.losses import get_loss
+    from dmcf_tpu_torch.pipelines.simulator import (make_optimizer,
+                                                    make_train_step)
+    from dmcf_tpu_torch.rollout import rollout
+
+    with open(os.path.join(root, "configs", cfg_path)) as f:
+        cfg = yaml.safe_load(f)
+    batch_size = int(cfg["pipeline"]["batch_size"])
+    window = int(cfg["pipeline"]["windows"][0])
+    zero_counts()
+    with torch.no_grad():
+        model(sample)
+    fwd = counts()[:2]           # K-list launches of one forward step
+    n = sample["pos"].shape[0]
+    frames = (torch.empty((window + 1, n, 3), device=dev),
+              torch.empty((window + 1, n, 3), device=dev))
+    rollout(model, sample, window, frames=frames)
+    batch = {"pos": frames[0], "vel": frames[1],
+             "grav": sample["grav"].expand(window + 1, n, 3)}
+    batch = {k: v[None].expand(batch_size, *v.shape).contiguous()
+             for k, v in batch.items()}
+    for k in ("box", "box_normals", "fluid_mask", "box_mask"):
+        batch[k] = sample[k][None].expand(batch_size, *sample[k].shape)
+    batch["pre"] = torch.zeros(batch_size, dtype=torch.int32, device=dev)
+    loss = {k: get_loss(**v) for k, v in cfg["model"]["loss"].items()}
+    step = make_train_step(model, loss, *make_optimizer(
+        model, cfg["pipeline"]["optimizer"]), window=window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                # this training path starts here
+    t0 = time.time()
+    lvec, _, stats = step(batch, np.ones(window, np.float32))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = counts()          # and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = expected_train_launches(batch_size, window, sum(fwd), fwd[1])
+    print(f"  {what} train step, batch {batch_size} x window {window}, "
+          f"{n} fluid rows: {seconds:.3f} s, peak memory allocated "
+          f"{peak / 2 ** 30:.3f} GiB, loss {float(lvec.sum()):.6e}, "
+          f"pair_overflow {float(stats['pair_overflow']):.0f}; launches "
+          f"(fp32, bf16) fwd {launches[0:2]} bwd_data {launches[2:4]} "
+          f"bwd_filter {launches[4:6]} (want {want}: {fwd} forward "
+          f"launches a step)")
+    check(bool(torch.isfinite(lvec).all()), f"finite {what} loss")
+    check(launches == want, f"{what} train launches {launches}")
+    check(all(bool(torch.isfinite(p.grad).all())
+              for p in model.parameters() if p.grad is not None),
+          f"finite {what} gradients")
+    return {"launches": launches, "seconds": seconds, "peak_bytes": peak}
+
+
+def liquid3d_phase(root, dev, max_err):
+    """Phase 16: ``configs/Liquid3d.yml`` at full width (its precision, a
+    bf16 trunk; seed-0 weights) on ``liquid_scene``: every K-list launch
+    of the first step against its plain version (K up to 1856 in chunks
+    of ``conv_k_chunk`` 352, the symmetric 6x6x6 ASCC conv), a
+    LIQUID_STEPS-step rollout under the exactness gate with each
+    variant's launches counted, the ASCC momentum ratio after it, and one
+    train step at the config's batch 8, window 2."""
+    import yaml
+
+    from dmcf_tpu_torch.bench import timed_rollout
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.profile_step import record_launches
+    from dmcf_tpu_torch.scene import bench_sample
+
+    with open(os.path.join(root, "configs", "Liquid3d.yml")) as f:
+        cfg = yaml.safe_load(f)["model"]
+    pos, box, nrm = liquid_scene()
+    sample = bench_sample(pos, box, nrm, device=dev)
+    rows = sample["pos"].shape[0] + sample["box"].shape[0]
+    print(f"  scene: {len(pos)} fluid (block {LIQUID_BLOCK}) + {len(box)} "
+          f"boundary particles at spacing 0.05, {rows} rows")
+    check(rows <= 5400, f"{rows} rows")
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    zero_counts()
+    (p1, _, aux), log = record_launches(model, sample)
+    torch.cuda.synchronize()
+    step = counts()[:2]
+    ks = [args[0].shape[1] for _, args, _, _ in log]
+    print(f"  first step: K-list launches (fp32, bf16) {step}, slots a "
+          f"launch {ks}; pair excess {dict((k, int(v)) for k, v in aux['pair_overflow_detail'].items())}")
+    launch_checks(log, "liquid3d", max_err)
+    per_conv = {}
+    for n_, a_, _, _ in log:
+        per_conv[n_] = per_conv.get(n_, 0) + 1
+    chunked = {n_: c for n_, c in per_conv.items() if c > 1}
+    wide = [k for k in ks if k > int(cfg["conv_k_chunk"])]
+    check(not wide, f"every launch at most conv_k_chunk slots: {wide}")
+    check(6 in chunked.values(), f"the K-1856 pair in 6 launches: {chunked}")
+    check(sum(1 for n_, a_, _, _ in log if n_ == "sym_conv0"
+              and int(np.prod(a_[5])) == 216 and a_[0].shape[1] == 96) == 1,
+          "one symmetric S 216 ASCC launch")
+    print(f"  convs chunked over K (launches): {chunked}")
+    zero_counts()                # the Liquid3d rollout starts here
+    pos_t, vel_t, gate, dt = timed_rollout(model, sample, LIQUID_STEPS)
+    launches = counts()[:2]      # and ends here
+    fm = sample["fluid_mask"]
+    print(f"  {LIQUID_STEPS}-step rollout: {1e3 * dt / LIQUID_STEPS:.3f} "
+          f"ms/step, gate {gate}, launches {launches}")
+    check(bool(torch.isfinite(pos_t[fm]).all()), "finite Liquid3d rollout")
+    check(gate["exact"], f"Liquid3d exactness gate {gate}")
+    check(launches == [LIQUID_STEPS * x for x in step],
+          f"Liquid3d rollout launches {launches}")
+    end = dict(sample, pos=pos_t, vel=vel_t)
+    _, end_log = record_launches(model, end)
+    sym = [o for n_, _, _, o in end_log if n_ == "sym_conv0"][0]
+    ratio = float((sym.sum(0).abs() / sym.abs().sum()).max())
+    print(f"  ASCC output after the rollout: |sum out| / sum |out| "
+          f"{ratio:.3e} (< 1e-5)")
+    check(ratio < 1e-5, f"Liquid3d ASCC momentum ratio {ratio}")
+    train = train_step_phase(root, "Liquid3d.yml", dev, model, sample,
+                             "Liquid3d")
+    return {"step": step, "rollout_launches": launches, "train": train,
+            "ms_per_step": 1e3 * dt / LIQUID_STEPS, "gate": gate}
+
+
+def turn(sample, degrees):
+    """The sample turned by ``degrees`` in the x-y plane (positions of the
+    fluid rows, boundary, normals, gravity, velocities)."""
+    a = np.deg2rad(degrees)
+    rot = torch.tensor([[np.cos(a), np.sin(a), 0.0],
+                        [-np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]],
+                       dtype=torch.float32, device=sample["pos"].device)
+    s = dict(sample)
+    fm = s["fluid_mask"][:, None]
+    s["pos"] = torch.where(fm, sample["pos"] @ rot, sample["pos"])
+    for k in ("vel", "grav", "box", "box_normals"):
+        s[k] = sample[k] @ rot
+    return s, rot
+
+
+def wbc_phase(root, dev):
+    """Phase 17: ``configs/WBC-SPH.yml`` (``grav_eqvar``) at full width on
+    ``scene.build_scene`` at the config's spacing (0.005, the fluid
+    jittered by a fifth of it): a WBC_STEPS
+    rollout with gravity along -y and one of the whole scene and its
+    gravity turned by 30 degrees, both under the exactness gate.  At
+    precision "highest" the first steps' outputs agree within phase 7's
+    fp32 tolerances (the position correction, in the model's frame, 1e-4
+    of its max; positions turned back 1e-6): ``grav_eqvar`` turns both
+    scenes into one frame before the network; at the config's own precision (a bf16 trunk) the
+    differences are reported, and for both the rollouts' final
+    positions."""
+    import yaml
+
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.rollout import rollout
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+    with open(os.path.join(root, "configs", "WBC-SPH.yml")) as f:
+        cfg = yaml.safe_load(f)["model"]
+    pos, box, nrm = build_scene(spacing=0.005)
+    # jittered by 0.2 spacing: on the near-lattice the ASCC output cancels
+    # to rounding level (~1e-6 of its terms), and a relative comparison of
+    # it would read rounding
+    pos[:, :2] += np.random.RandomState(1).normal(
+        scale=0.001, size=pos[:, :2].shape).astype(np.float32)
+    upright = bench_sample(pos, box, nrm, device=dev)
+    turned, rot = turn(upright, 30.0)
+    fm = upright["fluid_mask"]
+    out = {}
+    for prec in ("highest", cfg.get("precision", "default")):
+        model = build_model(dict(cfg, precision=prec), device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            pu, _, au = model(upright)
+            pt, _, at = model(turned)
+        # the position correction is the network's output in the frame
+        # grav_eqvar turns every scene into: compared as it is
+        pc_u = au["pos_correction"][fm]
+        pc_t = at["pos_correction"][fm]
+        scale = float(pc_u.abs().max())
+        d_pc = float((pc_t - pc_u).abs().max())
+        d_pos = float((pt[fm] @ rot.T - pu[fm]).abs().max())
+        zero_counts()
+        t0 = time.time()
+        ru, _, gu = rollout(model, upright, WBC_STEPS)
+        rt, _, gt = rollout(model, turned, WBC_STEPS)
+        torch.cuda.synchronize()
+        launches = counts()[:2]
+        d_roll = float((rt[fm] @ rot.T - ru[fm]).abs().max())
+        print(f"  precision {prec}: first step, turned vs upright: "
+              f"pos_correction (the model's frame) {d_pc:.3e} of max "
+              f"{scale:.3e}, positions turned back "
+              f"{d_pos:.3e}; {WBC_STEPS}-step rollouts "
+              f"({1e3 * (time.time() - t0) / (2 * WBC_STEPS):.3f} ms/step, "
+              f"launches {launches}): final positions {d_roll:.3e}; gates "
+              f"{gu} / {gt}")
+        check(gu["exact"] and gt["exact"], f"WBC-SPH gates {gu} {gt}")
+        check(bool(torch.isfinite(ru[fm]).all() and
+                   torch.isfinite(rt[fm]).all()), "finite WBC rollouts")
+        if prec == "highest":
+            check(scale > 0 and d_pc <= 1e-4 * scale and d_pos <= 1e-6,
+                  f"grav_eqvar at highest: {d_pc} of {scale}, {d_pos}")
+        out[prec] = dict(d_pc=d_pc, scale=scale, d_pos=d_pos,
+                         d_roll=d_roll, launches=launches)
+    return out
+
+
+def baselines_phase(root, dev, max_err):
+    """Phase 18: the baselines of ``configs/other`` at full width (their
+    precision, seed-0 weights): CConv 2D on the bench scene, CConv 3D on
+    ``liquid_scene`` at spacing 0.055 (at 0.05 its radius, 0.1125, holds
+    57 lattice points at rest against a K of 64), PointNet on the bench scene at spacing 0.008 (off
+    its 0.01 radius: its pooling has no window, so neighbours exactly at
+    the radius would count by rounding).  Each rolls out BASELINE_STEPS
+    steps under the exactness gate; CConv's K-list launches of its first
+    step are held against the plain version; each model's step on a small
+    scene is held against the CPU path (the position correction 1e-4 of
+    its max, positions 1e-6)."""
+    import yaml
+
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.profile_step import record_launches
+    from dmcf_tpu_torch.rollout import rollout
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+    cases = [("cconv.yml", lambda n=None: build_scene(n or 2304)),
+             ("cconv3d.yml", lambda n=None: liquid_scene(
+                 (6, 6, 6) if n else LIQUID_BLOCK, spacing=0.055)),
+             ("pointnet.yml", lambda n=None: build_scene(n or 2304,
+                                                         spacing=0.008))]
+    out = {}
+    for name, scene in cases:
+        with open(os.path.join(root, "configs", "other", name)) as f:
+            cfg = yaml.safe_load(f)["model"]
+        model = build_model(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        sample = bench_sample(*scene(), device=dev)
+        zero_counts()
+        _, log = record_launches(model, sample)
+        step = counts()[:2]
+        if log:
+            launch_checks(log, name, max_err)
+        zero_counts()            # this baseline's rollout starts here
+        t0 = time.time()
+        p, _, gate = rollout(model, sample, BASELINE_STEPS)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = counts()[:2]  # and ends here
+        fm = sample["fluid_mask"]
+        small = scene(64)
+        s_gpu = bench_sample(*small, device=dev)
+        s_cpu = bench_sample(*small, device="cpu")
+        cpu_model = copy.deepcopy(model).to("cpu")
+        with torch.no_grad():
+            pg, _, ag = model(s_gpu)
+            pc, _, ac = cpu_model(s_cpu)
+        scale = float(ac["pos_correction"].abs().max())
+        diff = float((ag["pos_correction"].cpu()
+                      - ac["pos_correction"]).abs().max())
+        d_pos = float((pg.cpu() - pc).abs().max())
+        print(f"  {name}: {BASELINE_STEPS} steps {1e3 * sec / BASELINE_STEPS:.3f}"
+              f" ms/step, gate {gate}, K-list launches (fp32, bf16) "
+              f"{launches} ({step} a step); small scene card vs CPU: "
+              f"pos_correction {diff:.3e} of max {scale:.3e}, positions "
+              f"{d_pos:.3e}")
+        check(gate["exact"], f"{name} exactness gate {gate}")
+        check(bool(torch.isfinite(p[fm]).all()), f"finite {name} rollout")
+        check(launches == [BASELINE_STEPS * x for x in step],
+              f"{name} launches {launches}")
+        check(scale > 0 and diff <= 1e-4 * scale and d_pos <= 1e-6,
+              f"{name} card vs CPU {diff} of {scale}, {d_pos}")
+        out[name] = dict(launches=launches, step=step)
+    check(out["cconv.yml"]["step"] == [0, 5] and
+          out["pointnet.yml"]["step"] == [0, 0],
+          "CConv: 5 bf16 K-list launches a step (2 scale-0, 3 layers); "
+          "PointNet none")
+    return out
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -1130,6 +1690,27 @@ def main(argv):
           f"fp32 rollout launches {fp32_launches}")
     fp32_train_s = fp32_train_phase(root, dev)
 
+    phase("14 column kernel: vs its plain version, vs the JAX fixture, the "
+          "symnet.yml splits at full size")
+    column = column_phase(root, dev)
+
+    phase(f"15 column configs on the card: symnet.yml trains "
+          f"{COLUMN_ITERS} iterations and validates, hrnet.yml and "
+          f"symnet_wide.yml one step each")
+    column_cfgs = column_configs_phase(root, dev)
+
+    phase(f"16 Liquid3d at full width: {LIQUID_STEPS}-step rollout, every "
+          f"launch of a step vs plain, train step batch 8 x window 2")
+    liquid = liquid3d_phase(root, dev, max_err)
+
+    phase(f"17 WBC-SPH (grav_eqvar): {WBC_STEPS}-step rollouts upright and "
+          f"turned by 30 degrees")
+    wbc = wbc_phase(root, dev)
+
+    phase(f"18 the baselines (other/cconv.yml, cconv3d.yml, pointnet.yml): "
+          f"{BASELINE_STEPS}-step rollouts, card vs CPU")
+    baselines = baselines_phase(root, dev, max_err)
+
     pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
         "(pallas_continuous_conv)"
     vjp = "none (no TPU kernel): the VJP of dmcf_tpu/ops/cconv.py:173 " \
@@ -1151,6 +1732,16 @@ def main(argv):
                 valid["launches_per_step"][int(half)],
             "train_launches": train["launches"][int(half)],
             "waterramps_train_launches": wr_train["launches"][int(half)],
+            "column_path_launches": column_cfgs["launches"][int(half)],
+            "liquid3d_launches_per_step": liquid["step"][int(half)],
+            "liquid3d_rollout_launches":
+                liquid["rollout_launches"][int(half)],
+            "liquid3d_train_launches":
+                liquid["train"]["launches"][int(half)],
+            "wbc_launches": sum(v["launches"][int(half)]
+                                for v in wbc.values()),
+            "baseline_launches": {k: v["launches"][int(half)]
+                                  for k, v in baselines.items()},
             "max_abs_err": max_err[half],
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
@@ -1182,6 +1773,10 @@ def main(argv):
                     train["launches_per_step"][i + int(half)],
                 "waterramps_train_launches":
                     wr_train["launches"][i + int(half)],
+                "column_path_launches":
+                    column_cfgs["launches"][i + int(half)],
+                "liquid3d_train_launches":
+                    liquid["train"]["launches"][i + int(half)],
                 "max_abs_err": max(bwd["worst_abs"][prec].get(g, 0.0)
                                    for g in grads[which]),
                 "max_rel_err": max(bwd["worst"][prec].get(g, 0.0)
@@ -1195,6 +1790,32 @@ def main(argv):
                 "momentum_step_device_ms": mom[f"{which}_device_ms"],
                 "momentum_step_bound_ms": mom[f"{which}_bound_ms"],
             })
+    kernels.append({
+        "name": "column_sph",
+        "route": "cuda",
+        "source": "dmcf_tpu_torch/csrc/column_sph.cu",
+        "replaces": "none (no TPU kernel): dmcf_tpu/data/generators.py:118 "
+                    "_column_solve_jax (XLA, pinned to the CPU)",
+        "launches": column_cfgs["column_launches"],
+        "max_abs_err": column["max_abs_err"],
+        "ms": column["ms"],
+        "plain_ms": column["plain_ms"],
+        "bound_ms": column["bound_ms"],
+        "bound_by": column["bound_by"],
+        "library_ms": None,
+        "fixture_err": column["fixture_err"],
+        "split_seconds": {k: v["seconds"]
+                          for k, v in column["splits"].items()},
+        "split_iterations": {k: v["iterations"]
+                             for k, v in column["splits"].items()},
+        "split_bound_ms": {k: v["bound_ms"]
+                           for k, v in column["splits"].items()},
+    })
+    print(f"column: splits {column['splits']}; symnet.yml losses "
+          f"{column_cfgs['losses'][0]:.4e} -> {column_cfgs['losses'][-1]:.4e}"
+          f"; Liquid3d {liquid['ms_per_step']:.3f} ms/step, train step "
+          f"{liquid['train']['seconds']:.3f} s, peak "
+          f"{liquid['train']['peak_bytes'] / 2 ** 30:.3f} GiB")
     print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "
           f"fp32 {1e3 * dt32 / FP32_STEPS:.3f} ms/step ({FP32_STEPS} "
           f"steps)")

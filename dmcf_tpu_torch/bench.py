@@ -10,8 +10,10 @@ Builds the SymNet of ``configs/WaterRamps.yml`` at full width and depth
 and then the 600-step rollout, timed by the host clock and ending in
 ``torch.cuda.synchronize()``, and prints exactly one JSON line with the
 root bench's fields and the precision it ran (``detail.precision``: the
-config's, "default", a bf16 trunk).  Exits 1 when the exactness gate fails (a conv dropped an in-radius
-neighbour somewhere in the rollout).
+config's, "default", a bf16 trunk) and the voxel pyramid's fit
+(``detail.scale_counts``, ``scale_caps``, ``scales_fit``).  Exits 1 when
+the exactness gate fails (a conv dropped an in-radius neighbour somewhere
+in the rollout); as in the root bench, that gate alone decides.
 
 Fields that are the TPU bench's own are null here: ``canyon`` (its scene
 file is not in the repository), ``flops_per_step`` (XLA's cost analysis
@@ -112,6 +114,13 @@ def run(device="cuda", steps=HORIZON, n_fluid=2304):
             "max_neighbors": gate["max_neighbors"],
             "neighbor_k": gate["neighbor_k"],
             "pair_overflow": gate["pair_overflow"],
+            # the largest true voxel count of each pyramid scale over the
+            # rollout against its padded capacity: a scale over its cap
+            # dropped voxels (reported; only ``exact`` gates, as in the
+            # root bench)
+            "scale_counts": gate["scale_counts"],
+            "scale_caps": gate["scale_caps"],
+            "scales_fit": gate["scales_fit"],
             "canyon": None,
         },
     }

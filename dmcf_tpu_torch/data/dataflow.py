@@ -6,8 +6,7 @@ jitter_inp) and global transform, ``get_rollout``, ``pad_particles``,
 ``Prefetcher`` and ``get_dataloader``).
 
 A seeded sampler draws from ``np.random.RandomState`` in the JAX package's
-order, so it gives the same samples.  The ``grav_eqvar`` alignment raises
-(ROADMAP queue 1 item 4).
+order, so it gives the same samples.
 
 Batch layout (numpy; the pipeline moves it to the device):
   pos, vel[, grav]:  [B, T, N, 3]   T = max_pre + window + 1 frames
@@ -39,14 +38,27 @@ def random_rotation_matrix(rng, rot_axis=None, dtype=np.float32):
     return np.array([[ct, st, 0], [-st, ct, 0], [0, 0, 1]], dtype)
 
 
+def align_vector_np(v0, v1):
+    """Rotation matrix aligning v0 to v1 (numpy, as ``ops.sph.
+    align_vector``); parallel vectors give +/-I."""
+    v0n = v0 / (np.linalg.norm(v0) + 1e-9)
+    v1n = v1 / (np.linalg.norm(v1) + 1e-9)
+    v = np.cross(v0n, v1n)
+    c = float(np.dot(v0n, v1n))
+    s = float(np.linalg.norm(v))
+    if s < 1e-6:
+        return (np.eye(3) * (-1.0 if c < 0 else 1.0)).astype(np.float32)
+    vx = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+    return (np.eye(3) + vx + vx @ vx / (1 + c)).astype(np.float32)
+
+
 def augment(s, translate=None, scale=None, grav_eqvar=None):
-    """The global translate/scale of a sequence dict (``pos``/``vel``/
-    ``grav`` [T, N, 3], ``box`` [B, 3]), as ``WindowSampler._augment``
-    applies them after its random augmentations."""
-    if grav_eqvar is not None:
-        raise NotImplementedError(
-            "the grav_eqvar transform is not ported yet (ROADMAP queue 1 "
-            "item 4)")
+    """The global translate/scale/gravity alignment of a sequence dict
+    (``pos``/``vel``/``grav`` [T, N, 3], ``box`` [B, 3]), as
+    ``WindowSampler._augment`` applies them after its random
+    augmentations.  ``grav_eqvar`` turns the sequence so that its gravity
+    (frame 0, particle 0) points along the given vector and keeps the
+    original as ``orig_grav``."""
     if translate is not None:
         s["pos"] = s["pos"] + translate
         s["box"] = s["box"] + translate
@@ -56,6 +68,12 @@ def augment(s, translate=None, scale=None, grav_eqvar=None):
         s["vel"] = s["vel"] * scale
         if s.get("grav") is not None:
             s["grav"] = s["grav"] * scale
+    if grav_eqvar is not None:
+        R = align_vector_np(np.asarray(grav_eqvar, np.float32),
+                            s["grav"][0, 0])
+        s["orig_grav"] = s["grav"][0, 0]
+        for k in ("box", "box_normals", "pos", "vel", "grav"):
+            s[k] = np.matmul(s[k], R)
     return s
 
 

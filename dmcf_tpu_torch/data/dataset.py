@@ -11,6 +11,7 @@ and holding scenes in memory needs neither.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -114,11 +115,14 @@ class DatasetGroup:
     ``np.random`` seeded first, as the JAX package does) and cached in
     ``<cache_dir>/<md5(cfg)>``.  ``cache_dir=None`` (on the command line
     ``--dataset.cache_dir none``) generates the same data with no cache
-    file, so no ``zstandard`` is needed.
+    file, so no ``zstandard`` is needed.  ``device`` is where the column
+    generator solves (``generators.gen_column_data``: the CUDA kernel, or
+    the plain version on the CPU); it is no part of the cache key.
     """
 
     def __init__(self, train=None, valid=None, test=None, split="train",
-                 regen=False, cache_dir="cache", **dataset_cfg):
+                 regen=False, cache_dir="cache", device="cuda",
+                 **dataset_cfg):
         self.name = dataset_cfg.pop("name", "dataset")
         self.train = self.valid = self.test = None
 
@@ -128,6 +132,8 @@ class DatasetGroup:
             if gen_type not in GENERATORS:
                 raise NotImplementedError(f"generator type: {gen_type}")
             fn = GENERATORS[gen_type]
+            if gen_type == "column":
+                fn = functools.partial(fn, device=device)
             self.train = self._gen(fn, regen, cache_dir,
                                    {**(train or {}), **dataset_cfg})
             self.valid = self._gen(fn, regen, cache_dir,

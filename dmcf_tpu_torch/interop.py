@@ -1,8 +1,10 @@
 """Weight bridge from the JAX package's flax param tree to the port.
 
 The port's modules carry the flax module paths as their PyTorch names
-(``conv100_0.kernel``, ``dense100_0.Dense_0.kernel``, ``sym_conv0.kernel``
-— the half kernel, ...), so the bridge is a path flattening.  The tree
+(HRNet/SymNet ``conv100_0.kernel``, ``dense100_0.Dense_0.kernel``,
+``sym_conv0.kernel`` — the half kernel; CConv ``conv{i}.kernel`` and
+``dense{i}.Dense_0.kernel``; PointNet ``dense{i}.Dense_0.kernel``), so the
+bridge is a path flattening.  The tree
 arrives as nested dicts of numpy arrays, so the port never imports flax.
 """
 

@@ -6,14 +6,16 @@ from __future__ import annotations
 
 import logging
 
+from .cconv_net import CConv
 from .hrnet import HRNet
 from .pbf import PBFNet
+from .pointnet import PointNet
 from .symnet import SymNet
 
 log = logging.getLogger(__name__)
 
-MODELS = {"HRNet": HRNet, "SymNet": SymNet}
-_LATER_SLICE = {"CConv", "PointNet"}
+MODELS = {"HRNet": HRNet, "SymNet": SymNet, "CConv": CConv,
+          "PointNet": PointNet}
 
 # keys consumed by the pipeline/bookkeeping, not the module
 _NON_MODULE_KEYS = {"name", "ckpt_path", "is_resume", "device", "loss"}
@@ -33,8 +35,6 @@ def build_model(cfg: dict, *, device="cuda", generator=None):
     """
     cfg = dict(cfg)
     name = cfg.get("name", "SymNet")
-    if name in _LATER_SLICE:
-        raise NotImplementedError(f"model {name} is ported in a later slice")
     if name not in MODELS:
         raise KeyError(f"unknown model: {name}")
     cls = MODELS[name]
@@ -52,21 +52,22 @@ def build_model(cfg: dict, *, device="cuda", generator=None):
             v = dict(v)
         kwargs[k] = v
 
-    lc = kwargs.get("layer_channels", cls.defaults["layer_channels"])
+    lc = _tupleize(kwargs.get("layer_channels",
+                              cls.defaults["layer_channels"]))
     if name == "SymNet":
         # reference split: trunk = layer_channels[:-1], ASCC stack =
         # layer_channels[-1][-1]
         last = lc[-1][-1]
-        kwargs["sym_channels"] = (_tupleize(last)
-                                  if isinstance(last, (list, tuple))
-                                  else (last,))
-        kwargs["layer_channels"] = lc = _tupleize(lc[:-1])
-    else:
-        kwargs["layer_channels"] = lc = _tupleize(lc)
-    first = lc[0][0]
+        kwargs["sym_channels"] = last if isinstance(last, tuple) \
+            else (last,)
+        lc = lc[:-1]
+    kwargs["layer_channels"] = lc
+    # the scale-0 width: CConv and PointNet list one width a layer
+    first = lc[0] if name in ("CConv", "PointNet") else lc[0][0]
     kwargs.setdefault("channels",
                       first[0] if isinstance(first, tuple) else first)
     return cls(generator=generator, device=device, **kwargs)
 
 
-__all__ = ["PBFNet", "HRNet", "SymNet", "MODELS", "build_model"]
+__all__ = ["PBFNet", "HRNet", "SymNet", "CConv", "PointNet", "MODELS",
+           "build_model"]

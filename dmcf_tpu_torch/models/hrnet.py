@@ -87,7 +87,10 @@ class HRNet(PBFNet):
         filter_extent = ctx["filter_extent"]
         nck = self.dense_chunk_for(training)
 
-        ans_convs = [[ctx["feats"]]]
+        feats = ctx["feats"]
+        if not self.use_bnds:  # the pyramid holds the fluid alone
+            feats = feats[:ctx["n_fluid"]]
+        ans_convs = [[feats]]
         for layer in range(len(self.convs)):
             ans = []
             for scale in range(len(self.convs[layer])):

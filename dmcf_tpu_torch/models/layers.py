@@ -31,8 +31,18 @@ class ContinuousConv(nn.Module):
     K-list conv (the hand-written kernel on CUDA), a ``DensePair`` the
     dense plain-PyTorch conv.  ``precision`` is the ops' ("highest" fp32,
     None / "default" JAX's bf16 contraction, which has no symmetric form).
-    Not ported in this slice (raise):
-    ``circular`` kernels, ``k_chunk``, lazy dense pairs, ``inp_importance``.
+
+    ``k_chunk`` > 0 splits a K-list conv whose K exceeds it into chunks of
+    ``k_chunk`` slots, as the reference does where the conv builds its
+    taps inline (no cached taps) and ``normalize`` is off
+    (``dmcf_tpu/models/layers.py:178-214``): each chunk is a conv of its
+    own (on CUDA one kernel launch, and one backward, a chunk; on the CPU
+    the plain version's [Q, K, S] tap transient is bounded by the chunk)
+    and the chunk outputs are summed in fp32 in chunk order.  At the
+    default precision each chunk rounds its T to bf16 on its own, so the
+    chunked conv is not bit for bit the unchunked one, in either package.
+    Not ported in this slice (raise): ``circular`` kernels, lazy dense
+    pairs, ``inp_importance``.
     """
 
     def __init__(self, in_channels: int, filters: int,
@@ -49,8 +59,7 @@ class ContinuousConv(nn.Module):
         super().__init__()
         if circular:
             raise NotImplementedError("circular kernels are not ported yet")
-        if k_chunk:
-            raise NotImplementedError("k_chunk is not ported yet")
+        self.k_chunk = int(k_chunk)
         self.filters = filters
         self.kernel_size = tuple(int(k) for k in kernel_size)
         self.use_bias = use_bias
@@ -102,14 +111,23 @@ class ContinuousConv(nn.Module):
         elif isinstance(neighbors, NeighborList):
             if self.symmetric and query_features is None:
                 query_features = inp_features
-            out = continuous_conv(
-                kernel, out_positions, inp_positions, inp_features,
-                neighbors, extents, window_fn=self.window_function,
-                coordinate_mapping=self.coordinate_mapping,
-                interpolation=self.interpolation,
-                align_corners=self.align_corners, normalize=self.normalize,
-                symmetric=self.symmetric, query_features=query_features,
-                precision=self.precision, cached_taps=cached_taps)
+            k = neighbors.idx.shape[1]
+            kc = self.k_chunk
+            chunked = not cached_taps and 0 < kc < k and not self.normalize
+            out = None
+            for start in range(0, k, kc if chunked else k):
+                nl = neighbors if not chunked else _k_slice(
+                    neighbors, start, start + kc)
+                y = continuous_conv(
+                    kernel, out_positions, inp_positions, inp_features,
+                    nl, extents, window_fn=self.window_function,
+                    coordinate_mapping=self.coordinate_mapping,
+                    interpolation=self.interpolation,
+                    align_corners=self.align_corners,
+                    normalize=self.normalize, symmetric=self.symmetric,
+                    query_features=query_features,
+                    precision=self.precision, cached_taps=cached_taps)
+                out = y if out is None else out + y
         else:
             raise NotImplementedError(
                 f"neighbor structure {type(neighbors).__name__} is not "
@@ -117,6 +135,14 @@ class ContinuousConv(nn.Module):
         if self.bias is not None:
             out = out + self.bias
         return out
+
+
+def _k_slice(nl: NeighborList, start, stop) -> NeighborList:
+    """Slots [start, stop) of a neighbor list (a ``k_chunk`` chunk)."""
+    return NeighborList(
+        idx=nl.idx[:, start:stop], mask=nl.mask[:, start:stop],
+        dist=nl.dist[:, start:stop], count=nl.count,
+        disp=None if nl.disp is None else nl.disp[:, start:stop])
 
 
 class _Linear(nn.Module):

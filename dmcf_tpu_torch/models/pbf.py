@@ -38,7 +38,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..ops.neighbors import DensePair, NeighborList, search
-from ..ops.sph import get_dilated_pos, masked_positions
+from ..ops.sph import align_vector, get_dilated_pos, masked_positions
 from ..ops.windows import get_window_func
 from ..kernels.cconv_klist import is_bf16
 from .layers import ContinuousConv, Dense
@@ -124,10 +124,11 @@ class PBFNet(nn.Module):
         dense_n_chunk=0, dense_n_chunk_eval=None,
         dense_lazy_min_elems=1 << 24, boundary_crop_max=0,
         scale_size_factor=1.0, search_method="auto", precision="default",
+        # the reference caches a pair's taps up to this many elements
+        # (``pbf.py:498``, a TPU memory knob no shipped config sets); a
+        # conv over cached taps is never chunked over K
+        tap_cache_max_elems=32 * 1024 * 1024,
     )
-    # the reference caches a pair's taps up to this many elements
-    # (``pbf.py:498``, a TPU memory knob no shipped config sets)
-    TAP_CACHE_MAX_ELEMS = 32 * 1024 * 1024
 
     def __init__(self, *, generator=None, device="cuda", **cfg):
         super().__init__()
@@ -145,30 +146,30 @@ class PBFNet(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self._generator = generator
-        fluid_in = 1 + 3 * int(self.use_vel) + 3 * int(self.use_acc)
+        self.fluid_in = 1 + 3 * int(self.use_vel) + 3 * int(self.use_acc)
         box_in = 1 + 3 * int(self.use_box_feats)
-        self.fluid_obs = self.make_cconv("fluid_obs", fluid_in,
-                                         self.channels,
-                                         window_func=self.window)
-        self.fluid_dense = self.make_dense(fluid_in, self.channels)
-        self.obs_conv = self.make_cconv("obs_conv", box_in, self.channels,
-                                        window_func=self.window)
-        self.obs_dense = self.make_dense(box_in, self.channels)
+        if self._use_scale0_convs():
+            self.fluid_obs = self.make_cconv("fluid_obs", self.fluid_in,
+                                             self.channels,
+                                             window_func=self.window)
+            self.fluid_dense = self.make_dense(self.fluid_in, self.channels)
+            self.obs_conv = self.make_cconv("obs_conv", box_in,
+                                            self.channels,
+                                            window_func=self.window)
+            self.obs_dense = self.make_dense(box_in, self.channels)
         self.setup_net()
         del self._generator
 
     def _check_supported(self):
         unported = {
-            "transformation.grav_eqvar":
-                "grav_eqvar" in (self.transformation or {}),
             "use_pre_adv": self.use_pre_adv,
             "equivar": self.equivar,
             "dens_feats": self.dens_feats,
             "dens_norm": self.dens_norm,
             "pres_feats": self.pres_feats,
             "boundary_crop_max > 0": self.boundary_crop_max > 0,
-            "voxel_size: None (FPS pyramid)": self.voxel_size is None,
-            "use_bnds: False": not self.use_bnds,
+            "voxel_size: None (FPS pyramid)": self.voxel_size is None
+            and any(st != 1 for st in self.strides),
             "use_feats": self.use_feats,
             "strides[0] != 1": tuple(self.strides)[0] != 1,
             "transpose_search_reuse": self.transpose_search_reuse,
@@ -180,6 +181,11 @@ class PBFNet(nn.Module):
 
     def setup_net(self):
         raise NotImplementedError
+
+    def _use_scale0_convs(self):
+        """Whether preprocess runs the scale-0 fluid/boundary convs
+        (PointNet skips them)."""
+        return True
 
     def net_forward(self, ctx, data, training=False):
         raise NotImplementedError
@@ -214,10 +220,10 @@ class PBFNet(nn.Module):
     def caches_taps(self, nl, kernel_size=None):
         """Whether the reference caches the taps of a K-list conv over
         ``nl`` (``pbf.py:pair_taps``: Q*K*S at most
-        ``TAP_CACHE_MAX_ELEMS``)."""
+        ``tap_cache_max_elems``)."""
         q, k = nl.idx.shape
         return q * k * int(np.prod(kernel_size or self.kernel_size)) \
-            <= self.TAP_CACHE_MAX_ELEMS
+            <= self.tap_cache_max_elems
 
     def dense_chunk_for(self, training):
         if training:
@@ -264,9 +270,13 @@ class PBFNet(nn.Module):
         return pos, vel
 
     def transform(self, sample):
-        """Global translate/scale of the scene."""
+        """Global translate/scale/gravity-equivariant rotation of the
+        scene.  Returns (sample', rotation or None): ``grav_eqvar`` turns
+        the scene so that its gravity (row 0 of ``grav``) points along the
+        configured vector."""
         cfg = self._transform_cfg
         s = dict(sample)
+        R = None
         dev = s["pos"].device
         if "translate" in cfg:
             t = torch.tensor(cfg["translate"], dtype=torch.float32,
@@ -280,10 +290,21 @@ class PBFNet(nn.Module):
             s["vel"] = s["vel"] * sc
             if s.get("grav") is not None:
                 s["grav"] = s["grav"] * sc
-        return s
+        if "grav_eqvar" in cfg:
+            target = torch.tensor(cfg["grav_eqvar"], dtype=torch.float32,
+                                  device=dev)
+            # same gravity for all particles of a sequence (row 0 is valid)
+            R = align_vector(target, s["grav"][0])
+            for k in ("pos", "vel", "grav", "box", "box_normals"):
+                if s.get(k) is not None:
+                    s[k] = s[k] @ R
+        return s, R
 
-    def inv_transform(self, pos, vel):
+    def inv_transform(self, pos, vel, R=None):
         cfg = self._transform_cfg
+        if "grav_eqvar" in cfg and R is not None:
+            pos = pos @ R.T
+            vel = vel @ R.T
         if "scale" in cfg:
             sc = torch.clamp(torch.tensor(cfg["scale"], dtype=torch.float32,
                                           device=pos.device), min=1e-5)
@@ -308,11 +329,11 @@ class PBFNet(nn.Module):
         selects the dense pairs' source chunking (``dense_n_chunk``).
         Returns (pos, vel, aux).
         """
-        data = self.transform(sample)
+        data, R = self.transform(sample)
         ctx = self.preprocess(data, vel_corr=vel_corr)
         out = self.net_forward(ctx, data, training=training)
         pos, vel, aux = self.postprocess(out, ctx, data, vel_corr=vel_corr)
-        pos, vel = self.inv_transform(pos, vel)
+        pos, vel = self.inv_transform(pos, vel, R)
         fm = data["fluid_mask"].bool()
         pos = torch.where(fm[:, None], pos, sample["pos"])
         vel = torch.where(fm[:, None], vel, 0.0)
@@ -342,7 +363,13 @@ class PBFNet(nn.Module):
 
         cache = SearchCache(self.neighbor_k, method=self.search_method)
 
-        all_max = all_pos.shape[0]
+        # the pyramid is built over every particle, or over the fluid alone
+        # without ``use_bnds``
+        if self.use_bnds:
+            base_pos, base_mask = all_pos, all_mask
+        else:
+            base_pos, base_mask = pos, fluid_mask
+        all_max = base_pos.shape[0]
         if isinstance(self.scale_size_factor, (list, tuple)):
             factors = list(self.scale_size_factor)
         else:
@@ -351,16 +378,18 @@ class PBFNet(nn.Module):
                      max(8, int(np.ceil(all_max * factors[si])))
                      for si, s in enumerate(self.strides)]
         dpos, dmask, dcount = get_dilated_pos(
-            all_pos, all_mask, list(self.strides), out_maxes,
-            voxel_size=np.asarray(self.voxel_size, np.float32),
+            base_pos, base_mask, list(self.strides), out_maxes,
+            voxel_size=(None if self.voxel_size is None
+                        else np.asarray(self.voxel_size, np.float32)),
             centralize=self.centralize, pad=self.sample_pad,
             hyst=self.sample_hyst)
 
-        # scale 0 of the pyramid IS all_pos: one all->all search at the
-        # finest radius serves the trunk pair (0, 0), the scale-0 convs and
-        # the ASCC layer
-        nl_all0 = cache.get("dilated0", "dilated0", r0, all_pos, all_mask,
-                            all_pos, all_mask)
+        # with use_bnds, scale 0 of the pyramid IS all_pos: one all->all
+        # search at the finest radius serves the trunk pair (0, 0), the
+        # scale-0 convs and the ASCC layer
+        name0 = "dilated0" if self.use_bnds else "all"
+        nl_all0 = cache.get(name0, name0, r0, all_pos, all_mask, all_pos,
+                            all_mask)
         nl_fluid0 = subset_neighbors(nl_all0, lambda i, d: i < n_fluid)
         nl_box0 = subset_neighbors(nl_all0, lambda i, d: i >= n_fluid)
 
@@ -378,21 +407,28 @@ class PBFNet(nn.Module):
         box_feats = torch.where(box_mask[:, None],
                                 torch.cat(box_feats, dim=-1), 0.0)
 
-        ext0 = filter_extent[0]
-        # the reference's scale-0 convs share the all->all pair's taps
-        cached = self.caches_taps(nl_all0)
-        ans_conv = self.fluid_obs(fluid_feats * self.part_scale, pos,
-                                  all_pos, ext0, nl_fluid0,
-                                  cached_taps=cached)
-        ans_dense = self.fluid_dense(fluid_feats)
-        # nl_box0 indexes all_pos (offset by n_fluid) while the features
-        # are box rows: continuous_conv clamps the gather exactly as the
-        # reference's JAX gather does (ROADMAP §3, obs_conv gather offset)
-        ans_obs = self.obs_conv(box_feats * self.part_scale, box_pos,
-                                all_pos, ext0, nl_box0, cached_taps=cached)
-        ans_dense = torch.cat([ans_dense, self.obs_dense(box_feats)], dim=0)
-        feats = torch.cat([ans_conv, ans_obs, ans_dense], dim=-1)
-        feats = torch.where(all_mask[:, None], feats, 0.0)
+        if not self._use_scale0_convs():
+            # PointNet: raw fluid features, no scale-0 convs
+            feats = fluid_feats
+        else:
+            ext0 = filter_extent[0]
+            # the reference's scale-0 convs share the all->all pair's taps
+            cached = self.caches_taps(nl_all0)
+            ans_conv = self.fluid_obs(fluid_feats * self.part_scale, pos,
+                                      all_pos, ext0, nl_fluid0,
+                                      cached_taps=cached)
+            ans_dense = self.fluid_dense(fluid_feats)
+            # nl_box0 indexes all_pos (offset by n_fluid) while the features
+            # are box rows: continuous_conv clamps the gather exactly as the
+            # reference's JAX gather does (ROADMAP §3, obs_conv gather
+            # offset)
+            ans_obs = self.obs_conv(box_feats * self.part_scale, box_pos,
+                                    all_pos, ext0, nl_box0,
+                                    cached_taps=cached)
+            ans_dense = torch.cat([ans_dense, self.obs_dense(box_feats)],
+                                  dim=0)
+            feats = torch.cat([ans_conv, ans_obs, ans_dense], dim=-1)
+            feats = torch.where(all_mask[:, None], feats, 0.0)
 
         return {
             "cache": cache,
@@ -408,6 +444,24 @@ class PBFNet(nn.Module):
             "nl_all0": nl_all0,
             "nl_fluid0": nl_fluid0,
         }
+
+    @staticmethod
+    def pair_excess(ctx):
+        """Worst per-pair K-budget excess over every search of the step
+        (> 0: a conv dropped in-radius neighbours), and each pair's.  Dense
+        pairs cannot overflow: their detail entry is the always <= 0 margin
+        max true count - N."""
+        dev = ctx["all_pos"].device
+        excess, detail = [torch.zeros((), dtype=torch.int32, device=dev)], {}
+        for ckey, nl in ctx["cache"]._cache.items():
+            if isinstance(nl, DensePair):
+                detail[f"{ckey[1]}>{ckey[2]}@{ckey[3]:g}(dense)"] = \
+                    nl.count.max() - nl.valid.shape[1]
+                continue
+            e = nl.count.max() - nl.idx.shape[1]
+            excess.append(e)
+            detail[f"{ckey[0]}>{ckey[1]}@{ckey[2]:g}"] = e
+        return torch.stack(excess).max(), detail
 
     def postprocess(self, out, ctx, data, vel_corr=None):
         """Scale the net output into a position correction, re-integrate,
@@ -437,18 +491,7 @@ class PBFNet(nn.Module):
         pos_out, vel_out = self.compute_new_pos_vel(pos, vel, pos2, vel2,
                                                     pos_correction)
 
-        # worst per-pair K-budget excess over every search of the step
-        # (dense pairs cannot overflow: their detail entry is the always
-        # <= 0 margin max true count - N)
-        excess, detail = [torch.zeros((), dtype=torch.int32, device=dev)], {}
-        for ckey, nl in ctx["cache"]._cache.items():
-            if isinstance(nl, DensePair):
-                detail[f"{ckey[1]}>{ckey[2]}@{ckey[3]:g}(dense)"] = \
-                    nl.count.max() - nl.valid.shape[1]
-                continue
-            e = nl.count.max() - nl.idx.shape[1]
-            excess.append(e)
-            detail[f"{ckey[0]}>{ckey[1]}@{ckey[2]:g}"] = e
+        excess, detail = self.pair_excess(ctx)
         all_mask = ctx["all_mask"]
         n_valid = torch.clamp(all_mask.sum(), min=1)
         nl_all0 = ctx["nl_all0"]
@@ -456,7 +499,7 @@ class PBFNet(nn.Module):
             "num_fluid_neighbors": num_fluid_neighbors,
             "pos_correction": pos_correction,
             "neighbor_overflow": nl_all0.count.max(),
-            "pair_overflow": torch.stack(excess).max(),
+            "pair_overflow": excess,
             "pair_overflow_detail": detail,
             "avg_neighbors": torch.where(all_mask, nl_all0.count, 0).sum()
             / n_valid,

@@ -39,12 +39,20 @@ class SymNet(HRNet):
                                            training=training), ctx)
 
     def ascc(self, ans, ctx):
-        """The ASCC output stack on the trunk's finest-scale output."""
+        """The ASCC output stack on the trunk's finest-scale output (the
+        fluid rows and, without ``use_bnds``, the boundary's scale-0
+        features)."""
+        if not self.use_bnds:
+            ans = torch.cat([ans, ctx["feats"][ctx["n_fluid"]:]], dim=0)
         all_pos = ctx["all_pos"]
         all_mask = ctx["all_mask"]
         ext = ctx["filter_extent"][0]
         nl = drop_coincident(ctx["nl_all0"])
+        # the reference caches this pair's fp32 taps where they fit, and
+        # then never chunks the conv over K (``layers.ContinuousConv``)
+        cached = self.caches_taps(nl, self.sym_kernel_size)
         for conv in self.sym_convs:
             ans = torch.where(all_mask[:, None], torch.relu(ans), 0.0)
-            ans = conv(ans * self.part_scale, all_pos, all_pos, ext, nl)
+            ans = conv(ans * self.part_scale, all_pos, all_pos, ext, nl,
+                       cached_taps=cached)
         return _act(self.out_activation)(ans)

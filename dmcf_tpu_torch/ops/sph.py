@@ -153,9 +153,10 @@ def get_dilated_pos(pos, mask, strides, out_maxes, voxel_size=None,
     Returns (positions, masks, counts) lists, one entry per stride: stride
     1 is the input itself, coarser scales are occupied voxel grids at
     ``voxel_size * stride`` padded to ``out_maxes[s]``.  The
-    farthest-point-sampling branch (``voxel_size=None``) is not ported.
+    farthest-point-sampling branch (``voxel_size=None`` with a stride
+    above 1) is not ported.
     """
-    if voxel_size is None:
+    if voxel_size is None and any(s != 1 for s in strides):
         raise NotImplementedError(
             "the farthest-point-sampling pyramid (voxel_size=None) is not "
             "ported yet")
@@ -174,3 +175,23 @@ def get_dilated_pos(pos, mask, strides, out_maxes, voxel_size=None,
             masks.append(gm)
             counts.append(gc)
     return positions, masks, counts
+
+
+def align_vector(v0, v1):
+    """Rotation matrix aligning v0 to v1 (Rodrigues; reference
+    models/pbf_model.py:12-28).  Degenerate (parallel) case returns +/-I."""
+    v0n = v0 / (torch.linalg.norm(v0) + 1e-9)
+    v1n = v1 / (torch.linalg.norm(v1) + 1e-9)
+    v = torch.linalg.cross(v0n, v1n)
+    c = torch.dot(v0n, v1n)
+    s = torch.linalg.norm(v)
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    vx = torch.stack([
+        torch.stack([zero, -v[2], v[1]]),
+        torch.stack([v[2], zero, -v[0]]),
+        torch.stack([-v[1], v[0], zero]),
+    ])
+    eye = torch.eye(3, dtype=v0.dtype, device=v0.device)
+    r = eye + vx + vx @ vx / torch.where(s < 1e-6, 1.0, 1.0 + c)
+    degenerate = eye * torch.where(c < 0, -1.0, 1.0)
+    return torch.where(s < 1e-6, degenerate, r)

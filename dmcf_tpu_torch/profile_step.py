@@ -122,7 +122,7 @@ def profile(steps=20, top=25):
         _, wall = _sync_time(lambda: [model(sample) for _ in range(steps)])
         report["ms_per_step"] = wall / steps
 
-        data = model.transform(sample)
+        data, _ = model.transform(sample)
         stages = {"preprocess": 0.0, "trunk": 0.0, "ascc": 0.0,
                   "postprocess": 0.0}
         for _ in range(steps):

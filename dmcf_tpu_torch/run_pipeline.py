@@ -102,7 +102,7 @@ def main(argv=None):
     Pipeline = PIPELINES[cfg_pipeline.get("name", "Simulator")]
 
     dataset = DatasetGroup(**cfg_dataset, split=args.split,
-                           regen=args.regen)
+                           regen=args.regen, device=device)
     seed = int(cfg_pipeline.get("seed", 42))
     model = build_model(cfg_model, device=device,
                         generator=torch.Generator().manual_seed(seed))

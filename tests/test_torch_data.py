@@ -77,11 +77,6 @@ def test_generators_match_jax(name, kwargs):
     assert_same_tree(got, want)
 
 
-def test_column_generator_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generators.gen_column_data(data_cnt=1)
-
-
 def test_dataset_group_and_cache_match_jax(tmp_path):
     """Generator mode under the split seeds gives JAX's arrays, under the
     same cache key; each package reads the other's cache file."""
@@ -167,9 +162,3 @@ def test_get_rollout_and_padding_match_jax(kw):
         for bucket in (64, 128):
             assert_same_tree(dataflow.pad_rollout_state(g, bucket),
                              jflow.pad_rollout_state(w, bucket))
-
-
-def test_grav_eqvar_raises():
-    ds = dataset.Dataset(jgen.gen_free_fall_data(timesteps=2, radius=4))
-    with pytest.raises(NotImplementedError, match="grav_eqvar"):
-        dataflow.get_rollout(ds, grav_eqvar=[0, -1, 0])

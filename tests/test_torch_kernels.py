@@ -554,3 +554,117 @@ def test_symnet_train_step_grads_match_cpu(cuda, precision):
         assert err <= (2e-2 if bf16 else 1e-4) * scale, (name, err, scale)
     for name in convs:
         assert float(grads[0][f"{name}.kernel"].abs().max()) > 0, name
+
+
+def cloud_inputs(q, n, k, cin, cout, ksize, dim, symmetric, seed, device):
+    """Contract inputs from a search over N points in a 1D (y), 2D (x, y)
+    or 3D cell, the radius sized to ~0.8 K neighbours a query (so the
+    widest lists hold ~K slots), Q queries among the points."""
+    g = torch.Generator().manual_seed(seed)
+    side = 0.1
+    pts = torch.rand((n, 3), generator=g) * side
+    keep = {1: (1,), 2: (0, 1), 3: (0, 1, 2)}[dim]
+    for axis in range(3):
+        if axis not in keep:
+            pts[:, axis] = 0.0
+    frac = 0.8 * k / n
+    radius = side * {1: frac / 2, 2: (frac / np.pi) ** 0.5,
+                     3: (3 * frac / (4 * np.pi)) ** (1 / 3)}[dim]
+    nl = neighbors.search(pts, pts[:q], radius, k)
+    if symmetric:
+        nl = drop_coincident(nl)
+    idx, a, t = cconv.klist_geometry(
+        nl, 2 * radius, ksize,
+        window_fn=windows.get_window_func("peak" if symmetric else "poly6"))
+    feats = torch.randn((n, cin), generator=g)
+    w = torch.randn((int(np.prod(ksize)) * cin, cout),
+                    generator=g) * w_scale(cin)
+    xs = [x.to(device) for x in (idx, a, t, feats, w)]
+    return xs, (xs[3][:q].contiguous() if symmetric else None), int(
+        nl.count.max())
+
+
+WIDE_CASES = [  # q, n, k, cin, cout, ksize, dim, symmetric, precision
+    # Liquid3d's widest pair (scale 0 -> 2, K 1856), bf16 trunk and fp32
+    (300, 4000, 1856, 24, 32, (4, 4, 4), 3, False, "default"),
+    (300, 4000, 1856, 24, 32, (4, 4, 4), 3, False, "highest"),
+    # Liquid3d's ASCC conv: the symmetric 6x6x6 kernel (S 216), fp32
+    (600, 600, 96, 32, 3, (6, 6, 6), 3, True, "highest"),
+    # the column configs: 1D, kernel [1, 8, 1] (S 8), trunk and ASCC
+    (256, 256, 48, 16, 8, (1, 8, 1), 1, False, "default"),
+    (256, 256, 48, 16, 1, (1, 8, 1), 1, True, "highest"),
+]
+
+
+@pytest.mark.parametrize("q,n,k,cin,cout,ksize,dim,symmetric,precision",
+                         WIDE_CASES, ids=["K1856_bf16", "K1856_fp32",
+                                          "S216_sym", "1d_S8_bf16",
+                                          "1d_S8_sym"])
+def test_kernels_at_the_new_configs_shapes(cuda, q, n, k, cin, cout, ksize,
+                                           dim, symmetric, precision):
+    (idx, a, t, feats, w), qf, most = cloud_inputs(
+        q, n, k, cin, cout, ksize, dim, symmetric, 11, cuda)
+    assert most > k // 2  # the lists are long
+    kw = dict(qfeats=qf, precision=precision)
+    got = cconv_klist(idx, a, t, feats, w, ksize, **kw)
+    ref = cconv_klist_reference(idx, a, t, feats, w, ksize, **kw)
+    torch.cuda.synchronize()
+    bf16 = precision == "default"
+    tol = 1e-4 * float(ref.abs().max()) if bf16 else 2e-5
+    assert float((got - ref).abs().max()) <= tol
+    dout = torch.randn((q, cout), device=cuda)
+    args = (dout, idx, a, t, feats, w, ksize, qf)
+    dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*args,
+                                                   precision=precision)
+    dw = cconv_klist_bwd_filter(*args, precision=precision)
+    ref = cconv_klist_bwd_reference(*args, precision=precision)
+    if bf16:
+        check_bf16_grads((dfeats, dqfeats, dw, da, dt), ref)
+        return
+    for name, g_, want in zip(("dfeats", "dqfeats", "dw", "da", "dt"),
+                              (dfeats, dqfeats, dw, da, dt), ref):
+        if want is None:
+            assert g_ is None, name
+            continue
+        scale = float(want.abs().max())
+        assert float((g_ - want).abs().max()) <= 1e-5 * scale, name
+
+
+def column_initial_state(counts, device):
+    from dmcf_tpu_torch.data.generators import SPH1D
+
+    solver = SPH1D(radius=0.25, mass=1.0, stiffness=20.0, visc=0.1,
+                   gravity=-1000.0)
+    p = max(counts) + 2
+    x0 = torch.zeros((len(counts), p))
+    for s, n in enumerate(counts):
+        solver.setup(n, 2)
+        x0[s, :n + 2] = torch.from_numpy(solver.particles[:, 0])
+    kw = dict(bcnt=2, gravity=solver.gravity, rest_dens=solver.rest_dens,
+              stiffness=20.0, visc=0.1, h=solver.h, dt=0.0025)
+    return (x0.to(device), torch.zeros_like(x0).to(device),
+            torch.tensor([n + 2 for n in counts], dtype=torch.int32,
+                         device=device), kw)
+
+
+def test_column_kernel_matches_plain(cuda):
+    """The column solver kernel against its plain version on the card and
+    on the CPU: the same operations and the same fixed pair-sum tree, so
+    the same bits; two launches equal; iteration counts equal."""
+    from dmcf_tpu_torch.kernels.column_sph import (column_solve,
+                                                   column_solve_reference)
+
+    x0, v0, counts, kw = column_initial_state([1, 5, 20, 40], cuda)
+    kw.update(timesteps=4, max_iter=300)
+    before = column_solve.launches
+    got = column_solve(x0, v0, counts, **kw)
+    again = column_solve(x0, v0, counts, **kw)
+    torch.cuda.synchronize()
+    assert column_solve.launches == before + 2
+    ref = column_solve_reference(x0, v0, counts, **kw)
+    cpu = column_solve_reference(x0.cpu(), v0.cpu(), counts.cpu(), **kw)
+    for g_, a_, r_, c_ in zip(got, again, ref, cpu):
+        assert torch.equal(g_, a_)
+        assert torch.equal(g_, r_)
+        assert torch.equal(g_.cpu(), c_)
+    assert int(got[2].max()) == 300 and int(got[2].min()) >= 1

@@ -205,7 +205,6 @@ def test_symnet_correction_sums_to_zero_without_boundary(precision):
 
 
 @pytest.mark.parametrize("override", [
-    {"transformation": {"grav_eqvar": [0, -1, 0]}},
     {"use_pre_adv": True},
     {"equivar": True},
     {"dens_feats": True},
@@ -214,7 +213,6 @@ def test_symnet_correction_sums_to_zero_without_boundary(precision):
     {"boundary_crop_max": 64},
     {"voxel_size": None},
     {"circular": True},
-    {"conv_k_chunk": 32},
 ], ids=lambda o: next(iter(o)))
 def test_unported_options_raise(override):
     cfg = narrow_cfg()

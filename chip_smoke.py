@@ -900,10 +900,21 @@ def waterramps_shapes(cfg, sample, dev):
 # of up to 10,000 projection iterations): the port sums each particle's
 # pairs in another order than XLA, and the iterations carry the rounding
 # on.  Measured on the CPU for a 12-particle scene over the same 100
-# frames: positions 3.3e-6, velocities 4.2e-3 (solver units, |v| <= 4.4);
-# about 15 times that:
+# frames (python -m scripts.column_drift --n 10 --port): positions 6.7e-6,
+# velocities 2.7e-3 (solver units, |v| <= 4.3; JAX against itself in
+# another pair order 6.7e-6 and 2.8e-3); about 7 and 18 times that:
 COLUMN_X_TOL = 5e-5
 COLUMN_V_TOL = 5e-2
+# the fixture's 42-particle scene, where the drift grows furthest: JAX
+# drifts from itself under another pair order (the fixture's permuted run)
+# by 1.3e-2 in position and 5.9 in velocity (|v| <= 20) over 100 frames,
+# by 3.8e-6 and 1.4e-2 over the first 10 (scripts/column_drift.py; the
+# port's plain version lies 4.5e-3 and 4.3 from JAX, 3.8e-6 and 1.1e-2).
+# Held: the first COLUMN_EARLY frames within the tolerances above, all
+# frames within twice JAX's own drift.
+COLUMN_EARLY = 11
+COLUMN40_X_TOL = 2.6e-2
+COLUMN40_V_TOL = 12.0
 COLUMN_SPLITS = ("train", "valid", "test")
 COLUMN_ITERS = 20            # phase 15's run_train iterations
 LIQUID_BLOCK = (22, 6, 22)   # phase 16's fluid block (particles an axis)
@@ -927,25 +938,48 @@ def column_split(ds, split=None):
     return {**ds[split], **base} if split else base
 
 
-def column_ops(counts, iters, frames):
-    """Floating-point operations the column solver's data needs: per frame
-    37 n^2 + 10 n for the viscosity step and 34 n^2 + 20 n an iteration
-    (the operations of ``csrc/column_sph.cu``'s leaves and updates, n the
-    scene's particles; padding slots cost none)."""
+def column_ops(counts, iters, pairs, bcnt):
+    """Floating-point operations the column solver's data needs, counted
+    from ``csrc/column_sph.cu``'s arithmetic but only where the data needs
+    it (the kernel itself does more: both spline arms of every pair, in or
+    out of the support).  ``pairs`` [S, T, 4] are the kernel's counts of
+    pairs in the spline's inner and outer arm, in the frame's viscosity
+    step and over its projection iterations.  Every pair of a density sum
+    costs its distance (1); a pair in the support adds only the arm it
+    takes: density 8 (inner) or 7 (outer), viscosity 14 or 13, pressure
+    gradient 10 or 9 (the same iteration's distances, not counted twice);
+    a pair beyond the support adds nothing to any sum.  A frame adds 2 n +
+    6 f per particle terms, an iteration 12 n + 7 f (n the scene's
+    particles, f its fluid ones).  Additions and multiplications count one
+    each and comparisons none, against the fp32 FMA rate: a lower bound."""
     n = np.asarray(counts, np.float64)[:, None]
-    return float((frames * (37 * n ** 2 + 10 * n)).sum()
-                 + ((34 * n ** 2 + 20 * n) * iters).sum())
+    f = n - bcnt
+    it = np.asarray(iters, np.float64)
+    pr = np.asarray(pairs, np.float64)
+    per_frame = n ** 2 + 22 * pr[..., 0] + 20 * pr[..., 1] + 2 * n + 6 * f
+    per_iters = (it * (n ** 2 + 12 * n + 7 * f) + 18 * pr[..., 2]
+                 + 16 * pr[..., 3])
+    return float((per_frame + per_iters).sum())
 
 
-def column_bound(counts, iters, frames, p):
-    """(bound ms, by): the larger of the operations at the fp32 rate and
-    the bytes (x0, v0, counts in; xs, vs, iters out) at HBM's rate."""
-    ops = column_ops(counts, iters, frames)
-    s = len(counts)
-    nbytes = s * p * 8 + s * 4 + s * frames * (p * 8 + 4)
+def column_bound(counts, iters, pairs, bcnt, p):
+    """(bound ms, by): the larger of the operations (``column_ops``) at
+    the fp32 rate and the bytes (x0, v0, counts in; xs, vs, iters, pairs
+    out) at HBM's rate."""
+    ops = column_ops(counts, iters, pairs, bcnt)
+    s, frames = np.shape(iters)
+    nbytes = s * p * 8 + s * 4 + s * frames * (p * 8 + 4 + 16)
     t_ops, t_bytes = ops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def support_share(counts, iters, pairs):
+    """The share of all pairs of the density sums that lie in the
+    spline's support (q <= 1)."""
+    n2 = np.asarray(counts, np.float64)[:, None] ** 2
+    pr = np.asarray(pairs, np.float64)
+    return float(pr.sum() / (n2 * (1 + np.asarray(iters))).sum())
 
 
 def column_phase(root, dev):
@@ -979,9 +1013,9 @@ def column_phase(root, dev):
                         warmup=1)
     err = max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2]))
     same = all(torch.equal(g, r) for g, r in zip(got, ref))
-    iters = got[2].cpu().numpy()
+    iters, pairs = got[2].cpu().numpy(), got[3].cpu().numpy()
     out["bound_ms"], out["bound_by"] = column_bound(
-        args[2].tolist(), iters, 5, args[0].shape[1])
+        args[2].tolist(), iters, pairs, kw["bcnt"], args[0].shape[1])
     out["max_abs_err"] = err
     print(f"  4 scenes x 5 frames, iterations a frame {iters.tolist()}: "
           f"kernel {out['ms']:.3f} ms, plain version {out['plain_ms']:.1f} "
@@ -1014,6 +1048,29 @@ def column_phase(root, dev):
           f"column kernel vs JAX fixture {dx}, {dv}")
     out["fixture_err"] = [dx, dv]
 
+    n40 = fx["xs40"].shape[1] - int(fx["obs_size"])
+    args, kw = on_card(column_problem(
+        1, int(fx["timesteps"]), pts_cnt=[n40], res=int(fx["res"]),
+        gravity=float(fx["gravity"]), dt=float(fx["dt"]),
+        max_iter=int(fx["max_iter"])))
+    got = column_solve(*args, **kw)
+    dx = np.abs(got[0][0].cpu().numpy() - fx["xs40"]).max(axis=1)
+    dv = np.abs(got[1][0].cpu().numpy() - fx["vs40"]).max(axis=1)
+    wx = np.abs(fx["xs40_perm"] - fx["xs40"]).max(axis=1)
+    wv = np.abs(fx["vs40_perm"] - fx["vs40"]).max(axis=1)
+    e = COLUMN_EARLY
+    print(f"  the {n40 + int(fx['obs_size'])}-particle scene against JAX: "
+          f"positions {dx.max():.3e}, velocities {dv.max():.3e} (first {e}"
+          f" frames {dx[:e].max():.3e}, {dv[:e].max():.3e}); JAX against "
+          f"itself in another pair order {wx.max():.3e}, {wv.max():.3e} "
+          f"(first {e} frames {wx[:e].max():.3e}, {wv[:e].max():.3e})")
+    check(dx[:e].max() <= COLUMN_X_TOL and dv[:e].max() <= COLUMN_V_TOL,
+          f"column kernel vs JAX, 42 particles, first {e} frames "
+          f"{dx[:e].max()}, {dv[:e].max()}")
+    check(dx.max() <= COLUMN40_X_TOL and dv.max() <= COLUMN40_V_TOL,
+          f"column kernel vs JAX, 42 particles {dx.max()}, {dv.max()}")
+    out["fixture40_err"] = [float(dx.max()), float(dv.max())]
+
     out["splits"] = {}
     for split in COLUMN_SPLITS:
         cfg = column_split(ds, split)
@@ -1021,22 +1078,24 @@ def column_phase(root, dev):
         args, kw = on_card(column_problem(**cfg))
         torch.cuda.synchronize()
         t0 = time.time()
-        xs, vs, it = column_solve(*args, **kw)
+        xs, vs, it, pairs = column_solve(*args, **kw)
         torch.cuda.synchronize()
         sec = time.time() - t0
-        it = it.cpu().numpy()
-        b_ms, b_by = column_bound(args[2].tolist(), it, kw["timesteps"],
+        it, pairs = it.cpu().numpy(), pairs.cpu().numpy()
+        b_ms, b_by = column_bound(args[2].tolist(), it, pairs, kw["bcnt"],
                                   args[0].shape[1])
+        share = support_share(args[2].tolist(), it, pairs)
         check(bool(torch.isfinite(xs).all() and torch.isfinite(vs).all()),
               f"finite {split} split")
         out["splits"][split] = dict(seconds=sec, iterations=int(it.sum()),
-                                    bound_ms=b_ms)
+                                    bound_ms=b_ms, support_share=share)
         print(f"  symnet.yml {split}: {args[0].shape[0]} scenes x "
               f"{kw['timesteps']} frames in {sec:.3f} s, {int(it.sum())} "
               f"projection iterations ({it.mean():.1f} a frame, "
               f"{100 * (it == kw['max_iter']).mean():.1f} % of frames at "
               f"max_iter), {1e6 * sec / it.max(axis=0).sum():.3f} us an "
-              f"iteration of the longest scene; bound {b_ms:.6f} ms "
+              f"iteration of the longest scene; {100 * share:.2f} % of "
+              f"the pairs in the spline's support; bound {b_ms:.6f} ms "
               f"({b_by})")
     return out
 
@@ -1225,6 +1284,13 @@ def train_step_phase(root, cfg_path, dev, model, sample, what):
     return {"launches": launches, "seconds": seconds, "peak_bytes": peak}
 
 
+def dropped(counts, caps):
+    """The share of each pyramid scale's stamped voxels that its cap
+    drops."""
+    return [round(max(0.0, 1.0 - int(cap) / int(c)), 4) if int(c) else 0.0
+            for c, cap in zip(counts, caps)]
+
+
 def liquid3d_phase(root, dev, max_err):
     """Phase 16: ``configs/Liquid3d.yml`` at full width (its precision, a
     bf16 trunk; seed-0 weights) on ``liquid_scene``: every K-list launch
@@ -1275,6 +1341,13 @@ def liquid3d_phase(root, dev, max_err):
     fm = sample["fluid_mask"]
     print(f"  {LIQUID_STEPS}-step rollout: {1e3 * dt / LIQUID_STEPS:.3f} "
           f"ms/step, gate {gate}, launches {launches}")
+    # a scale over its cap drops voxels (the JAX package's pyramid counts
+    # the same on this scene: scripts/liquid_pyramid.py); these timings
+    # are those of the pyramid so cut, not of the uncut model
+    print(f"  voxels dropped a scale: first step "
+          f"{dropped(aux['scale_counts'], aux['scale_caps'])}, most over "
+          f"the rollout {dropped(gate['scale_counts'], gate['scale_caps'])}"
+          f" (scales_fit {gate['scales_fit']})")
     check(bool(torch.isfinite(pos_t[fm]).all()), "finite Liquid3d rollout")
     check(gate["exact"], f"Liquid3d exactness gate {gate}")
     check(launches == [LIQUID_STEPS * x for x in step],
@@ -1289,7 +1362,8 @@ def liquid3d_phase(root, dev, max_err):
     train = train_step_phase(root, "Liquid3d.yml", dev, model, sample,
                              "Liquid3d")
     return {"step": step, "rollout_launches": launches, "train": train,
-            "ms_per_step": 1e3 * dt / LIQUID_STEPS, "gate": gate}
+            "ms_per_step": 1e3 * dt / LIQUID_STEPS, "gate": gate,
+            "dropped": dropped(gate["scale_counts"], gate["scale_caps"])}
 
 
 def turn(sample, degrees):
@@ -1804,6 +1878,7 @@ def main(argv):
         "bound_by": column["bound_by"],
         "library_ms": None,
         "fixture_err": column["fixture_err"],
+        "fixture40_err": column["fixture40_err"],
         "split_seconds": {k: v["seconds"]
                           for k, v in column["splits"].items()},
         "split_iterations": {k: v["iterations"]
@@ -1813,7 +1888,8 @@ def main(argv):
     })
     print(f"column: splits {column['splits']}; symnet.yml losses "
           f"{column_cfgs['losses'][0]:.4e} -> {column_cfgs['losses'][-1]:.4e}"
-          f"; Liquid3d {liquid['ms_per_step']:.3f} ms/step, train step "
+          f"; Liquid3d {liquid['ms_per_step']:.3f} ms/step (voxels "
+          f"dropped a scale {liquid['dropped']}), train step "
           f"{liquid['train']['seconds']:.3f} s, peak "
           f"{liquid['train']['peak_bytes'] / 2 ** 30:.3f} GiB")
     print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "

@@ -11,7 +11,10 @@
 // each two all-pairs sums that depend on the previous iteration.  The work
 // is a long chain of dependent, tiny steps, so it is latency-bound: ~64 x
 // 2 x 25 fp32 operations an iteration against 67 TFLOP/s would take
-// picoseconds, an iteration takes microseconds.
+// picoseconds, an iteration takes microseconds.  The kernel computes both
+// arms of every spline and every pair, in or out of the support, and then
+// selects; it counts the pairs that fall in each arm (``pairs``) so that a
+// bound can count only the work the data needs.
 //
 // Design: one block of 64 threads a scene, thread i owns particle slot i
 // (positions, velocities and per-particle terms in shared memory, all
@@ -89,20 +92,31 @@ __device__ __forceinline__ float tree(const Leaf& leaf) {
   }
 }
 
+// the density sum of one particle; adds the pairs within q <= 0.5 (the
+// spline's inner arm) to n_in and those within 0.5 < q <= 1 (its outer
+// arm) to n_out.  The spline derivatives of the same iteration run on the
+// same distances, so these counts are theirs too.
 __device__ __forceinline__ float density(float xi, const float* x_s, int n,
-                                         const Consts& c) {
+                                         const Consts& c, int& n_in,
+                                         int& n_out) {
   return tree<0, 1>([&](int j) {
-    return j < n ? mul(c.mass, spline(fabsf(sub(xi, x_s[j])), c.cw)) : 0.f;
+    if (j >= n) return 0.f;
+    const float q = fabsf(sub(xi, x_s[j]));
+    n_in += q <= 0.5f;
+    n_out += q > 0.5f && q <= 1.f;
+    return mul(c.mass, spline(q, c.cw));
   });
 }
 
 __global__ void __launch_bounds__(kSlots)
 column_sph_kernel(const float* __restrict__ x0, const float* __restrict__ v0,
                   const int* __restrict__ counts, float* __restrict__ xs,
-                  float* __restrict__ vs, int* __restrict__ iters, int p,
+                  float* __restrict__ vs, int* __restrict__ iters,
+                  int* __restrict__ pairs, int p,
                   int timesteps, int bcnt, int max_iter, Consts c) {
   __shared__ float x_s[kSlots], v_s[kSlots], aux_s[kSlots], pd_s[kSlots];
   __shared__ float red_s[kSlots / 32];
+  __shared__ int pairs_s[4];
   const int s = blockIdx.x;
   const int i = threadIdx.x;
   const int n = counts[s];
@@ -120,9 +134,11 @@ column_sph_kernel(const float* __restrict__ x0, const float* __restrict__ v0,
       xs[(static_cast<size_t>(s) * timesteps + t) * p + i] = x;
       vs[(static_cast<size_t>(s) * timesteps + t) * p + i] = v;
     }
+    if (i < 4) pairs_s[i] = 0;
+    int cnt[4] = {0, 0, 0, 0};  // frame (inner, outer), iterations (same)
 
     // viscosity and gravity, then the prediction
-    float dens = valid ? density(x, x_s, n, c) : 1.f;
+    float dens = valid ? density(x, x_s, n, c, cnt[0], cnt[1]) : 1.f;
     aux_s[i] = div(c.mass, dens);
     __syncthreads();
     if (valid) {
@@ -148,7 +164,7 @@ column_sph_kernel(const float* __restrict__ x0, const float* __restrict__ v0,
     int it = 0;
     bool active = max_iter > 0;
     while (active) {
-      dens = valid ? density(x, x_s, n, c) : 1.f;
+      dens = valid ? density(x, x_s, n, c, cnt[2], cnt[3]) : 1.f;
       const float r = div(dens, c.rest);
       const float r2 = mul(r, r);
       float pres = clamp0(mul(c.stiff, sub(mul(mul(r, r2), mul(r2, r2)),
@@ -184,7 +200,13 @@ column_sph_kernel(const float* __restrict__ x0, const float* __restrict__ v0,
       active = it < max_iter && err >= c.eps;
     }
     v_s[i] = v;
+    for (int k = 0; k < 4; ++k) {
+      if (cnt[k]) atomicAdd(&pairs_s[k], cnt[k]);  // integers: any order
+    }
+    __syncthreads();
     if (i == 0) iters[s * timesteps + t] = it;
+    if (i < 4) pairs[(static_cast<size_t>(s) * timesteps + t) * 4 + i] =
+        pairs_s[i];
     __syncthreads();
   }
 }
@@ -193,8 +215,9 @@ column_sph_kernel(const float* __restrict__ x0, const float* __restrict__ v0,
 
 extern "C" int column_sph_launch(const float* x0, const float* v0,
                                  const int* counts, float* xs, float* vs,
-                                 int* iters, int scenes, int p, int timesteps,
-                                 int bcnt, int max_iter, float mass,
+                                 int* iters, int* pairs, int scenes, int p,
+                                 int timesteps, int bcnt, int max_iter,
+                                 float mass,
                                  float gravity, float rest, float stiff,
                                  float visc, float cw, float soft, float dt,
                                  float dt2, float eps, void* stream) {
@@ -203,6 +226,7 @@ extern "C" int column_sph_launch(const float* x0, const float* v0,
   const Consts c{mass, gravity, rest, stiff, visc, cw, soft, dt, dt2, eps};
   column_sph_kernel<<<scenes, kSlots, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      x0, v0, counts, xs, vs, iters, p, timesteps, bcnt, max_iter, c);
+      x0, v0, counts, xs, vs, iters, pairs, p, timesteps, bcnt, max_iter,
+      c);
   return static_cast<int>(cudaGetLastError());
 }

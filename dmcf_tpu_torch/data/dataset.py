@@ -115,9 +115,11 @@ class DatasetGroup:
     ``np.random`` seeded first, as the JAX package does) and cached in
     ``<cache_dir>/<md5(cfg)>``.  ``cache_dir=None`` (on the command line
     ``--dataset.cache_dir none``) generates the same data with no cache
-    file, so no ``zstandard`` is needed.  ``device`` is where the column
-    generator solves (``generators.gen_column_data``: the CUDA kernel, or
-    the plain version on the CPU); it is no part of the cache key.
+    file, so no ``zstandard`` is needed.  ``device`` goes to every
+    generator: the column generator solves there
+    (``generators.gen_column_data``: the CUDA kernel, or the plain version
+    on the CPU), the others make their data with numpy and ignore it; it
+    is no part of the cache key.
     """
 
     def __init__(self, train=None, valid=None, test=None, split="train",
@@ -131,9 +133,7 @@ class DatasetGroup:
             gen_type = dataset_cfg.pop("type", "column")
             if gen_type not in GENERATORS:
                 raise NotImplementedError(f"generator type: {gen_type}")
-            fn = GENERATORS[gen_type]
-            if gen_type == "column":
-                fn = functools.partial(fn, device=device)
+            fn = functools.partial(GENERATORS[gen_type], device=device)
             self.train = self._gen(fn, regen, cache_dir,
                                    {**(train or {}), **dataset_cfg})
             self.valid = self._gen(fn, regen, cache_dir,

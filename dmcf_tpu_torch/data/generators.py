@@ -157,8 +157,8 @@ def gen_column_data(data_cnt, timesteps, res=100, obs_size=2, width=1,
     device = resolve_device(device)
     x0, v0, counts, kw = column_problem(data_cnt, timesteps, res=res,
                                         obs_size=obs_size, **kwargs)
-    xs, vs, _ = column_solve(*(torch.as_tensor(a, device=device)
-                               for a in (x0, v0, counts)), **kw)
+    xs, vs = column_solve(*(torch.as_tensor(a, device=device)
+                            for a in (x0, v0, counts)), **kw)[:2]
     xs, vs = xs.cpu().numpy(), vs.cpu().numpy()
 
     data = []
@@ -185,10 +185,11 @@ def _sample_sphere(r, res, sres, dim=2):
 
 
 def gen_momentum_data(data_cnt=1, timesteps=50, res=100, dim=2, radius=12,
-                      dt=0.01, gravity=0.0, speed=30.0):
+                      dt=0.01, gravity=0.0, speed=30.0, device=None):
     """Momentum-validation scenes: two particle blobs on a collision course
     with one far boundary point.  Ground truth is ballistic free flight;
-    the scored quantity is a learned model's momentum drift."""
+    the scored quantity is a learned model's momentum drift.  Made with
+    numpy on the host: ``device`` is taken and not used."""
     g = np.array([0.0, gravity * res, 0.0])
     data = []
     for d in range(data_cnt):
@@ -219,9 +220,10 @@ def gen_momentum_data(data_cnt=1, timesteps=50, res=100, dim=2, radius=12,
 
 
 def gen_free_fall_data(data_cnt=1, timesteps=100, res=100, dim=2, radius=20,
-                       dt=0.01, gravity=-10.0, mode=0):
+                       dt=0.01, gravity=-10.0, mode=0, device=None):
     """Analytic ballistic sphere drop.  mode 0: explicit Euler; mode 1:
-    trapezoid position update."""
+    trapezoid position update.  Made with numpy on the host: ``device`` is
+    taken and not used."""
     gravity = gravity * res
     g = np.array([0.0, gravity, 0.0])
     data = []

@@ -10,8 +10,13 @@ there; no TPU kernel).  Contract (both versions):
           them boundary), the rest padding; P <= 64
   counts  [S] int32 particles a scene, bcnt < counts[s] <= P
   returns xs, vs [S, T, P] fp32 (frame t holds the state before step t,
-          padding 0) and iters [S, T] int32, the projection iterations
-          each frame ran
+          padding 0), iters [S, T] int32, the projection iterations each
+          frame ran, and pairs [S, T, 4] int32, the particle pairs (i, j
+          both of the scene, i = j included) at distance q <= 0.5 (the
+          spline's inner arm) and at 0.5 < q <= 1 (its outer arm) in the
+          frame's viscosity step, then the same two counts summed over its
+          projection iterations; pairs beyond q = 1 add nothing to any sum
+          (the counts let a bound count only the work the data needs)
 
 Each step applies viscosity and gravity, predicts, then runs the
 pressure projection: its first iteration always runs, and a scene stops
@@ -109,18 +114,24 @@ def column_solve_reference(x0, v0, counts, *, bcnt, timesteps, mass=1.0,
     pair = valid[:, None, :]                      # slot j of row i counts
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
+    both = valid[:, :, None] & pair
+
     def dens_of(x):
+        """The densities and the pairs in each spline arm [S, 2]."""
         d = (x[:, :, None] - x[:, None, :]).abs()
         dens = tree_sum(torch.where(pair, c["mass"] * _w(d, c), zero))
-        return torch.where(valid, dens, 1.0)  # padding rows never read
+        arms = torch.stack([(both & (d <= 0.5)).sum((1, 2)),
+                            (both & (d > 0.5) & (d <= 1.0)).sum((1, 2))], 1)
+        return torch.where(valid, dens, 1.0), arms.to(torch.int32)
 
     xs = torch.zeros((n_s, timesteps, p), dtype=torch.float32, device=dev)
     vs = torch.zeros_like(xs)
     iters = torch.zeros((n_s, timesteps), dtype=torch.int32, device=dev)
+    pairs = torch.zeros((n_s, timesteps, 4), dtype=torch.int32, device=dev)
     for t in range(timesteps):
         xs[:, t], vs[:, t] = x[:, :p], v[:, :p]
         # viscosity and gravity, then the prediction
-        dens = dens_of(x)
+        dens, pairs[:, t, :2] = dens_of(x)
         ds = x[:, :, None] - x[:, None, :]
         md = c["mass"] / dens
         lap = ((md[:, None, :] * (v[:, :, None] - v[:, None, :])) * ds
@@ -133,7 +144,8 @@ def column_solve_reference(x0, v0, counts, *, bcnt, timesteps, mass=1.0,
         it = torch.zeros(n_s, dtype=torch.int32, device=dev)
         active = torch.full((n_s,), max_iter > 0, device=dev)
         while bool(active.any()):
-            dens = dens_of(x)
+            dens, arms = dens_of(x)
+            pairs[:, t, 2:] += torch.where(active[:, None], arms, 0)
             r = dens / c["rest"]
             r2 = r * r
             pres = torch.clamp(c["stiff"] * ((r * r2) * (r2 * r2) - 1.0),
@@ -154,7 +166,7 @@ def column_solve_reference(x0, v0, counts, *, bcnt, timesteps, mass=1.0,
             it = it + active.to(torch.int32)
             active = active & (it < max_iter) & (err >= c["eps"])
         iters[:, t] = it
-    return xs, vs, iters
+    return xs, vs, iters, pairs
 
 
 def _check(name, x, dtype, shape, device):
@@ -171,7 +183,7 @@ def _launcher():
     set once."""
     fn = load_library("column_sph").column_sph_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
         + [ctypes.c_float] * 10 + [ctypes.c_void_p]
     return fn
 
@@ -199,11 +211,13 @@ def column_solve(x0, v0, counts, *, bcnt, timesteps, mass=1.0,
     xs = torch.empty((n_s, timesteps, p), dtype=torch.float32, device=dev)
     vs = torch.empty_like(xs)
     iters = torch.empty((n_s, timesteps), dtype=torch.int32, device=dev)
+    pairs = torch.empty((n_s, timesteps, 4), dtype=torch.int32, device=dev)
     c = constants(mass, gravity, rest_dens, stiffness, visc, h, dt, eps)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(
         x0.data_ptr(), v0.data_ptr(), counts.data_ptr(), xs.data_ptr(),
-        vs.data_ptr(), iters.data_ptr(), n_s, p, timesteps, bcnt, max_iter,
+        vs.data_ptr(), iters.data_ptr(), pairs.data_ptr(), n_s, p,
+        timesteps, bcnt, max_iter,
         *(float(c[k]) for k in ("mass", "gravity", "rest", "stiff", "visc",
                                 "cw", "soft", "dt", "dt2", "eps")),
         stream)
@@ -211,7 +225,7 @@ def column_solve(x0, v0, counts, *, bcnt, timesteps, mass=1.0,
         raise RuntimeError(f"column_sph kernel launch failed: CUDA error "
                            f"{err}")
     column_solve.launches += 1
-    return xs, vs, iters
+    return xs, vs, iters, pairs
 
 
 # launches of the CUDA kernel (plain-version calls are not counted)

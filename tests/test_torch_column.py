@@ -65,7 +65,7 @@ def test_plain_solver_matches_jax(counts, timesteps, max_iter, offset):
     kw = dict(bcnt=2, gravity=solver.gravity, rest_dens=solver.rest_dens,
               stiffness=20.0, visc=0.1, h=solver.h, timesteps=timesteps,
               dt=DT, max_iter=max_iter)
-    xs, vs, iters = column_solve_reference(
+    xs, vs, iters, _ = column_solve_reference(
         torch.from_numpy(x0), torch.from_numpy(v0),
         torch.tensor([n + 2 for n in counts], dtype=torch.int32), **kw)
     jsolve = jax.jit(partial(jgen._column_solve_jax, **kw))
@@ -85,6 +85,35 @@ def test_plain_solver_matches_jax(counts, timesteps, max_iter, offset):
         assert (it == 1).all()
     elif max(counts) >= 5:
         assert (it[np.argmax(counts)] == max_iter).all()
+
+
+def test_plain_solver_counts_pairs_by_spline_arm():
+    """The pair counts that the column bound reads: a frame's viscosity
+    step sees the state the frame records, so its counts are those of the
+    recorded positions exactly; every projection iteration counts each
+    particle with itself (inner arm) and at most all of its pairs."""
+    counts = [1, 5, 40]
+    solver, x0, v0 = initial_state(counts)
+    xs, _, iters, pairs = column_solve_reference(
+        torch.from_numpy(x0), torch.from_numpy(v0),
+        torch.tensor([n + 2 for n in counts], dtype=torch.int32), bcnt=2,
+        gravity=solver.gravity, rest_dens=solver.rest_dens, stiffness=20.0,
+        visc=0.1, h=solver.h, timesteps=4, dt=DT, max_iter=30)
+    pairs, iters = pairs.numpy(), iters.numpy()
+    for s, n in enumerate(counts):
+        x = xs[s, :, :n + 2].numpy()
+        q = np.abs(x[:, :, None] - x[:, None, :])
+        np.testing.assert_array_equal(pairs[s, :, 0],
+                                      (q <= 0.5).sum((1, 2)))
+        np.testing.assert_array_equal(pairs[s, :, 1],
+                                      ((q > 0.5) & (q <= 1.0)).sum((1, 2)))
+        assert (pairs[s, :, 2] >= iters[s] * (n + 2)).all()
+        assert (pairs[s, :, 2] + pairs[s, :, 3]
+                <= iters[s] * (n + 2) ** 2).all()
+    # at the rest spacing h/2 a particle meets its neighbours at q = 0.5
+    # and q = 1.0: a 42-particle column has far fewer pairs in the
+    # support than pairs in all
+    assert pairs[2, 0, :2].sum() < 0.2 * 42 ** 2
 
 
 def test_column_frames_match_jax():
@@ -195,18 +224,28 @@ def test_run_pipeline_column_hrnet_on_cpu(split, tmp_path, monkeypatch):
                    for f in fs)
 
 
-def test_column_fixture_is_what_jax_makes_today():
+@pytest.mark.parametrize("scene", ["first", "largest", "largest_permuted"])
+def test_column_fixture_is_what_jax_makes_today(scene):
     """``tests/data/torch_column_ref.npz`` (``scripts/
     make_torch_column_ref.py``): its counts are the split's first three
-    under its seed, and its scene 0 is the JAX solver's output now, at
-    full size, bit for bit."""
+    under its seed, and its scene 0, its 40-particle scene and that
+    scene's run in another particle order are the JAX solver's output
+    now, at full size, bit for bit."""
     ref = np.load(os.path.join(ROOT, "tests", "data",
                                "torch_column_ref.npz"))
     cfg = ref_script.split_config()
     np.testing.assert_array_equal(ref["pts_cnt"], ref_script.pts_cnt(cfg))
     assert int(ref["timesteps"]) == cfg["timesteps"] == 100
-    n = int(ref["pts_cnt"][0]) + ref_script.OBS_SIZE
-    xs, vs = ref_script.solve_scene(int(ref["pts_cnt"][0]), cfg)
-    np.testing.assert_array_equal(ref["xs"][0, :, :n], xs)
-    np.testing.assert_array_equal(ref["vs"][0, :, :n], vs)
-    assert not ref["xs"][0, :, n:].any()
+    if scene == "first":
+        n = int(ref["pts_cnt"][0]) + ref_script.OBS_SIZE
+        xs, vs = ref_script.solve_scene(int(ref["pts_cnt"][0]), cfg)
+        want = ref["xs"][0, :, :n], ref["vs"][0, :, :n]
+        assert not ref["xs"][0, :, n:].any()
+    else:
+        perm = (ref_script.fluid_permutation(ref_script.LARGEST)
+                if scene == "largest_permuted" else None)
+        xs, vs = ref_script.solve_scene(ref_script.LARGEST, cfg, perm=perm)
+        key = "40_perm" if perm is not None else "40"
+        want = ref["xs" + key], ref["vs" + key]
+    np.testing.assert_array_equal(want[0], xs)
+    np.testing.assert_array_equal(want[1], vs)

@@ -14,7 +14,8 @@ gate, the ASCC output's momentum ratio and each variant's launch counts,
 holds each kernel against its twin again at every launch of the first
 step of the bf16-trunk model and of the fp32 one (and times each: the
 conv inventory), checks a small-scene agreement with the plain path on the
-CPU, profiles where a step's time goes, runs the valid pipeline of
+CPU (one-step bf16 flips of T counted apart), profiles where a step's time
+goes, runs the valid pipeline of
 ``configs/other/momentum.yml`` (phase 9: ``Simulator.run_valid`` with the
 full metric suite, each variant's launches on that path counted exactly,
 card against CPU, momentum drift), holds the backward kernels of both
@@ -32,7 +33,12 @@ with data from that kernel (phase 15), runs ``configs/Liquid3d.yml`` at
 full width (K-list launches up to K 1856 in chunks, the 6x6x6 ASCC conv,
 a 50-step rollout, a batch-8 train step; phase 16), ``configs/WBC-SPH.yml``
 upright and turned by 30 degrees (``grav_eqvar``, phase 17) and the
-CConv and PointNet baselines (phase 18), and prints one
+CConv and PointNet baselines (phase 18), runs the root bench's canyon
+protocol on a generated scene of the canyon's size (``bench.bench_canyon``
+with the cell search, the contact crop, every K-list launch of its first
+step held against its plain version, the searches against each other and
+the CPU, and lazy dense pairs against eager ones; phase 19) and
+``run_sample``'s inflow regime (phase 20), and prints one
 ``kernels`` JSON line (each kernel variant, its launches on each path),
 the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
 kernel's ``ms`` is the mean of calls issued back to back (CUDA events
@@ -289,6 +295,119 @@ def close(got, want, rtol, atol, what):
           f"{err:.3e} (tol {rtol} rel + {atol})")
     check(err <= rtol * abs(float(want)) + atol,
           f"{what}: card vs CPU {err}")
+
+
+def card_T(args, kw):
+    """The bf16 kernel's T [Q, S*Cin] (bf16 values in fp32) at one logged
+    launch: the kernel run with W the identity, 32 columns a launch (the
+    trunk's Cout; an fp32 sum of T times 1 and zeros is exact)."""
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist
+    idx, a, t, feats, w, ks = args
+    n = w.shape[0]
+    eye = torch.eye(n, device=w.device)
+    return torch.cat([cconv_klist(idx, a, t, feats,
+                                  eye[:, j:j + 32].contiguous(), ks,
+                                  precision=kw["precision"])
+                      for j in range(0, n, 32)], dim=1)
+
+
+def plain_T(args, kw):
+    """The plain version's T [Q, S*Cin] on the CPU for the same inputs."""
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_reference
+    idx, a, t, feats, w, ks = (x.cpu() if torch.is_tensor(x) else x
+                               for x in args)
+    return cconv_klist_reference(idx, a, t, feats, torch.eye(w.shape[0]),
+                                 ks, precision=kw["precision"])
+
+
+def forced_step(cpu_model, sample, forced):
+    """One step of ``cpu_model`` on the CPU in which the i-th K-list call
+    takes ``forced[i]`` as its T where that is not None (the plain
+    version's product with bf16(W)); the other calls run the plain
+    version."""
+    from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
+                                                    cconv_klist_reference,
+                                                    round_bf16)
+    from dmcf_tpu_torch.ops import cconv as ops_cconv
+    calls = iter(forced)
+
+    def call(idx, a, t, feats, w, ks, qfeats=None, precision="highest"):
+        T = next(calls)
+        if T is None:
+            return cconv_klist_reference(idx, a, t, feats, w, ks,
+                                         qfeats=qfeats, precision=precision)
+        check(T.shape == (idx.shape[0], w.shape[0]), "forced T's shape")
+        return T @ round_bf16(w)
+
+    ops_cconv.cconv_klist = call
+    try:
+        with torch.no_grad():
+            return cpu_model(sample)
+    finally:
+        ops_cconv.cconv_klist = cconv_klist
+
+
+def small_scene_phase(model, dev):
+    """Phase 7: the bf16-trunk step on a 256-fluid scene, card against the
+    plain path on the CPU.  Sums taken in another order before T's bf16
+    rounding can put an element of T one bf16 step apart (~2e-4 of the
+    correction's max downstream), so: at each bf16 launch the card's T
+    (``card_T``) against the CPU plain version's on the same inputs, one-step
+    flips counted apart (``rounding_flips``; every other element equal to
+    1e-4 of T's max, at most max(4, 1e-3 of the elements) flips); the CPU
+    step with the card's T forced in (``forced_step``) within 1e-4 of the
+    correction's max of the card's, every element; the free CPU step's
+    elements beyond that only where flips were counted; positions within
+    1e-6 of the free CPU step."""
+    from dmcf_tpu_torch.kernels.cconv_klist import rounding_flips
+    from dmcf_tpu_torch.profile_step import record_launches
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+    small = build_scene(256)
+    s_gpu = bench_sample(*small, device=dev)
+    s_cpu = bench_sample(*small, device="cpu")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    (pg, _, ag), log = record_launches(model, s_gpu)
+    with torch.no_grad():
+        pc, _, ac = cpu_model(s_cpu)
+        forced, flips = [], 0
+        for name, args, kw, _ in log:
+            if not bf16(kw):
+                forced.append(None)
+                continue
+            got, want = card_T(args, kw).cpu(), plain_T(args, kw)
+            err, n_flip = rounding_flips(got, want)
+            tol = 1e-4 * float(want.abs().max())
+            print(f"  {name:12s} T {tuple(want.shape)}: one-step flips "
+                  f"{n_flip}, other elements max diff {err:.3e} (tol "
+                  f"{tol:.3e})")
+            check(err <= tol, f"{name}: card T vs CPU T {err} <= {tol}")
+            check(n_flip <= max(4, 1e-3 * want.numel()),
+                  f"{name}: {n_flip} one-step flips of T")
+            flips += n_flip
+            forced.append(got)
+    pf, _, af = forced_step(cpu_model, s_cpu, forced)
+    pcg = ag["pos_correction"].cpu()
+    scale = float(ac["pos_correction"].abs().max())
+    tol = 1e-4 * scale
+    diff_free = (pcg - ac["pos_correction"]).abs()
+    diff_forced = float((pcg - af["pos_correction"]).abs().max())
+    beyond = int((diff_free > tol).sum())
+    print(f"pos_correction max {scale:.3e}; card vs CPU with the card's T "
+          f"max diff {diff_forced:.3e} (tol {tol:.3e}); card vs free CPU "
+          f"max diff {float(diff_free.max()):.3e}, {beyond} elements beyond "
+          f"the tolerance, explained by {flips} one-step flips of T; "
+          f"positions max diff {float((pg.cpu() - pc).abs().max()):.3e} "
+          f"(tol 1e-6)")
+    check(scale > 0 and diff_forced <= tol,
+          f"card vs forced CPU pos_correction {diff_forced} <= {tol}")
+    check(beyond == 0 or flips > 0,
+          f"{beyond} elements beyond {tol} with no flip of T to explain "
+          "them")
+    check(torch.allclose(pg.cpu(), pc, atol=1e-6, rtol=0),
+          "card vs CPU positions within 1e-6")
+    check(torch.allclose(pg.cpu(), pf, atol=1e-6, rtol=0),
+          "card vs forced CPU positions within 1e-6")
 
 
 def valid_phase(root, dev):
@@ -921,6 +1040,15 @@ LIQUID_BLOCK = (22, 6, 22)   # phase 16's fluid block (particles an axis)
 LIQUID_STEPS = 50
 WBC_STEPS = 20
 BASELINE_STEPS = 20
+CANYON_STEPS = 3             # phase 19's timed canyon rollout (and warm-up)
+CANYON_TRACK = 6             # phase 19's steps with each step's pair excess
+CANYON_CROP = 8192           # the canyon protocol's contact crop
+INFLOW_STEPS = 40            # phase 20's run_sample regime: 40 steps, an
+INFLOW_EVERY = 10            # inflow event every 10 (4 events of 1,280)
+INFLOW_CROP = 65536
+INFLOW_HEIGHT = 0.8          # the emitter block 0.8 above the floor
+PLAIN_CHUNK_ELEMS = 1 << 28  # the plain version's [Q, K, S] taps a chunk
+#                              (1 GiB fp32)
 
 
 def column_config(root, name="symnet.yml"):
@@ -1206,15 +1334,29 @@ def liquid_scene(shape=LIQUID_BLOCK, spacing=0.05, seed=0):
             np.concatenate(nrms).astype(np.float32))
 
 
-def launch_checks(log, what, max_err):
-    """Every logged K-list launch against its plain version (fwd_check);
-    prints each launch's shape.  Updates max_err {bf16: err}."""
+def plain_chunked(args, kw):
+    """The plain version over slices of the queries, each with at most
+    PLAIN_CHUNK_ELEMS taps (its [Q, K, S] transient); rows are independent,
+    so the values are the unchunked version's."""
     from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_reference
+    idx, a, t, feats, w, ks = args
+    qf = kw.get("qfeats")
+    q, k = idx.shape
+    qc = max(1, PLAIN_CHUNK_ELEMS // (k * int(np.prod(ks))))
+    return torch.cat([cconv_klist_reference(
+        idx[s:s + qc], a[s:s + qc], t[s:s + qc], feats, w, ks,
+        qfeats=None if qf is None else qf[s:s + qc],
+        precision=kw["precision"]) for s in range(0, q, qc)])
 
+
+def launch_checks(log, what, max_err):
+    """Every logged K-list launch against its plain version (fwd_check;
+    chunked over queries, ``plain_chunked``); prints each launch's shape.
+    Updates max_err {bf16: err}."""
     with torch.no_grad():
         for name, args, kw, out in log:
-            err = fwd_check(f"{what} {name}", out,
-                            cconv_klist_reference(*args, **kw), kw)
+            err = fwd_check(f"{what} {name}", out, plain_chunked(args, kw),
+                            kw)
             max_err[bf16(kw)] = max(max_err[bf16(kw)], err)
             idx_, _, _, f_, w_, ks_ = args
             print(f"    {name:12s} Q {idx_.shape[0]:4d} K {idx_.shape[1]:4d}"
@@ -1521,6 +1663,318 @@ def baselines_phase(root, dev, max_err):
     return out
 
 
+def search_ran(nl, method):
+    """Which search produced the neighbor list ``nl`` (``method`` the one
+    asked for): cell and grid lists carry ``cell_overflow``, the dense
+    list keeps ``disp``, the chunked running top-K neither."""
+    if nl.cell_overflow is not None:
+        return "grid" if method == "grid" else "cell"
+    return "dense" if nl.disp is not None else "chunked top-K"
+
+
+def same_sets(a, b):
+    """Whether two neighbor lists hold the same neighbour set per query
+    (order aside) and the same counts."""
+    def rows(nl):
+        return torch.sort(torch.where(nl.mask, nl.idx, -1), dim=1).values
+    return torch.equal(a.count, b.count) and torch.equal(rows(a), rows(b))
+
+
+def canyon_phase(root, dev, max_err):
+    """Phase 19: the root bench's canyon protocol on a generated scene of
+    the canyon's size and contact load (``scene.canyon_frame``: 1,280
+    fluid resting on the terrain, 185,436 boundary, 6,126 of them in
+    contact) with ``configs/Liquid3d.yml`` at full width,
+    ``CANYON_OVERRIDES`` and a contact crop of 8192.  The first step: each
+    trunk pair's search and its time, every K-list launch against its plain
+    version, the scale-0 pair's cell search on the card against the
+    chunked top-K on the card and the cell search on the CPU, the contact
+    counts card against CPU.  Then each step's worst pair excess over
+    CANYON_TRACK steps (printed: under random weights the fluid falls into
+    the floor and the budgets pass from step 4 or 5 on the CPU, in JAX as in
+    the port, ``scripts/canyon_budget.py``), ``bench_canyon``'s warm-up and
+    timed rollouts of CANYON_STEPS steps, a horizon over which JAX and the
+    port are exact, under the exact gate (launches counted), the step's
+    device time and busy share, and lazy dense pairs against eager ones on
+    the bench scene."""
+    from dmcf_tpu_torch.bench import (CANYON_BOOST, bench_canyon,
+                                      canyon_exact, canyon_model)
+    from dmcf_tpu_torch.models import pbf as pbf_mod
+    from dmcf_tpu_torch.ops import neighbors
+    from dmcf_tpu_torch.ops.cell_search import contact_weight_dense
+    from dmcf_tpu_torch.profile_step import record_launches, trace
+    from dmcf_tpu_torch.run_sample import scene_sample
+    from dmcf_tpu_torch.scene import canyon_frame
+
+    frame = canyon_frame()
+    model = canyon_model(CANYON_CROP, dev)
+    sample, _, _, box = scene_sample(model, frame, vel=CANYON_BOOST,
+                                     device=dev, log=lambda m: None)
+    print(f"  scene: {len(frame['pos'])} fluid, {len(box)} boundary; crop "
+          f"{CANYON_CROP}, {model.precision} trunk")
+    searches = []
+    search = pbf_mod.search
+
+    def timed_search(points, queries, radius, k, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nl = search(points, queries, radius, k, **kw)
+        torch.cuda.synchronize()
+        over = nl.cell_overflow
+        searches.append((points.shape[0], queries.shape[0], radius, k,
+                         search_ran(nl, kw["method"]),
+                         1e3 * (time.perf_counter() - t0),
+                         (0, 0) if over is None else
+                         (int(over.max()), int((over > 0).sum()))))
+        return nl
+
+    pbf_mod.search = timed_search
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (_, _, aux), log = record_launches(model, sample)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        step = counts()[:2]
+    finally:
+        pbf_mod.search = search
+    for n, q, r, k, how, ms, (over, n_over) in searches:
+        print(f"  search N {n:6d} x Q {q:6d} r {r:g} K {k:4d}: {how}, "
+              f"{ms:.3f} ms" + (f"; window overflow up to {over} rows at "
+                                f"{n_over} queries" if n_over else ""))
+    search_ms = sum(x[5] for x in searches)
+    excess = {k: int(v) for k, v in aux["pair_overflow_detail"].items()}
+    print(f"  first step {first_ms:.1f} ms (searches {search_ms:.1f} ms), "
+          f"K-list launches (fp32, bf16) {step}; pair excess {excess}; "
+          f"cell_overflow {int(aux.get('cell_overflow', -1))}; in contact "
+          f"{int(aux['boundary_crop_count'])}")
+    check(any(x[4] == "cell" for x in searches), "a cell search ran")
+    launch_checks(log, "canyon", max_err)
+
+    with torch.no_grad():
+        data, _ = model.transform(sample)
+        ctx = model.preprocess(data)
+        all_pos, all_mask = ctx["all_pos"], ctx["all_mask"]
+        r0, k0 = model._radii[0], model.neighbor_k
+        occ = model.occ_for_radius(r0)
+        kw = dict(points_mask=all_mask, queries_mask=all_mask)
+        got = {}
+        # the chunked running top-K is what search_method "brute" runs
+        # past 8192 rows; fast_path_max 0 names it whatever the size
+        for how, fn in (
+                ("cell", lambda: neighbors.search(
+                    all_pos, all_pos, r0, k0, method="cell", occ_cap=occ,
+                    **kw)),
+                ("brute", lambda: neighbors.fixed_radius_search(
+                    all_pos, all_pos, r0, k0, fast_path_max=0, **kw))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[how] = fn()
+            torch.cuda.synchronize()
+            got[how + "_ms"] = 1e3 * (time.perf_counter() - t0)
+        cpu = neighbors.search(all_pos.cpu(), all_pos.cpu(), r0, k0,
+                               method="cell", occ_cap=occ,
+                               points_mask=all_mask.cpu(),
+                               queries_mask=all_mask.cpu())
+        cell, brute = got["cell"], got["brute"]
+        exact = cell.cell_overflow == 0   # the queries the windows held
+        sub = [nl._replace(idx=nl.idx[exact], mask=nl.mask[exact],
+                           count=nl.count[exact]) for nl in (cell, brute)]
+        lost = int((brute.count - cell.count)[~exact].sum())
+        print(f"  scale-0 pair {all_pos.shape[0]} x {all_pos.shape[0]}: "
+              f"cell (occ_cap {occ}) {got['cell_ms']:.3f} ms, chunked "
+              f"top-K {got['brute_ms']:.3f} ms; max count "
+              f"{int(brute.count.max())} of K {k0}; window overflow at "
+              f"{int((~exact).sum())} queries (up to "
+              f"{int(cell.cell_overflow.max())} rows), {lost} neighbours "
+              f"lost there")
+        check(int(brute.count.max()) <= k0, "no scale-0 K overflow")
+        check(same_sets(*sub), "card cell search = card chunked top-K "
+              "(sets, counts) wherever no window overflowed")
+        check(bool((cell.count <= brute.count).all()),
+              "an overflowed window only loses neighbours")
+        check(torch.equal(cell.idx.cpu(), cpu.idx)
+              and torch.equal(cell.mask.cpu(), cpu.mask)
+              and torch.equal(cell.count.cpu(), cpu.count)
+              and torch.equal(cell.cell_overflow.cpu(), cpu.cell_overflow),
+              "card cell search = CPU cell search")
+        for wide in (64, 128, 256, 512, 1024):   # the budget that holds all
+            nl = neighbors.search(all_pos, all_pos, r0, k0, method="cell",
+                                  occ_cap=wide, **kw)
+            if int(nl.cell_overflow.max()) == 0:
+                break
+        print(f"  occ_cap {wide}: no window overflow, equal to the chunked "
+              f"top-K {same_sets(nl, brute)}")
+        check(int(nl.cell_overflow.max()) == 0 and same_sets(nl, brute),
+              f"cell search at occ_cap {wide} = chunked top-K")
+        n_fluid = ctx["n_fluid"]
+        fpos, fmask = all_pos[:n_fluid], data["fluid_mask"].bool()
+        ext = ctx["filter_extent"][-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w_card = contact_weight_dense(fpos, data["box"], ext,
+                                      points_mask=fmask,
+                                      queries_mask=data["box_mask"])
+        torch.cuda.synchronize()
+        contact_ms = 1e3 * (time.perf_counter() - t0)
+        w_cpu = contact_weight_dense(fpos.cpu(), data["box"].cpu(), ext,
+                                     points_mask=fmask.cpu(),
+                                     queries_mask=data["box_mask"].cpu())
+        print(f"  contact counts over {data['box'].shape[0]} boundary rows"
+              f": {contact_ms:.3f} ms on the card, {int((w_card > 0).sum())}"
+              f" in contact, card = CPU {torch.equal(w_card.cpu(), w_cpu)}")
+        check(torch.equal(w_card.cpu(), w_cpu), "contact counts card = CPU")
+        check(int((w_card > 0).sum()) == int(aux["boundary_crop_count"]),
+              "contact count = the step's boundary_crop_count")
+
+    with torch.no_grad():
+        s, worst = dict(sample), []
+        for _ in range(CANYON_TRACK):
+            s["pos"], s["vel"], a = model(s)
+            worst.append(int(a["pair_overflow"]))
+    first = next((t for t, w in enumerate(worst) if w > 0), None)
+    print(f"  worst pair excess a step over {CANYON_TRACK} steps {worst}: "
+          f"first step past a budget {first} (the CPU: 4 with these "
+          f"weights, 5 in JAX and the port with JAX's)")
+
+    zero_counts()                # the canyon rollouts start here
+    res = bench_canyon(frame, steps=CANYON_STEPS, crop=CANYON_CROP,
+                       device=dev, model=model)
+    launches = counts()[:2]      # and end here
+    print(f"  bench_canyon: {res['ms_per_step']:.3f} ms/step over "
+          f"{CANYON_STEPS} steps, gate pair_overflow {res['pair_overflow']}"
+          f" max_neighbors {res['max_neighbors']} (K {res['neighbor_k']}) "
+          f"contact {res['boundary_contact_count']} (crop "
+          f"{res['boundary_crop']}) cell_overflow {res['cell_overflow']} "
+          f"finite {res['finite']}; scales {res['scale_counts']} caps "
+          f"{res['scale_caps']}; launches {launches}")
+    check(canyon_exact(res) and res["finite"], f"canyon gate {res}")
+    check(launches == [2 * CANYON_STEPS * x for x in step]
+          and min(launches) > 0, f"canyon launches {launches}")
+    with torch.no_grad():
+        tr = trace(lambda: model(sample), reps=3, top=8)
+    share = (search_ms + contact_ms) / first_ms
+    print(f"  device {tr['device_ms_per_step']:.3f} ms a step in "
+          f"{tr['kernel_launches_per_step']} launches, busy share "
+          f"{tr['device_busy_share']:.3f} of "
+          f"{tr['profiled_ms_per_step']:.3f} ms; searches + contact count "
+          f"{search_ms + contact_ms:.1f} ms of the first step's "
+          f"{first_ms:.1f} ({share:.3f})")
+    for r in tr["top_kernels"]:
+        print(f"    {r['device_us_per_step']:10.1f} us "
+              f"{r['calls_per_step']:6d}x  {r['name'][:90]}")
+    lazy = lazy_dense_check(root, dev)
+    return {"step": step, "launches": launches, "result": res,
+            "worst_excess": worst, "searches": searches, "lost": lost,
+            "occ_exact": wide,
+            "search_ms": search_ms, "contact_ms": contact_ms,
+            "first_ms": first_ms, "trace": {k: tr[k] for k in (
+                "device_ms_per_step", "device_busy_share",
+                "profiled_ms_per_step")}, "lazy": lazy}
+
+
+def lazy_dense_check(root, dev):
+    """Lazy dense pairs on the card: the WaterRamps bench step at
+    "highest" with ``dense_lazy_min_elems`` 1 against the eager dense step
+    (equal bit for bit at the lazy conv's source chunk of 512; within 1e-5
+    of the correction's max unchunked: sums in another order)."""
+    import yaml
+
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+    with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
+        cfg = dict(yaml.safe_load(f)["model"], precision="highest")
+    sample = bench_sample(*build_scene(), device=dev)
+    outs = {}
+    for name, over in (("lazy", dict(dense_lazy_min_elems=1)),
+                       ("eager512", dict(dense_n_chunk_eval=512)),
+                       ("eager", {})):
+        m = build_model(dict(cfg, **over), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            outs[name] = m(sample)
+    lz, e5, e = (outs[k][2]["pos_correction"] for k in ("lazy", "eager512",
+                                                        "eager"))
+    scale = float(e.abs().max())
+    diff = float((lz - e).abs().max())
+    bitwise = torch.equal(lz, e5) and torch.equal(outs["lazy"][0],
+                                                  outs["eager512"][0])
+    print(f"  lazy dense pairs (WaterRamps, highest): = eager at chunk 512 "
+          f"bit for bit {bitwise}; vs eager unchunked {diff:.3e} of max "
+          f"{scale:.3e} (tol {1e-5 * scale:.3e})")
+    check(bitwise, "lazy = eager (chunk 512) bit for bit")
+    check(scale > 0 and diff <= 1e-5 * scale, "lazy vs eager unchunked")
+    return {"bitwise": bitwise, "diff": diff, "scale": scale}
+
+
+def inflow_phase(root, dev):
+    """Phase 20: ``run_sample`` in the inflow regime of the root script's
+    demo: ``configs/Liquid3d.yml`` with its shipped budgets and a crop of
+    65536 on ``canyon_frame``'s scene with the block, the emitter,
+    INFLOW_HEIGHT up (each event re-emits it where it started; on the
+    floor it would overlap the fluid that has not yet left), INFLOW_STEPS
+    steps with an inflow event every INFLOW_EVERY (each adds the
+    1,280-particle block), the canyon velocity boost; the report printed,
+    whether the rollout was exact (not gated: random weights may let the
+    poured fluid fall into the floor) and at which pairs it dropped
+    neighbours, active rows counted, launches counted, peak memory."""
+    import yaml
+
+    from dmcf_tpu_torch.bench import CANYON_BOOST
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.run_sample import run_sample
+    from dmcf_tpu_torch.scene import canyon_frame
+
+    with open(os.path.join(root, "configs", "Liquid3d.yml")) as f:
+        cfg = dict(yaml.safe_load(f)["model"], boundary_crop_max=INFLOW_CROP)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    frame = canyon_frame(height=INFLOW_HEIGHT)
+    n0 = len(frame["pos"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                # the run_sample path starts here
+    frames, report = run_sample(
+        model, frame, INFLOW_STEPS + 1, inflow=INFLOW_STEPS,
+        inflow_every=INFLOW_EVERY, chunk=INFLOW_EVERY, vel=CANYON_BOOST,
+        device=dev, log=lambda m: print(f"  {m}"))
+    launches = counts()[:2]      # and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    active = (np.abs(frames[:, :, 0]) < 500.0).sum(1).tolist()
+    events = [t for t in range(INFLOW_STEPS)
+              if t % INFLOW_EVERY == INFLOW_EVERY - 1]
+    want = [n0] + [n0 * (1 + sum(e <= t for e in events))
+                   for t in range(INFLOW_STEPS)]
+    over = {k: v for k, v in report["pair_overflow_detail"].items()
+            if v > 0}
+    print(f"  {report['ms_per_step']:.3f} ms/step, peak memory allocated "
+          f"{peak / 2 ** 30:.3f} GiB, capacity {report['capacity']}, active "
+          f"rows a frame {sorted(set(active))}, launches {launches}")
+    exact = not over and report["max_neighbors"] <= report["neighbor_k"]
+    print(f"  exact: {exact} (pair_overflow {report['pair_overflow']}, "
+          f"max_neighbors {report['max_neighbors']} of K "
+          f"{report['neighbor_k']}, finest-radius window overflow "
+          f"{report['cell_overflow']}, in contact "
+          f"{report['boundary_crop_count']} of crop "
+          f"{report['boundary_crop_max']})" + (
+              f"; the rollout drops neighbours at pairs {over}" if over
+              else ""))
+    check(active == want, f"active rows {active} != {want}")
+    check(report["n_active"][-1] == n0 * (1 + len(events)),
+          "1,280 rows an inflow event")
+    check(bool(np.isfinite(frames).all()), "finite run_sample frames")
+    check(min(launches) > 0 and all(x % INFLOW_STEPS == 0
+                                    for x in launches),
+          f"run_sample launches {launches}")
+    check(report["boundary_crop_count"] <= INFLOW_CROP,
+          "run_sample's crop holds every in-contact boundary row")
+    report.pop("box")
+    return {"launches": launches, "peak_bytes": peak, "report": report,
+            "exact": exact}
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -1709,25 +2163,9 @@ def main(argv):
               f" share of bound {b_ms / ms:.3f} (of device time "
               f"{b_ms / d_ms:.3f})")
 
-    phase("7 small scene: card vs plain path on the CPU (bf16 trunk)")
-    small = build_scene(256)
-    s_gpu = bench_sample(*small, device=dev)
-    s_cpu = bench_sample(*small, device="cpu")
-    cpu_model = copy.deepcopy(model).to("cpu")
-    with torch.no_grad():
-        pg, vg, ag = model(s_gpu)
-        pc, vc, ac = cpu_model(s_cpu)
-    pcg = ag["pos_correction"].cpu()
-    pcc = ac["pos_correction"]
-    scale = float(pcc.abs().max())
-    diff = float((pcg - pcc).abs().max())
-    print(f"pos_correction max {scale:.3e}, card vs CPU max diff "
-          f"{diff:.3e} (tol {1e-4 * scale:.3e}); positions max diff "
-          f"{float((pg.cpu() - pc).abs().max()):.3e} (tol 1e-6)")
-    check(scale > 0 and diff <= 1e-4 * scale,
-          f"card vs CPU pos_correction {diff} <= 1e-4 * {scale}")
-    check(torch.allclose(pg.cpu(), pc, atol=1e-6, rtol=0),
-          "card vs CPU positions within 1e-6")
+    phase("7 small scene: card vs plain path on the CPU (bf16 trunk), "
+          "one-step bf16 flips of T counted apart")
+    small_scene_phase(model, dev)
 
     phase("8 where a step's time goes (bf16 trunk)")
     print_report(profile(steps=10), top=12)
@@ -1785,6 +2223,15 @@ def main(argv):
           f"{BASELINE_STEPS}-step rollouts, card vs CPU")
     baselines = baselines_phase(root, dev, max_err)
 
+    phase(f"19 the canyon protocol: a generated scene of the canyon's size,"
+          f" crop {CANYON_CROP}, {CANYON_STEPS}-step timed rollout; lazy "
+          f"dense pairs")
+    canyon = canyon_phase(root, dev, max_err)
+
+    phase(f"20 run_sample, inflow regime: {INFLOW_STEPS} steps, an event "
+          f"every {INFLOW_EVERY}, crop {INFLOW_CROP}")
+    inflow = inflow_phase(root, dev)
+
     pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
         "(pallas_continuous_conv)"
     vjp = "none (no TPU kernel): the VJP of dmcf_tpu/ops/cconv.py:173 " \
@@ -1816,6 +2263,9 @@ def main(argv):
                                 for v in wbc.values()),
             "baseline_launches": {k: v["launches"][int(half)]
                                   for k, v in baselines.items()},
+            "canyon_launches_per_step": canyon["step"][int(half)],
+            "canyon_rollout_launches": canyon["launches"][int(half)],
+            "run_sample_launches": inflow["launches"][int(half)],
             "max_abs_err": max_err[half],
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
@@ -1892,6 +2342,12 @@ def main(argv):
           f"dropped a scale {liquid['dropped']}), train step "
           f"{liquid['train']['seconds']:.3f} s, peak "
           f"{liquid['train']['peak_bytes'] / 2 ** 30:.3f} GiB")
+    print(f"canyon: {canyon['result']['ms_per_step']:.3f} ms/step "
+          f"({CANYON_STEPS} steps), device {canyon['trace']} ; run_sample "
+          f"inflow {inflow['report']['ms_per_step']:.3f} ms/step, peak "
+          f"{inflow['peak_bytes'] / 2 ** 30:.3f} GiB, exact "
+          f"{inflow['exact']} (pair_overflow "
+          f"{inflow['report']['pair_overflow']})")
     print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "
           f"fp32 {1e3 * dt32 / FP32_STEPS:.3f} ms/step ({FP32_STEPS} "
           f"steps)")

@@ -2,7 +2,7 @@
 ``bench.py``, which drives the JAX package):
 
     python -m dmcf_tpu_torch.bench [--device cuda|cpu] [--steps N]
-                                   [--n_fluid N]
+                                   [--n_fluid N] [--canyon SCENE]
 
 Builds the SymNet of ``configs/WaterRamps.yml`` at full width and depth
 (weights from a ``torch.Generator`` seeded 0) on the bench scene
@@ -15,10 +15,17 @@ config's, "default", a bf16 trunk) and the voxel pyramid's fit
 the exactness gate fails (a conv dropped an in-radius neighbour somewhere
 in the rollout); as in the root bench, that gate alone decides.
 
-Fields that are the TPU bench's own are null here: ``canyon`` (its scene
-file is not in the repository), ``flops_per_step`` (XLA's cost analysis
-of the compiled step has no counterpart for an eager PyTorch step) and
-``mfu_pct`` (computed against a TPU peak).  ``vs_baseline`` keeps the root
+``--canyon`` names a canyon scene (msgpack.zst; frame 0 is read): the
+root bench's canyon protocol (``bench_canyon``: ``configs/Liquid3d.yml``
+with ``CANYON_OVERRIDES`` and a contact crop of 8192, velocity boost
+[2, 0, -1.2], a warm-up rollout and a timed one of 5 steps each)
+then fills ``detail.canyon`` and its gate (no pair overflow, the
+finest-radius count within K, the in-contact boundary within the crop)
+is folded into ``exact``; without it ``canyon`` is null (the canyon file
+is not in the repository).  Fields that are the TPU bench's own are null
+here: ``flops_per_step`` (XLA's cost analysis of the compiled step has no
+counterpart for an eager PyTorch step) and ``mfu_pct`` (computed against
+a TPU peak).  ``vs_baseline`` keeps the root
 bench's documented anchor of 20 steps/s for the reference on this scene
 class (an estimate, not a measurement).  ``--device`` defaults to cuda and
 raises without a GPU.
@@ -59,6 +66,83 @@ def timed_rollout(model, sample, steps):
     return pos, vel, gate, time.time() - t0
 
 
+# the root bench's canyon sizing: crop 8192 and scale capacities / pair
+# budgets re-sized to the canyon contact set's measured occupancy (root
+# bench.py, CANYON_OVERRIDES); the shipped YAML keeps the inflow regime's
+# larger budgets
+CANYON_OVERRIDES = {
+    "scale_size_factor": [1.0, 1.35, 0.42],
+    "neighbor_k_pairs": [[96, 288, 1408], [288, 288, 1312],
+                         [320, 320, 288]],
+    "conv_k_chunk": 0,
+}
+CANYON_BOOST = [2.0, 0.0, -1.2]
+CANYON_CONFIG = os.path.join(os.path.dirname(CONFIG), "Liquid3d.yml")
+
+
+def canyon_model(crop=8192, device="cuda"):
+    """``configs/Liquid3d.yml`` with the canyon protocol's crop and
+    overrides, weights from a ``torch.Generator`` seeded 0."""
+    import yaml
+
+    from .models import build_model
+
+    with open(CANYON_CONFIG) as f:
+        cfg = yaml.safe_load(f)["model"]
+    cfg["boundary_crop_max"] = crop
+    cfg.update(CANYON_OVERRIDES)
+    return build_model(cfg, device=device,
+                       generator=torch.Generator().manual_seed(0))
+
+
+def bench_canyon(frame0, steps=5, crop=8192, device="cuda", model=None):
+    """The root bench's canyon protocol (``bench.py:bench_canyon``) on a
+    scene's frame 0 (a dict of numpy ``pos``, ``vel``, ``box``,
+    ``box_normals``): ``canyon_model(crop)`` (or ``model``), the fluid
+    boosted by CANYON_BOOST in rows rounded up to 128, one untimed rollout
+    of ``steps`` steps, then the timed one.  Returns the detail dict, its
+    gate over the timed steps included."""
+    from . import resolve_device
+    from .run_sample import scene_sample
+
+    device = resolve_device(device)
+    if model is None:
+        model = canyon_model(crop, device)
+    sample, pos0, _, box = scene_sample(model, frame0, vel=CANYON_BOOST,
+                                        device=device, log=lambda s: None)
+    timed_rollout(model, sample, steps)               # warm-up
+    p, _, gate, dt = timed_rollout(model, sample, steps)
+    fm = sample["fluid_mask"]
+    return {
+        "ms_per_step": 1000.0 * dt / steps,
+        "steps_per_sec": steps / dt,
+        "steps": steps,
+        "n_fluid": int(pos0.shape[0]),
+        "n_boundary": int(box.shape[0]),
+        "boundary_crop": int(model.boundary_crop_max),
+        # the in-contact boundary (max over the timed steps) must stay
+        # within the crop, or the crop dropped coupled boundary
+        "boundary_contact_count": gate.get("boundary_crop_count", 0),
+        "cell_overflow": gate.get("cell_overflow"),
+        "overrides": CANYON_OVERRIDES,
+        "finite": bool(torch.isfinite(p[fm]).all()),
+        "max_neighbors": gate["max_neighbors"],
+        "neighbor_k": gate["neighbor_k"],
+        "pair_overflow": gate["pair_overflow"],
+        "pair_excess": gate["pair_excess"],
+        "scale_counts": gate["scale_counts"],
+        "scale_caps": gate["scale_caps"],
+    }
+
+
+def canyon_exact(canyon):
+    """The canyon protocol's part of the bench's gate (root
+    ``bench.py:308-315``)."""
+    return (canyon["pair_overflow"] <= 0
+            and canyon["max_neighbors"] <= canyon["neighbor_k"]
+            and canyon["boundary_contact_count"] <= canyon["boundary_crop"])
+
+
 def card():
     """The card's name and power limit as nvidia-smi reports them."""
     return subprocess.run(
@@ -67,8 +151,9 @@ def card():
         check=True).stdout.strip().splitlines()[0]
 
 
-def run(device="cuda", steps=HORIZON, n_fluid=2304):
-    """Build, warm up and time the bench rollout; returns the result dict
+def run(device="cuda", steps=HORIZON, n_fluid=2304, canyon=None):
+    """Build, warm up and time the bench rollout, and the canyon protocol
+    where ``canyon`` (a scene's frame 0) is given; returns the result dict
     (the JSON line's fields)."""
     import yaml
 
@@ -90,6 +175,10 @@ def run(device="cuda", steps=HORIZON, n_fluid=2304):
         model(sample)                                 # warm-up step
     p, _, gate, dt = timed_rollout(model, sample, steps)
     fm = sample["fluid_mask"]
+    exact = gate["exact"]
+    if canyon is not None:
+        canyon = bench_canyon(canyon, device=device)
+        exact = exact and canyon_exact(canyon)
     # the ratio of the printed value, so that the line agrees with itself
     # (rounding the rate first can move the ratio's last digit)
     steps_per_sec = round(steps / dt, 2)
@@ -99,7 +188,7 @@ def run(device="cuda", steps=HORIZON, n_fluid=2304):
         "unit": "steps/s",
         "vs_baseline": round(steps_per_sec / REFERENCE_STEPS_PER_SEC, 2),
         "detail": {
-            "exact": gate["exact"],
+            "exact": exact,
             "horizon": steps,
             "n_fluid": int(pos.shape[0]),
             "n_boundary": int(box.shape[0]),
@@ -123,7 +212,7 @@ def run(device="cuda", steps=HORIZON, n_fluid=2304):
             "scale_counts": gate["scale_counts"],
             "scale_caps": gate["scale_caps"],
             "scales_fit": gate["scales_fit"],
-            "canyon": None,
+            "canyon": canyon,
         },
     }
 
@@ -135,7 +224,11 @@ def main(argv):
         else HORIZON
     n_fluid = int(argv[argv.index("--n_fluid") + 1]) if "--n_fluid" in argv \
         else 2304
-    result = run(device, steps, n_fluid)
+    canyon = None
+    if "--canyon" in argv:
+        from .data import read_msgpack_zst
+        canyon = read_msgpack_zst(argv[argv.index("--canyon") + 1])[0]
+    result = run(device, steps, n_fluid, canyon=canyon)
     print(json.dumps(result), flush=True)
     d = result["detail"]
     if not d["exact"]:

@@ -41,7 +41,7 @@ class CConv(PBFNet):
         nl = ctx["cache"].get("fluid_only", "fluid_only", ext / 2.0, pos,
                               mask, pos, mask)
         if self.ignore_query_points:
-            nl = drop_coincident(nl)
+            nl = drop_coincident(nl, pos, pos)
 
         ans = feats
         for conv, dense in zip(self.convs, self.denses):

@@ -5,7 +5,9 @@ A grid of convs ``layer_channels[layer][scale][conv_idx]``: each layer
 computes every output scale from every input scale (the coarser scale's
 radius), merged by sum or concat.  Same-scale and upsampling pairs use
 K-list neighbor lists; pairs whose K budget reaches ``dense_pair_min_k``
-(the downsampling pairs of WaterRamps) run densely over all source points.
+(the downsampling pairs of WaterRamps) run densely over all source points,
+and where the pair's Q*N reaches ``dense_lazy_min_elems`` without keeping
+the [Q, N] field (``LazyDensePair``).
 """
 
 from __future__ import annotations
@@ -60,26 +62,26 @@ class HRNet(PBFNet):
     def _pair_neighbors(self, ctx, inp_scale, out_scale, radius,
                         ignore_query=False):
         """Cached neighbor structure for a scale pair: a DensePair when the
-        pair's K budget reaches ``dense_pair_min_k``, else a NeighborList."""
+        pair's K budget reaches ``dense_pair_min_k`` (a LazyDensePair where
+        its Q*N reaches ``dense_lazy_min_elems``), else a NeighborList."""
         dpos, dmask = ctx["dilated_pos"], ctx["dilated_mask"]
         if (0 < self.dense_pair_min_k
                 <= self.k_for_pair(inp_scale, out_scale)
                 and not ignore_query):
             n = dpos[inp_scale].shape[0]
             q = dpos[out_scale].shape[0]
-            if q * n >= self.dense_lazy_min_elems:
-                raise NotImplementedError(
-                    "lazy dense pairs (Q*N >= dense_lazy_min_elems) are not "
-                    "ported yet")
             return ctx["cache"].get_dense(
                 f"dilated{inp_scale}", f"dilated{out_scale}", radius,
                 dpos[inp_scale], dmask[inp_scale], dpos[out_scale],
-                dmask[out_scale])
+                dmask[out_scale], lazy=q * n >= self.dense_lazy_min_elems)
         nl = ctx["cache"].get(
             f"dilated{inp_scale}", f"dilated{out_scale}", radius,
             dpos[inp_scale], dmask[inp_scale], dpos[out_scale],
-            dmask[out_scale], k=self.k_for_pair(inp_scale, out_scale))
-        return drop_coincident(nl) if ignore_query else nl
+            dmask[out_scale], occ_cap=self.occ_for_radius(radius),
+            k=self.k_for_pair(inp_scale, out_scale))
+        if ignore_query:
+            nl = drop_coincident(nl, dpos[inp_scale], dpos[out_scale])
+        return nl
 
     def net_forward(self, ctx, data, training=False):
         pos = ctx["dilated_pos"]

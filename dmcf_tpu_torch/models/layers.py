@@ -15,8 +15,8 @@ import torch
 from torch import nn
 
 from ..ops.cconv import (build_symmetric_kernel, continuous_conv,
-                         continuous_conv_dense)
-from ..ops.neighbors import DensePair, NeighborList
+                         continuous_conv_dense, continuous_conv_dense_lazy)
+from ..ops.neighbors import DensePair, LazyDensePair, NeighborList
 
 
 def _uniform(shape, scale, generator, device):
@@ -29,8 +29,10 @@ class ContinuousConv(nn.Module):
 
     Dispatches on the neighbor structure: a ``NeighborList`` runs the
     K-list conv (the hand-written kernel on CUDA), a ``DensePair`` the
-    dense plain-PyTorch conv.  ``precision`` is the ops' ("highest" fp32,
-    None / "default" JAX's bf16 contraction, which has no symmetric form).
+    dense plain-PyTorch conv, a ``LazyDensePair`` the same a source chunk
+    at a time (``n_chunk``, 512 where 0).  ``precision`` is the ops'
+    ("highest" fp32, None / "default" JAX's bf16 contraction, which has no
+    symmetric form).
 
     ``k_chunk`` > 0 splits a K-list conv whose K exceeds it into chunks of
     ``k_chunk`` slots, as the reference does where the conv builds its
@@ -41,8 +43,8 @@ class ContinuousConv(nn.Module):
     and the chunk outputs are summed in fp32 in chunk order.  At the
     default precision each chunk rounds its T to bf16 on its own, so the
     chunked conv is not bit for bit the unchunked one, in either package.
-    Not ported in this slice (raise): ``circular`` kernels, lazy dense
-    pairs, ``inp_importance``.
+    Not ported in this slice (raise): ``circular`` kernels,
+    ``inp_importance``.
     """
 
     def __init__(self, in_channels: int, filters: int,
@@ -93,10 +95,19 @@ class ContinuousConv(nn.Module):
         """``cached_taps``: the K-list conv computes what the reference's
         conv over a model-cached tap tensor does (``ops.cconv``)."""
         kernel = self.full_kernel()
-        if isinstance(neighbors, DensePair):
-            if self.symmetric or self.normalize:
-                raise ValueError(
-                    "dense conv path covers plain trunk convs only")
+        if isinstance(neighbors, (DensePair, LazyDensePair)) and (
+                self.symmetric or self.normalize):
+            raise ValueError("dense conv path covers plain trunk convs only")
+        if isinstance(neighbors, LazyDensePair):
+            lp = neighbors
+            out = continuous_conv_dense_lazy(
+                kernel, lp.src_pos, lp.src_mask, lp.dst_pos, lp.dst_mask,
+                lp.radius, inp_features, window_fn=self.window_function,
+                coordinate_mapping=self.coordinate_mapping,
+                interpolation=self.interpolation,
+                align_corners=self.align_corners, n_chunk=n_chunk,
+                precision=self.precision)
+        elif isinstance(neighbors, DensePair):
             a = neighbors.valid.to(inp_features.dtype)
             if self.window_function is not None:
                 a = a * torch.where(neighbors.valid,
@@ -142,6 +153,7 @@ def _k_slice(nl: NeighborList, start, stop) -> NeighborList:
     return NeighborList(
         idx=nl.idx[:, start:stop], mask=nl.mask[:, start:stop],
         dist=nl.dist[:, start:stop], count=nl.count,
+        cell_overflow=nl.cell_overflow,
         disp=None if nl.disp is None else nl.disp[:, start:stop])
 
 

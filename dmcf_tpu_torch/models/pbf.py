@@ -5,7 +5,12 @@ A sample is padded fluid/boundary tensors with validity masks; padded
 particles sit at far sentinel positions and every op is mask-exact.  One
 neighbor search per (point-set pair, radius) per step is shared by every
 conv through ``SearchCache``; the scale-0 all->all search also serves the
-fluid->all and box->all convs by subsetting.
+fluid->all and box->all convs by subsetting.  Large scenes: ``search_method``
+picks the search ('auto': the cell search past N*Q = 3e7, its window budget
+from ``cell_occ_cap``), ``boundary_crop_max`` compacts the boundary in
+contact with the fluid into that many slots before any search, and HRNet's
+dense pairs past ``dense_lazy_min_elems`` rebuild their geometry a source
+chunk at a time (``LazyDensePair``).
 
 Left out on purpose: the reference's batched pair prefetch and tap-tensor
 caching are TPU launch-count devices that give bitwise-identical lists
@@ -37,7 +42,9 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..ops.neighbors import DensePair, NeighborList, search
+from ..ops.cconv import dense_geometry
+from ..ops.neighbors import (DensePair, LazyDensePair, NeighborList,
+                             search, select_k_valid)
 from ..ops.sph import align_vector, get_dilated_pos, masked_positions
 from ..ops.windows import get_window_func
 from ..kernels.cconv_klist import is_bf16
@@ -52,13 +59,19 @@ def subset_neighbors(nl: NeighborList, keep) -> NeighborList:
         idx=torch.where(mask, nl.idx, 0), mask=mask,
         dist=torch.where(mask, nl.dist, 0.0),
         count=mask.sum(dim=1, dtype=torch.int32),
-        disp=torch.where(mask[..., None], nl.disp, 0.0))
+        disp=None if nl.disp is None else
+        torch.where(mask[..., None], nl.disp, 0.0))
 
 
-def drop_coincident(nl: NeighborList) -> NeighborList:
+def drop_coincident(nl: NeighborList, points=None,
+                    queries=None) -> NeighborList:
     """The ``ignore_query_point`` variant of a neighbor list: drops slots
-    whose displacement is exactly zero (coincident positions)."""
-    same = nl.mask & (nl.disp == 0.0).all(dim=-1)
+    whose neighbour sits exactly on the query (zero displacement, or, where
+    the search kept no ``disp``, equal ``points[idx]`` and ``queries``)."""
+    if nl.disp is not None:
+        same = nl.mask & (nl.disp == 0.0).all(dim=-1)
+    else:
+        same = (points[nl.idx.long()] == queries[:, None, :]).all(dim=-1)
     return subset_neighbors(nl, lambda idx, dist: ~same)
 
 
@@ -66,40 +79,41 @@ class SearchCache:
     """One fixed-radius search per (src, dst, radius) per step, and one
     dense pair field per (src, dst, radius), shared by every conv."""
 
-    def __init__(self, k: int, method: str = "auto"):
+    def __init__(self, k: int, method: str = "auto", occ_cap: int = 128):
         self.k = k
         self.method = method
+        self.occ_cap = occ_cap
         self._cache: Dict[Tuple, object] = {}
 
     def get_dense(self, src_name, dst_name, radius, points, pmask, queries,
-                  qmask) -> DensePair:
+                  qmask, lazy=False):
+        """The pair's DensePair, or with ``lazy`` a LazyDensePair that
+        holds the point sets only (``ops.cconv.continuous_conv_dense_lazy``
+        rebuilds the field a source chunk at a time)."""
         key = ("dense", src_name, dst_name, float(radius))
         if key not in self._cache:
-            r = torch.tensor(float(radius), dtype=points.dtype,
-                             device=points.device)
-            rel = points[None, :, :] - queries[:, None, :]  # [Q, N, 3]
-            d2 = (rel * rel).sum(dim=-1)
-            r2 = r * r
-            valid = ((d2 <= r2) & pmask[None, :].bool()
-                     & qmask[:, None].bool())
-            # invalid pairs pinned to harmless geometry just outside the
-            # ball (padded rows sit at 1e8 sentinels); masks, not
-            # distances, keep them out
-            rel = torch.where(valid[..., None], rel * (1.0 / r), 1.0)
-            qnorm = torch.where(valid, d2 * (1.0 / r2), 2.0)
-            self._cache[key] = DensePair(
-                rel=rel, qnorm=qnorm, valid=valid,
-                count=valid.sum(dim=1, dtype=torch.int32))
+            if lazy:
+                self._cache[key] = LazyDensePair(
+                    src_pos=points, src_mask=pmask.bool(), dst_pos=queries,
+                    dst_mask=qmask.bool(), radius=float(radius))
+            else:
+                rel, qnorm, valid = dense_geometry(points, pmask, queries,
+                                                   qmask, radius)
+                self._cache[key] = DensePair(
+                    rel=rel, qnorm=qnorm, valid=valid,
+                    count=valid.sum(dim=1, dtype=torch.int32))
         return self._cache[key]
 
     def get(self, src_name, dst_name, radius, points, pmask, queries, qmask,
-            k=None) -> NeighborList:
+            occ_cap=None, k=None) -> NeighborList:
         key = (src_name, dst_name, float(radius))
         if key not in self._cache:
             self._cache[key] = search(
                 points, queries, radius, k or self.k, method=self.method,
-                points_mask=pmask, queries_mask=qmask)
+                points_mask=pmask, queries_mask=qmask,
+                occ_cap=occ_cap or self.occ_cap)
         return self._cache[key]
+
 
 
 class PBFNet(nn.Module):
@@ -123,6 +137,7 @@ class PBFNet(nn.Module):
         transpose_search_reuse=False, conv_k_chunk=0, dense_pair_min_k=0,
         dense_n_chunk=0, dense_n_chunk_eval=None,
         dense_lazy_min_elems=1 << 24, boundary_crop_max=0,
+        boundary_crop_mode="contact", cell_occ_cap=None,
         scale_size_factor=1.0, search_method="auto", precision="default",
         # the reference caches a pair's taps up to this many elements
         # (``pbf.py:498``, a TPU memory knob no shipped config sets); a
@@ -167,7 +182,6 @@ class PBFNet(nn.Module):
             "dens_feats": self.dens_feats,
             "dens_norm": self.dens_norm,
             "pres_feats": self.pres_feats,
-            "boundary_crop_max > 0": self.boundary_crop_max > 0,
             "voxel_size: None (FPS pyramid)": self.voxel_size is None
             and any(st != 1 for st in self.strides),
             "use_feats": self.use_feats,
@@ -230,6 +244,43 @@ class PBFNet(nn.Module):
             return self.dense_n_chunk
         return (self.dense_n_chunk_eval
                 if self.dense_n_chunk_eval is not None else 0)
+
+    def occ_for_radius(self, radius):
+        """The cell search's window budget for a search radius
+        (``cell_occ_cap``: scalar, or per scale by the nearest particle
+        radius; None = 48 at the finest radius, 128 at the others)."""
+        caps = self.cell_occ_cap
+        if caps is None:
+            caps = [48] + [128] * max(len(self._radii) - 1, 0)
+        if not isinstance(caps, (list, tuple)):
+            return int(caps)
+        idx = int(np.argmin([abs(float(radius) - r) for r in self._radii]))
+        return int(caps[min(idx, len(caps) - 1)])
+
+    def _crop_boundary(self, pos, fluid_mask, box, bfeats, box_mask, ext):
+        """Compact the boundary into ``boundary_crop_max`` slots.  Mode
+        "contact": the boundary within ``ext`` of some fluid particle, the
+        most-contacted first (a stable sort, ties to the lower row, as the
+        reference's ``argsort(-w)``), so the slots' order is the
+        reference's; mode "aabb": the boundary in the fluid's box grown by
+        ``ext``, the first by row.  Returns (box, bfeats, mask, count of
+        boundary in contact or in range)."""
+        k = self.boundary_crop_max
+        if self.boundary_crop_mode == "contact":
+            from ..ops.cell_search import contact_weight_dense
+            w = contact_weight_dense(pos, box, ext, points_mask=fluid_mask,
+                                     queries_mask=box_mask)
+            idx = torch.argsort(-w, stable=True)[:k]
+            mask = w[idx] > 0
+            count = (w > 0).sum(dtype=torch.int32)
+        else:
+            fm = fluid_mask[:, None]
+            lo = torch.where(fm, pos, torch.inf).amin(dim=0) - ext
+            hi = torch.where(fm, pos, -torch.inf).amax(dim=0) + ext
+            in_range = box_mask & ((box >= lo) & (box <= hi)).all(dim=-1)
+            idx, mask, _, count = select_k_valid(in_range[None, :], None, k)
+            idx, mask, count = idx[0].long(), mask[0], count[0]
+        return box[idx], bfeats[idx], mask, count
 
     def k_for_pair(self, inp_scale, out_scale):
         """Neighbor budget for a trunk conv from ``inp_scale`` to
@@ -357,11 +408,16 @@ class PBFNet(nn.Module):
         r0 = self._radii[0]
 
         pos = masked_positions(pos, fluid_mask)
+        crop_count = None
+        if 0 < self.boundary_crop_max < box.shape[0]:
+            box, bfeats, box_mask, crop_count = self._crop_boundary(
+                pos, fluid_mask, box, bfeats, box_mask, filter_extent[-1])
         box_pos = masked_positions(box, box_mask)
         all_pos = torch.cat([pos, box_pos], dim=0)
         all_mask = torch.cat([fluid_mask, box_mask], dim=0)
 
-        cache = SearchCache(self.neighbor_k, method=self.search_method)
+        cache = SearchCache(self.neighbor_k, method=self.search_method,
+                            occ_cap=self.occ_for_radius(self._radii[-1]))
 
         # the pyramid is built over every particle, or over the fluid alone
         # without ``use_bnds``
@@ -389,7 +445,7 @@ class PBFNet(nn.Module):
         # scale-0 convs and the ASCC layer
         name0 = "dilated0" if self.use_bnds else "all"
         nl_all0 = cache.get(name0, name0, r0, all_pos, all_mask, all_pos,
-                            all_mask)
+                            all_mask, occ_cap=self.occ_for_radius(r0))
         nl_fluid0 = subset_neighbors(nl_all0, lambda i, d: i < n_fluid)
         nl_box0 = subset_neighbors(nl_all0, lambda i, d: i >= n_fluid)
 
@@ -421,8 +477,11 @@ class PBFNet(nn.Module):
             # nl_box0 indexes all_pos (offset by n_fluid) while the features
             # are box rows: continuous_conv clamps the gather exactly as the
             # reference's JAX gather does (ROADMAP §3, obs_conv gather
-            # offset)
-            ans_obs = self.obs_conv(box_feats * self.part_scale, box_pos,
+            # offset).  Where the search kept no disp, the reference's
+            # geometry comes from its cached all->all taps (all_pos) or,
+            # past the tap cache, from box_pos by the same clamped gather
+            ans_obs = self.obs_conv(box_feats * self.part_scale,
+                                    all_pos if cached else box_pos,
                                     all_pos, ext0, nl_box0,
                                     cached_taps=cached)
             ans_dense = torch.cat([ans_dense, self.obs_dense(box_feats)],
@@ -432,6 +491,7 @@ class PBFNet(nn.Module):
 
         return {
             "cache": cache,
+            "boundary_crop_count": crop_count,
             "all_pos": all_pos,
             "all_mask": all_mask,
             "n_fluid": n_fluid,
@@ -450,10 +510,13 @@ class PBFNet(nn.Module):
         """Worst per-pair K-budget excess over every search of the step
         (> 0: a conv dropped in-radius neighbours), and each pair's.  Dense
         pairs cannot overflow: their detail entry is the always <= 0 margin
-        max true count - N."""
+        max true count - N; a lazy one has no field to reduce and no
+        entry."""
         dev = ctx["all_pos"].device
         excess, detail = [torch.zeros((), dtype=torch.int32, device=dev)], {}
         for ckey, nl in ctx["cache"]._cache.items():
+            if isinstance(nl, LazyDensePair):
+                continue
             if isinstance(nl, DensePair):
                 detail[f"{ckey[1]}>{ckey[2]}@{ckey[3]:g}(dense)"] = \
                     nl.count.max() - nl.valid.shape[1]
@@ -508,4 +571,8 @@ class PBFNet(nn.Module):
             "scale_caps": torch.tensor(ctx["dilated_caps"],
                                        dtype=torch.int32, device=dev),
         }
+        if nl_all0.cell_overflow is not None:
+            aux["cell_overflow"] = nl_all0.cell_overflow.max()
+        if ctx["boundary_crop_count"] is not None:
+            aux["boundary_crop_count"] = ctx["boundary_crop_count"]
         return pos_out, vel_out, aux

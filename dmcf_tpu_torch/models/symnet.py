@@ -47,7 +47,7 @@ class SymNet(HRNet):
         all_pos = ctx["all_pos"]
         all_mask = ctx["all_mask"]
         ext = ctx["filter_extent"][0]
-        nl = drop_coincident(ctx["nl_all0"])
+        nl = drop_coincident(ctx["nl_all0"], all_pos, all_pos)
         # the reference caches this pair's fp32 taps where they fit, and
         # then never chunks the conv over K (``layers.ContinuousConv``)
         cached = self.caches_taps(nl, self.sym_kernel_size)

@@ -15,7 +15,9 @@ CPU tensors the plain twin, which autograd differentiates.  Autograd
 carries the gradients of ``a`` and ``t`` back through the plain geometry
 into the positions.  ``continuous_conv_reference`` runs the
 same geometry into the plain twin on any device.  ``continuous_conv_dense``
-(every source point a candidate) is plain PyTorch in this slice.
+(every source point a candidate) and ``continuous_conv_dense_lazy`` (the
+same with the pair field rebuilt a source chunk at a time) are plain
+PyTorch.
 
 ``precision`` is the JAX package's: "highest" computes fp32 throughout
 (the default here, as in JAX's ``continuous_conv``); None or "default"
@@ -68,7 +70,9 @@ def klist_geometry(neighbors: NeighborList, extents, filter_size, *,
     if neighbors.disp is not None:
         rel = neighbors.disp * rel_scale
     else:
-        nbr_pos = inp_positions[idx.long()]
+        # clamped, as JAX's gather is (the obs_conv offset, ROADMAP §3)
+        nbr_pos = inp_positions[idx.long().clamp(0, inp_positions.shape[0]
+                                                 - 1)]
         rel = (nbr_pos - out_positions[:, None, :]) * rel_scale
     tz, ty, tx = compute_centered_filter_coordinates(
         rel, filter_size, coordinate_mapping, align_corners)
@@ -192,6 +196,43 @@ def _dense_T(rel, a, feats, filter_size, coordinate_mapping, interpolation,
     return A @ feats
 
 
+def dense_geometry(points, pmask, queries, qmask, radius):
+    """A dense pair's field (rel [Q, N, 3] scaled by 1/radius, qnorm
+    [Q, N], valid [Q, N]); the eager and the lazy dense paths both build it
+    here, so they agree bit for bit.  Invalid pairs are pinned to harmless
+    geometry just outside the ball (padded rows sit at 1e8 sentinels);
+    masks, not distances, keep them out."""
+    r = torch.tensor(float(radius), dtype=points.dtype,
+                     device=points.device)
+    rel = points[None, :, :] - queries[:, None, :]
+    d2 = (rel * rel).sum(dim=-1)
+    r2 = r * r
+    valid = (d2 <= r2) & pmask[None, :].bool() & qmask[:, None].bool()
+    rel = torch.where(valid[..., None], rel * (1.0 / r), 1.0)
+    qnorm = torch.where(valid, d2 * (1.0 / r2), 2.0)
+    return rel, qnorm, valid
+
+
+def _dense_conv(kernel, n, n_chunk, chunk_T, bf16):
+    """T summed over source slices of ``n_chunk`` (one slice unless
+    0 < n_chunk < n), ``chunk_T(slice)`` giving each slice's [Q, S, Cin]
+    part, then the filter product (T and W rounded to bf16 with
+    ``bf16``)."""
+    kz, ky, kx, cin, cout = kernel.shape
+    if 0 < n_chunk < n:
+        T = None
+        for start in range(0, n, n_chunk):
+            part = chunk_T(slice(start, start + n_chunk))
+            # a sum from zeros, as JAX's chunked scan carries it
+            T = torch.zeros_like(part) + part if T is None else T + part
+    else:
+        T = chunk_T(slice(0, n))
+    w = kernel.reshape(-1, cout)
+    if bf16:
+        T, w = round_bf16(T), round_bf16(w)
+    return T.reshape(T.shape[0], kz * ky * kx * cin) @ w
+
+
 def continuous_conv_dense(kernel, rel, a, inp_features, *,
                           coordinate_mapping="ball_to_cube_volume_preserving",
                           interpolation="linear", align_corners=True,
@@ -206,22 +247,38 @@ def continuous_conv_dense(kernel, rel, a, inp_features, *,
     bf16, the chunks' fp32 sums are added and T is rounded once, as JAX's
     chunked scan does).
     """
-    kz, ky, kx, cin, cout = kernel.shape
-    q, n = a.shape
-    fsz = (kz, ky, kx)
+    fsz = tuple(kernel.shape[:3])
     bf16 = is_bf16(precision)
-    if 0 < n_chunk < n:
-        T = torch.zeros((q, kz * ky * kx, cin), dtype=inp_features.dtype,
-                        device=inp_features.device)
-        for start in range(0, n, n_chunk):
-            sl = slice(start, start + n_chunk)
-            T = T + _dense_T(rel[:, sl], a[:, sl], inp_features[sl], fsz,
-                             coordinate_mapping, interpolation,
-                             align_corners, bf16)
-    else:
-        T = _dense_T(rel, a, inp_features, fsz, coordinate_mapping,
-                     interpolation, align_corners, bf16)
-    w = kernel.reshape(-1, cout)
-    if bf16:
-        T, w = round_bf16(T), round_bf16(w)
-    return T.reshape(q, kz * ky * kx * cin) @ w
+    return _dense_conv(
+        kernel, a.shape[1], n_chunk,
+        lambda sl: _dense_T(rel[:, sl], a[:, sl], inp_features[sl], fsz,
+                            coordinate_mapping, interpolation,
+                            align_corners, bf16), bf16)
+
+
+def continuous_conv_dense_lazy(kernel, src_pos, src_mask, dst_pos, dst_mask,
+                               radius, inp_features, *, window_fn=None,
+                               coordinate_mapping=
+                               "ball_to_cube_volume_preserving",
+                               interpolation="linear", align_corners=True,
+                               n_chunk: int = 512, precision="highest"):
+    """:func:`continuous_conv_dense` with the pair field rebuilt for each
+    ``n_chunk``-wide slice of the sources (512 where ``n_chunk`` <= 0), so
+    no [Q, N] array is kept: the reference's lazy dense conv.  Each slice's
+    field comes from ``dense_geometry`` as the eager DensePair's does, and
+    the slices are summed as the eager conv sums its chunks: equal bit for
+    bit to the eager conv at the same ``n_chunk``."""
+    fsz = tuple(kernel.shape[:3])
+    bf16 = is_bf16(precision)
+
+    def chunk_T(sl):
+        rel, qnorm, valid = dense_geometry(src_pos[sl], src_mask[sl],
+                                           dst_pos, dst_mask, radius)
+        a = valid.to(inp_features.dtype)
+        if window_fn is not None:
+            a = a * torch.where(valid, window_fn(qnorm), 0.0)
+        return _dense_T(rel, a, inp_features[sl], fsz, coordinate_mapping,
+                        interpolation, align_corners, bf16)
+
+    return _dense_conv(kernel, src_pos.shape[0],
+                       n_chunk if n_chunk > 0 else 512, chunk_T, bf16)

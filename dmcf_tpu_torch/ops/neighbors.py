@@ -1,11 +1,17 @@
 """Fixed-radius neighbor search with fixed-shape padded neighbor lists
-(port of dmcf_tpu/ops/neighbors.py, dense path).
+(port of dmcf_tpu/ops/neighbors.py).
 
-Conventions kept from the reference: membership by the expansion form
-``|q|^2 + |p|^2 - 2 q.p`` clamped at 0 in fp32; the first K valid points
-*by index* survive (not the nearest K); ``dist`` (squared) and ``disp``
-(``points[idx] - queries``) are recomputed from gathered positions and are
-0 on invalid slots; ``count`` is the true in-radius count before capping.
+Conventions kept from the reference.  The dense path (N <= ``fast_path_max``)
+tests membership by the expansion form ``|q|^2 + |p|^2 - 2 q.p`` clamped
+at 0 in fp32 and keeps the first K valid points *by index*; ``dist``
+(squared) and ``disp`` (``points[idx] - queries``) are recomputed from
+gathered positions and are 0 on invalid slots.  The chunked path (larger
+N) scans the points in chunks of direct-difference distances and keeps a
+running top-K of the nearest, ties to the lower index as
+``jax.lax.top_k`` breaks them; it returns no ``disp``.  ``count`` is the
+true in-radius count before capping.  ``search`` dispatches to the
+cell-list (``cell_search``) and hash-probe grid (``grid_search``) searches
+as the reference does.
 """
 
 from __future__ import annotations
@@ -30,6 +36,24 @@ class DensePair(NamedTuple):
     count: torch.Tensor
 
 
+class LazyDensePair(NamedTuple):
+    """Deferred-geometry form of :class:`DensePair` for large pairs: only
+    the two point sets; ``ops.cconv.continuous_conv_dense_lazy`` rebuilds
+    the pair field a source chunk at a time, so nothing [Q, N]-shaped is
+    kept.
+
+    src_pos/src_mask: [N, 3] / [N] source points and validity.
+    dst_pos/dst_mask: [Q, 3] / [Q] query points and validity.
+    radius: python float search/window radius.
+    """
+
+    src_pos: torch.Tensor
+    src_mask: torch.Tensor
+    dst_pos: torch.Tensor
+    dst_mask: torch.Tensor
+    radius: float
+
+
 class NeighborList(NamedTuple):
     """Padded fixed-K neighbor list.
 
@@ -37,14 +61,42 @@ class NeighborList(NamedTuple):
     mask:  [Q, K] bool validity.
     dist:  [Q, K] squared distance (0 where invalid).
     count: [Q] int32 true number of in-radius neighbors (before capping).
-    disp:  [Q, K, 3] ``points[idx] - queries`` (0 where invalid).
+    cell_overflow: [Q] int32 candidate slots a cell-structured search
+           (``cell_search``, ``grid_search``) dropped (> 0: neighbours may
+           be lost even where count <= K); None for the other searches.
+    disp:  [Q, K, 3] ``points[idx] - queries`` (0 where invalid); None
+           where the search did not keep it (chunked, cell, grid).
     """
 
     idx: torch.Tensor
     mask: torch.Tensor
     dist: torch.Tensor
     count: torch.Tensor
+    cell_overflow: Optional[torch.Tensor] = None
     disp: Optional[torch.Tensor] = None
+
+
+def sq_norm(d):
+    """Squared L2 norm over the last axis (of size 3), summed left to
+    right as XLA reduces it."""
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+        + d[..., 2] * d[..., 2]
+
+
+_GATHER_SLOTS = 1 << 24  # slots of one [Q, K, 3] gather in recompute_dist
+
+
+def recompute_dist(points, queries, idx, mask):
+    """Exact squared distance of each selected neighbour from gathered
+    positions (the reference's ``_recompute_dist``), 0 on invalid slots.
+    The [Q, K, 3] gather runs over slices of K of at most _GATHER_SLOTS
+    slots (values do not depend on it)."""
+    q, k = idx.shape
+    kc = max(_GATHER_SLOTS // max(q, 1), 8)
+    parts = [sq_norm(points[idx[:, s:s + kc].long()]
+                     - queries[:, None, :]) for s in range(0, k, kc)]
+    dist = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return torch.where(mask, dist, 0.0)
 
 
 def select_k_valid(valid, dist, k):
@@ -69,21 +121,22 @@ def select_k_valid(valid, dist, k):
 
 def fixed_radius_search(points, queries, radius, k, points_mask=None,
                         queries_mask=None, metric: str = "L2",
-                        ignore_query_point: bool = False,
+                        ignore_query_point: bool = False, chunk: int = 4096,
                         fast_path_max: int = 8192) -> NeighborList:
     """All points within ``radius`` of each query, capped at K per query
-    (squared-L2 comparison and distances).  Only the reference's dense
-    single-shot path (N <= ``fast_path_max``) is ported; the chunked
-    running-top-K path raises."""
+    (squared-L2 comparison and distances).  N <= ``fast_path_max``: the
+    dense single-shot path (the first K by index, exact-coincidence
+    ``ignore_query_point``); beyond it the chunked running top-K over
+    chunks of ``chunk`` points (the K nearest, ``ignore_query_point`` as
+    d > 0, no ``disp``)."""
     n = points.shape[0]
     if metric != "L2":
         raise NotImplementedError(f"metric {metric!r} is not ported yet")
-    if n > fast_path_max:
-        raise NotImplementedError(
-            "the chunked running-top-K search (N > fast_path_max) is not "
-            "ported yet")
     r = torch.tensor(float(radius), dtype=points.dtype, device=points.device)
     thresh = r * r  # squared in the working dtype, as the reference does
+    if n > fast_path_max:
+        return _chunked_search(points, queries, thresh, k, points_mask,
+                               queries_mask, ignore_query_point, chunk)
     pm = (torch.ones((n,), dtype=torch.bool, device=points.device)
           if points_mask is None else points_mask.to(torch.bool))
     qn = (queries * queries).sum(dim=-1)
@@ -104,21 +157,89 @@ def fixed_radius_search(points, queries, radius, k, points_mask=None,
                         disp=disp)
 
 
+def _chunked_search(points, queries, thresh, k, points_mask, queries_mask,
+                    ignore_query_point, chunk):
+    """The reference's chunked scan: per chunk of points the [Q, C]
+    direct-difference distances fold into a running top-K.  A stable sort
+    of the concatenated (kept, new) distances keeps the lower position on
+    ties, as ``lax.top_k`` does, so the kept set matches under overflow."""
+    n, q = points.shape[0], queries.shape[0]
+    dev = points.device
+    chunk = min(chunk, max(n, 1))
+    pm = (torch.ones((n,), dtype=torch.bool, device=dev)
+          if points_mask is None else points_mask.to(torch.bool))
+    best_d = torch.full((q, k), torch.inf, dtype=points.dtype, device=dev)
+    best_i = torch.zeros((q, k), dtype=torch.int32, device=dev)
+    count = torch.zeros((q,), dtype=torch.int32, device=dev)
+    for base in range(0, n, chunk):
+        # the last chunk is as wide as the others, its tail masked off, as
+        # the reference pads it (zero positions, invalid)
+        pts = points[base:base + chunk]
+        mask_c = pm[base:base + chunk]
+        if pts.shape[0] < chunk:
+            pad = chunk - pts.shape[0]
+            pts = torch.cat([pts, pts.new_zeros((pad, 3))])
+            mask_c = torch.cat([mask_c, mask_c.new_zeros((pad,))])
+        d = sq_norm(queries[:, None, :] - pts[None, :, :])  # [Q, C]
+        valid = (d <= thresh) & mask_c[None, :]
+        if ignore_query_point:
+            valid &= d > 0
+        count += valid.sum(dim=1, dtype=torch.int32)
+        cat_d = torch.cat([best_d, torch.where(valid, d, torch.inf)], dim=1)
+        idx_c = torch.arange(base, base + chunk, dtype=torch.int32,
+                             device=dev)
+        cat_i = torch.cat([best_i, idx_c.expand(q, chunk)], dim=1)
+        best_d, arg = torch.sort(cat_d, dim=1, stable=True)
+        best_d = best_d[:, :k].contiguous()
+        best_i = torch.gather(cat_i, 1, arg[:, :k])
+    mask = torch.isfinite(best_d)
+    if queries_mask is not None:
+        qm = queries_mask.to(torch.bool)
+        mask &= qm[:, None]
+        count = torch.where(qm, count, 0)
+    return NeighborList(idx=torch.where(mask, best_i, 0), mask=mask,
+                        dist=torch.where(mask, best_d, 0.0), count=count)
+
+
+def batched_fixed_radius_search(points, queries, radii, k, points_mask=None,
+                                queries_mask=None,
+                                metric: str = "L2") -> NeighborList:
+    """P stacked (points [P, N, 3], queries [P, Q, 3], radius) problems,
+    each through the dense path (the reference vmaps it with
+    ``fast_path_max`` = N): a NeighborList with a leading pair axis."""
+    p = points.shape[0]
+    nls = [fixed_radius_search(
+        points[i], queries[i], float(radii[i]), k,
+        points_mask=None if points_mask is None else points_mask[i],
+        queries_mask=None if queries_mask is None else queries_mask[i],
+        metric=metric, fast_path_max=points.shape[1]) for i in range(p)]
+    return NeighborList(*(torch.stack(f) if f[0] is not None else None
+                          for f in zip(*nls)))
+
+
 def search(points, queries, radius, k, *, method="auto", points_mask=None,
-           queries_mask=None, metric="L2", ignore_query_point=False):
-    """Dispatching fixed-radius search.  This port has the brute (dense)
-    method only: 'auto' picks it where the reference does (N*Q <= 3e7);
-    'cell'/'grid' and the larger problems the reference sends to them
-    raise ``NotImplementedError``."""
+           queries_mask=None, metric="L2", ignore_query_point=False,
+           cell_cap=32, planar_axis=None, occ_cap=128):
+    """Dispatching fixed-radius search, as the reference's: 'cell' (the
+    sorted-window cell list), 'grid' (the hash-probe cell list), 'brute'
+    (``fixed_radius_search``), or 'auto': the cell search where N*Q > 3e7,
+    else brute."""
     if method == "auto":
-        if points.shape[0] * queries.shape[0] > 3e7:
-            raise NotImplementedError(
-                "search(method='auto') at N*Q > 3e7 selects the cell "
-                "search, which is not ported yet")
-        method = "brute"
-    if method != "brute":
-        raise NotImplementedError(
-            f"search method {method!r} is not ported yet")
+        method = ("cell" if points.shape[0] * queries.shape[0] > 3e7
+                  else "brute")
+    if method == "cell":
+        from .cell_search import cell_fixed_radius_search
+        return cell_fixed_radius_search(
+            points, queries, radius, k, points_mask=points_mask,
+            queries_mask=queries_mask, metric=metric,
+            ignore_query_point=ignore_query_point, occ_cap=occ_cap)
+    if method == "grid":
+        from .grid_search import grid_fixed_radius_search
+        return grid_fixed_radius_search(
+            points, queries, radius, k, points_mask=points_mask,
+            queries_mask=queries_mask, metric=metric,
+            ignore_query_point=ignore_query_point, cell_cap=cell_cap,
+            planar_axis=planar_axis)
     return fixed_radius_search(points, queries, radius, k,
                                points_mask=points_mask,
                                queries_mask=queries_mask, metric=metric,

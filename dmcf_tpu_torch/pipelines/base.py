@@ -4,8 +4,8 @@ dmcf_tpu/pipelines/base.py).
 Checkpoints hold the model's ``state_dict`` per epoch
 (``<logs_dir>/checkpoint/ckpt_<epoch>.pt``) and, once training has built
 them, the optimizer's and the LR schedule's, so a run resumes where it
-stopped; the JAX package's orbax checkpoints are not read (ROADMAP queue 1
-item 12).  Scalars go to a
+stopped; the JAX package's orbax checkpoints are not read (ROADMAP queue 1,
+"Checkpoints").  Scalars go to a
 ``metrics.jsonl`` file, the JAX package's JSONL mirror; its tensorboard
 event files are left out.
 """

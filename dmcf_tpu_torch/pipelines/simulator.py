@@ -475,7 +475,7 @@ class Simulator(BasePipeline):
         if cfg.get("data_parallel", "auto") is True:
             raise NotImplementedError(
                 "data_parallel: true (multi-GPU) is not ported yet (ROADMAP "
-                "queue 1 item 13)")
+                "queue 1, 'Multi-GPU')")
         if cfg.get("grad_accum_host", False):
             raise NotImplementedError(
                 "grad_accum_host is a TPU execution mode, not ported")

@@ -210,7 +210,6 @@ def test_symnet_correction_sums_to_zero_without_boundary(precision):
     {"dens_feats": True},
     {"dens_norm": True},
     {"pres_feats": True},
-    {"boundary_crop_max": 64},
     {"voxel_size": None},
     {"circular": True},
 ], ids=lambda o: next(iter(o)))

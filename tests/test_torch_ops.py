@@ -179,15 +179,6 @@ def test_select_k_valid_first_k_by_index(k):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
-def test_search_raises_on_unported_methods():
-    pts = torch.zeros((10, 3))
-    with pytest.raises(NotImplementedError):
-        neighbors.search(pts, pts, 0.1, 4, method="cell")
-    big = torch.zeros((6000, 3))
-    with pytest.raises(NotImplementedError):
-        neighbors.search(big, big, 0.1, 4)  # N*Q > 3e7 -> cell search
-
-
 def _dilated_pos_both(caps):
     """The voxel pyramid of one scene from JAX and from the port: a
     rest-spacing block with jitter (no point on a voxel edge) plus padded

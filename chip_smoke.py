@@ -20,7 +20,8 @@ goes, runs the valid pipeline of
 full metric suite, each variant's launches on that path counted exactly,
 card against CPU, momentum drift), holds the backward kernels of both
 variants against the plain backward at every launch shape of a momentum
-train step and at the WaterRamps trunk shape (phase 10), trains the
+train step and at the WaterRamps trunk shape, the filter kernel's two
+launches bitwise equal at each (phase 10), trains the
 momentum config on the card through ``run_pipeline --split train`` with
 every kernel variant's launches counted exactly and its first two steps
 held against the CPU path (phase 11), runs one WaterRamps train step at
@@ -230,7 +231,8 @@ def bwd_check(args, qfeats, seed, precision="highest"):
     random dout: per gradient the max abs error over that gradient's max
     abs (0 where both are 0), and the max abs error; the bf16 variant's
     dfeats and dW apart from one-step rounding flips, whose count is
-    checked and printed."""
+    checked and printed.  The filter kernel is launched twice and the two
+    results must be bitwise equal (it is deterministic)."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
         cconv_klist_bwd_data, cconv_klist_bwd_filter,
         cconv_klist_bwd_reference, is_bf16, rounding_flips)
@@ -245,7 +247,10 @@ def bwd_check(args, qfeats, seed, precision="highest"):
     kw = dict(precision=precision)
     dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*full, **kw)
     got = (dfeats, dqfeats, cconv_klist_bwd_filter(*full, **kw), da, dt)
+    again = cconv_klist_bwd_filter(*full, **kw)
     torch.cuda.synchronize()
+    check(torch.equal(got[2], again), "dw: two filter launches bitwise "
+          "equal")
     tol = BF16_BWD_TOL if half else BWD_TOL
     rel, abs_err, flips = {}, {}, {}
     for name, x, want in zip(BWD_NAMES, got, cconv_klist_bwd_reference(
@@ -636,9 +641,12 @@ def bwd_phase(root, dev, wr_shapes):
     totals = {p: dict(data_ms=0.0, data_device_ms=0.0, filter_ms=0.0,
                       filter_device_ms=0.0, plain_ms=0.0, data_bound_ms=0.0,
                       filter_bound_ms=0.0) for p in precisions}
+    bitwise = dict.fromkeys(precisions, 0)  # shapes whose two filter
+    #                                         launches were bitwise equal
 
     def one(args, qfeats, seed, prec, what):
         rel, err, full = bwd_check(args, qfeats, seed, prec)
+        bitwise[prec] += 1
         tm = bwd_times(full, prec)
         for k, v in err.items():
             worst_abs[prec][k] = max(worst_abs[prec].get(k, 0.0), v)
@@ -687,7 +695,11 @@ def bwd_phase(root, dev, wr_shapes):
         print(f"  worst rel err over all shapes, "
               f"{'bf16' if prec == 'default' else 'fp32'} (tol {tol:g}): "
               + " ".join(f"{k} {v:.2e}" for k, v in worst[prec].items()))
+    print("  filter kernel, two launches bitwise equal at every shape: "
+          + ", ".join(f"{'bf16' if p == 'default' else 'fp32'} {n}"
+                      for p, n in bitwise.items()))
     out["worst"], out["worst_abs"] = worst, worst_abs
+    out["filter_bitwise_shapes"] = bitwise
     return out
 
 
@@ -1215,13 +1227,15 @@ def column_phase(root, dev):
         share = support_share(args[2].tolist(), it, pairs)
         check(bool(torch.isfinite(xs).all() and torch.isfinite(vs).all()),
               f"finite {split} split")
+        us_it = float(1e6 * sec / it.max(axis=0).sum())
         out["splits"][split] = dict(seconds=sec, iterations=int(it.sum()),
-                                    bound_ms=b_ms, support_share=share)
+                                    bound_ms=b_ms, support_share=share,
+                                    us_per_iteration=us_it)
         print(f"  symnet.yml {split}: {args[0].shape[0]} scenes x "
               f"{kw['timesteps']} frames in {sec:.3f} s, {int(it.sum())} "
               f"projection iterations ({it.mean():.1f} a frame, "
               f"{100 * (it == kw['max_iter']).mean():.1f} % of frames at "
-              f"max_iter), {1e6 * sec / it.max(axis=0).sum():.3f} us an "
+              f"max_iter), {us_it:.3f} us an "
               f"iteration of the longest scene; {100 * share:.2f} % of "
               f"the pairs in the spline's support; bound {b_ms:.6f} ms "
               f"({b_by})")
@@ -2314,6 +2328,11 @@ def main(argv):
                 "momentum_step_device_ms": mom[f"{which}_device_ms"],
                 "momentum_step_bound_ms": mom[f"{which}_bound_ms"],
             })
+            if which == "filter":  # two launches bitwise equal (phase 10)
+                kernels[-1]["deterministic"] = \
+                    bwd["filter_bitwise_shapes"][prec] > 0
+                kernels[-1]["bitwise_shapes"] = \
+                    bwd["filter_bitwise_shapes"][prec]
     kernels.append({
         "name": "column_sph",
         "route": "cuda",
@@ -2335,6 +2354,8 @@ def main(argv):
                              for k, v in column["splits"].items()},
         "split_bound_ms": {k: v["bound_ms"]
                            for k, v in column["splits"].items()},
+        "us_per_iteration": {k: v["us_per_iteration"]
+                             for k, v in column["splits"].items()},
     })
     print(f"column: splits {column['splits']}; symnet.yml losses "
           f"{column_cfgs['losses'][0]:.4e} -> {column_cfgs['losses'][-1]:.4e}"

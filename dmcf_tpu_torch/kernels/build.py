@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so`` (a plain C
 interface, no PyTorch headers), compiled for Hopper by
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` at first use and keyed by a
-hash of the source, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing is compiled at import time.
+hash of the source and of the headers beside it (``csrc/*.cuh``), so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is.  Nothing is compiled at import time.
 """
 
 from __future__ import annotations
@@ -44,8 +45,11 @@ def _nvcc():
 
 def _target(name):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -185,8 +185,8 @@ def _launcher():
 
 @functools.cache
 def _bwd_launchers():
-    """The backward library's (data, filter) entry points, their ctypes
-    signatures set once."""
+    """The backward library's (data, filter, filter workspace) entry
+    points, their ctypes signatures set once."""
     lib = load_library("cconv_klist_bwd")
     data = lib.cconv_klist_bwd_data_launch
     data.restype = ctypes.c_int
@@ -194,9 +194,18 @@ def _bwd_launchers():
         + [ctypes.c_void_p]
     filt = lib.cconv_klist_bwd_filter_launch
     filt.restype = ctypes.c_int
-    filt.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+    filt.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
-    return data, filt
+    work = lib.cconv_klist_bwd_filter_workspace
+    work.restype = ctypes.c_longlong
+    work.argtypes = [ctypes.c_int] * 8
+    return data, filt, work
+
+
+@functools.lru_cache(maxsize=1024)
+def _filter_workspace(q, k, n, cin, cout, kz, ky, kx):
+    """Floats of the filter kernel's workspace at this shape (0: none)."""
+    return int(_bwd_launchers()[2](q, k, n, cin, cout, kz, ky, kx))
 
 
 def _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout=None):
@@ -298,21 +307,26 @@ def cconv_klist_bwd_data(dout, idx, a, t, feats, w, kernel_size,
 def cconv_klist_bwd_filter(dout, idx, a, t, feats, w, kernel_size,
                            qfeats=None, precision="highest"):
     """Gradient of the K-list conv in its filter ``w``: dw [S*Cin, Cout].
-    CUDA tensors launch ``cconv_klist_bwd_filter_kernel`` (float atomics
-    across query tiles: two launches may differ in the last bits; in the
-    bf16 variant dw is then rounded to a bf16 tensor); CPU tensors take
-    ``cconv_klist_bwd_reference``."""
+    CUDA tensors launch ``cconv_klist_bwd_filter_kernel`` (deterministic:
+    per-group partials over query tiles, summed in a fixed order by a
+    second kernel where there is more than one group, so two launches give
+    the same bits; in the bf16 variant dw is then rounded to a bf16
+    tensor); CPU tensors take ``cconv_klist_bwd_reference``.  One call
+    counts as one launch, whether it ran one kernel or two."""
     if not feats.is_cuda:
         return cconv_klist_bwd_reference(dout, idx, a, t, feats, w,
                                          kernel_size, qfeats, precision)[2]
     feats, w = _variant(feats, w, precision)
     shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout)
-    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    nwork = _filter_workspace(*shape[:-1])
+    work = torch.empty(nwork, dtype=torch.float32, device=w.device) \
+        if nwork > 0 else None
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     _raise_on(_bwd_launchers()[1](
         idx.data_ptr(), a.data_ptr(), t.data_ptr(), feats.data_ptr(),
-        _ptr(qfeats), dout.data_ptr(), dw.data_ptr(), *shape, stream),
-        "cconv_klist_bwd_filter")
+        _ptr(qfeats), dout.data_ptr(), dw.data_ptr(), _ptr(work), *shape,
+        stream), "cconv_klist_bwd_filter")
     _count(cconv_klist_bwd_filter, shape[-1])
     return dw.to(w.dtype)
 

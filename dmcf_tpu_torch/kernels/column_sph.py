@@ -25,8 +25,12 @@ iteration) or at ``max_iter``, on its own.  The elementwise arithmetic is
 JAX's, operation by operation in fp32 (no fused multiply-add).  Every
 pair sum over a scene's particles is taken over 64 zero-padded slots in
 one fixed tree order (``tree_sum``: slot j pairs with j + 32, then
-j + 16, ...), in both versions, so the kernel and the plain version give
-the same bits and two launches are bitwise equal; JAX's ``jnp.sum``
+j + 16, ...), in both versions.  The kernel gives each particle row a
+warp: lane l adds the leaves of slots l and l + 32, and xor shuffles over
+16, 8, 4, 2 and 1 finish the sum, which is that order with some additions
+commuted (bitwise the same; ``csrc/column_sph.cu`` has the design).  So
+the kernel and the plain version give the same bits and two launches are
+bitwise equal; JAX's ``jnp.sum``
 sums in XLA's order, so the port drifts from JAX by rounding over the
 iterations (``tests/test_torch_column.py`` and ``PERF.md`` state how
 far).

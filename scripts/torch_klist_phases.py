@@ -4,10 +4,11 @@ precision: 18 launches of the bf16 variant and the fp32 ASCC conv).
 
     python -m scripts.torch_klist_phases
 
-A diagnostic of ``dmcf_tpu_torch/csrc/cconv_klist.cu``, outside the
-package.  Builds the kernel as it is and with parts cut out (by text
-substitution, into ``dmcf_tpu_torch/_build/phases/``; a cut whose text is
-no longer in the source stops the run), records the inputs of each launch
+A diagnostic of ``dmcf_tpu_torch/csrc/cconv_klist.cu`` (with its tap walk
+in ``csrc/klist_taps.cuh``), outside the package.  Builds the kernel as it
+is and with parts cut out (by text substitution in the source or the
+header, into ``dmcf_tpu_torch/_build/phases/<variant>/``; a cut whose text
+is in neither stops the run), records the inputs of each launch
 of one model step, and times every variant at each launch as device time
 (CUDA-graph replay, no host launch gaps):
 
@@ -38,7 +39,8 @@ from dmcf_tpu_torch.scene import bench_sample, build_scene
 
 CUTS = {
     "full": [],
-    "no_T": [("build_T<kTaps, kBF16>(p, sh, q0, s0, nr, clo, cw);", "")],
+    "no_T": [("build_T<kTaps, kBF16>(p, sh.T, p.LD, sh.taps, sh.tmask, q0, "
+              "s0, nr,\n                          clo, cw);", "")],
     "no_product": [("contract_fma(p, sh, nr, cw, base);", "(void)0;"),
                    ("contract_mma_bf16(p, sh, nr, cw, base, acc);",
                     "(void)0;"),
@@ -49,18 +51,21 @@ CUTS = {
 
 def build_variants():
     """ctypes launchers of the kernel variants, by name."""
-    src = (build.CSRC / "cconv_klist.cu").read_text()
-    out_dir = build.BUILD_DIR / "phases"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    files = ("cconv_klist.cu", "klist_taps.cuh")
+    srcs = {f: (build.CSRC / f).read_text() for f in files}
     fns = {}
     for name, cuts in CUTS.items():
-        text = src
+        texts = dict(srcs)
         for old, new in cuts:
-            if old not in text:
+            where = [f for f in files if old in texts[f]]
+            if not where:
                 raise RuntimeError(f"{name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
-        cu.write_text(text)
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        out_dir = build.BUILD_DIR / "phases" / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for f, text in texts.items():
+            (out_dir / f).write_text(text)
+        cu, so = out_dir / files[0], out_dir / f"{name}.so"
         proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
                                str(so), str(cu)], capture_output=True,
                               text=True)

@@ -27,7 +27,8 @@ from dmcf_tpu.data import dataset as jdataset
 from dmcf_tpu.data import generators as jgen
 from dmcf_tpu_torch import run_pipeline
 from dmcf_tpu_torch.data import dataset, generators
-from dmcf_tpu_torch.kernels.column_sph import column_solve_reference
+from dmcf_tpu_torch.kernels.column_sph import (column_solve_reference,
+                                               tree_sum)
 from scripts import make_torch_column_ref as ref_script
 
 # two intra-op threads: the suite runs files side by side on a few cores
@@ -114,6 +115,67 @@ def test_plain_solver_counts_pairs_by_spline_arm():
     # and q = 1.0: a 42-particle column has far fewer pairs in the
     # support than pairs in all
     assert pairs[2, 0, :2].sum() < 0.2 * 42 ** 2
+
+
+def lane_tree_sum(x, lanes):
+    """The column kernel's pair sum (``csrc/column_sph.cu``
+    ``group_tree``) emulated on the CPU for a row spread over ``lanes``
+    lanes: lane g holds the leaves of slots g + lanes * k; the tree's
+    levels whose pairs lie in one lane (slot j with j + 32, ..., j +
+    lanes) are added in the lane, then each lane adds the value lane
+    g ^ off holds, for off = lanes / 2, ..., 1, its own value first as the
+    kernel's ``add(s, shfl)``.  Returns every lane's result [..., lanes]."""
+    leaf = x.reshape(*x.shape[:-1], 64 // lanes, lanes)  # [.., k, g]
+    n = 64 // lanes // 2
+    while n >= 1:
+        leaf = leaf[..., :n, :] + leaf[..., n:2 * n, :]
+        n //= 2
+    s = leaf[..., 0, :]
+    ids = torch.arange(lanes)
+    off = lanes // 2
+    while off:
+        s = s + s[..., ids ^ off]
+        off //= 2
+    return s
+
+
+@pytest.mark.parametrize("lanes", [32, 16, 8, 4, 2, 1])
+def test_lane_layout_gives_tree_sum_bits(lanes):
+    """The kernel spreads each 64-slot pair sum over a group of lanes (16
+    in the kernel; every width here); that order is ``tree_sum``'s with
+    some additions commuted, so every lane holds ``tree_sum``'s bits: on
+    random fp32 rows over many magnitudes (where other orders round
+    otherwise), with zeros, -0.0, +-inf and NaN leaves.  A NaN sum is
+    compared as NaN (its payload may depend on the operand order, and the
+    port keeps no NaN's payload)."""
+    rng = np.random.RandomState(0)
+    rows = (rng.randn(4096, 64) * 10.0 ** rng.randint(-6, 7, (4096, 64)))
+    rows = rows.astype(np.float32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], np.float32)
+    for r in range(0, 4096, 4):  # a few special leaves in a quarter
+        k = rng.randint(1, 4)
+        rows[r, rng.randint(0, 64, k)] = rng.choice(special, k)
+    rows[1] = 0.0
+    rows[2] = -0.0                      # all -0.0: the sum is -0.0
+    rows[3, :32], rows[3, 32:] = -0.0, 0.0
+    x = torch.from_numpy(rows)
+    want = tree_sum(x)
+    got = lane_tree_sum(x, lanes)
+    nan = torch.isnan(want)
+    assert nan.any() and torch.isinf(want).any()
+    for lane in range(lanes):
+        g = got[:, lane]
+        assert torch.equal(torch.isnan(g), nan), lane
+        assert torch.equal(g[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32)), lane
+    assert want[2].view(torch.int32) == torch.tensor(-0.0).view(torch.int32)
+    # the test can tell orders apart: a left-to-right sum rounds otherwise
+    seq = x[~nan].clone()
+    acc = seq[:, 0]
+    for j in range(1, 64):
+        acc = acc + seq[:, j]
+    assert not torch.equal(acc.view(torch.int32),
+                           want[~nan].view(torch.int32))
 
 
 def test_column_frames_match_jax():

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no file of ``dmcf_tpu_torch/``, not
-``chip_smoke.py`` and not the port's diagnostic script imports JAX, flax,
+``chip_smoke.py`` and not the port's diagnostic scripts import JAX, flax,
 optax, orbax or the JAX package (an AST scan, so imports inside functions
 count too)."""
 
@@ -15,7 +15,9 @@ torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dmcf_tpu")
 PORT_FILES = sorted((ROOT / "dmcf_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_klist_phases.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_klist_phases.py",
+    ROOT / "scripts" / "torch_redesign_ab.py",
+    ROOT / "scripts" / "torch_redesign_variants.py"]
 
 
 def imported_modules(path):

@@ -668,3 +668,92 @@ def test_column_kernel_matches_plain(cuda):
         assert torch.equal(g_, r_)
         assert torch.equal(g_.cpu(), c_)
     assert int(got[2].max()) == 300 and int(got[2].min()) >= 1
+
+
+def column_scenes(p, seed):
+    """Scenes of a split padded to P particles: one of P, one of about half
+    and one of bcnt + 1 (bcnt = min(2, P - 1) boundary particles first), a
+    column at spacing ~0.45 h with jitter and random velocities."""
+    rng = np.random.RandomState(seed)
+    bcnt = min(2, p - 1)
+    counts = [p, max(bcnt + 1, p // 2), bcnt + 1]
+    x0 = np.zeros((len(counts), p), np.float32)
+    v0 = np.zeros_like(x0)
+    for s, n in enumerate(counts):
+        x0[s, :n] = 0.45 * np.arange(n) + rng.uniform(-0.05, 0.05, n)
+        v0[s, :n] = rng.uniform(-1.0, 1.0, n)
+    return x0, v0, np.asarray(counts, np.int32), bcnt
+
+
+@pytest.mark.parametrize("max_iter", [1, 40])
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 64])
+def test_column_kernel_bitwise_at_each_width(cuda, p, max_iter):
+    """The column kernel at each of its layouts (a warp a row up to P 32,
+    two rows a warp past it, P odd leaving a row of the last warp unused)
+    against its plain version, on the card and on the CPU: the same bits,
+    scenes narrower than P included; two launches equal; max_iter 1 runs
+    exactly one projection iteration a frame."""
+    from dmcf_tpu_torch.kernels.column_sph import (column_solve,
+                                                   column_solve_reference)
+
+    x0, v0, counts, bcnt = column_scenes(p, p)
+    kw = dict(bcnt=bcnt, timesteps=3, max_iter=max_iter, dt=0.0025)
+    args = [torch.from_numpy(a) for a in (x0, v0, counts)]
+    card = [a.to(cuda) for a in args]
+    before = column_solve.launches
+    got = column_solve(*card, **kw)
+    again = column_solve(*card, **kw)
+    torch.cuda.synchronize()
+    assert column_solve.launches == before + 2
+    ref = column_solve_reference(*card, **kw)
+    cpu = column_solve_reference(*args, **kw)
+    for g_, a_, r_, c_ in zip(got, again, ref, cpu):
+        assert torch.equal(g_, a_)
+        assert torch.equal(g_, r_)
+        assert torch.equal(g_.cpu(), c_)
+    assert bool(torch.isfinite(got[0]).all())
+    if max_iter == 1:
+        assert bool((got[2] == 1).all())
+
+
+FILTER_DET_CASES = [  # q, n, k, cin, cout, ksize, dim, symmetric
+    (2688, 2688, 40, 32, 32, (1, 8, 8), 2, False),  # WaterRamps trunk
+    (80, 320, 256, 16, 8, (1, 8, 8), 2, False),     # momentum K 256
+    (600, 600, 96, 32, 3, (6, 6, 6), 3, True),      # 3D S 216, symmetric
+    (130, 130, 40, 8192, 4, (1, 1, 1), 3, False),   # Cin past the chunk
+    (257, 257, 40, 160, 256, (1, 4, 4), 2, False),  # Cout 256, channel
+    #                                                 chunks of 128
+    (1001, 1001, 40, 24, 16, (1, 8, 8), 2, False),  # Q not a multiple of 16
+]
+
+
+@pytest.mark.parametrize(
+    "q,n,k,cin,cout,ksize,dim,symmetric,precision",
+    [c + (prec,) for c in FILTER_DET_CASES for prec in ("highest", "default")
+     if prec == "highest" or not c[7]],  # the bf16 variant: no symmetric
+    ids=[f"{name}_{prec}" for name, c in zip(
+        ("trunk", "K256", "S216_sym", "Cin8192", "Cout256", "Q1001"),
+        FILTER_DET_CASES) for prec in ("fp32", "bf16")
+        if prec == "fp32" or not c[7]])
+def test_filter_kernel_is_deterministic(cuda, q, n, k, cin, cout, ksize,
+                                        dim, symmetric, precision):
+    """The filter kernel sums its query tiles' partials in a fixed order
+    and builds T without atomics: two launches give the same bits, in
+    both variants, and stay within the plain backward's tolerance."""
+    (idx, a, t, feats, w), qf, _ = cloud_inputs(
+        q, n, k, cin, cout, ksize, dim, symmetric, 13, cuda)
+    dout = torch.randn((q, cout), device=cuda)
+    args = (dout, idx, a, t, feats, w, ksize, qf)
+    first = cconv_klist_bwd_filter(*args, precision=precision)
+    second = cconv_klist_bwd_filter(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = cconv_klist_bwd_reference(*args, precision=precision)[2]
+    scale = float(want.abs().max())
+    assert scale > 0
+    if precision == "default":
+        err, flips = rounding_flips(first, want)
+        assert flips <= max(4, 1e-3 * want.numel()), flips
+        assert err <= 2e-3 * scale, (err, scale)
+    else:
+        assert float((first - want).abs().max()) <= 1e-5 * scale

@@ -20,7 +20,7 @@ goes, runs the valid pipeline of
 full metric suite, each variant's launches on that path counted exactly,
 card against CPU, momentum drift), holds the backward kernels of both
 variants against the plain backward at every launch shape of a momentum
-train step and at the WaterRamps trunk shape, the filter kernel's two
+train step and at the WaterRamps trunk shape, each kernel's two
 launches bitwise equal at each (phase 10), trains the
 momentum config on the card through ``run_pipeline --split train`` with
 every kernel variant's launches counted exactly and its first two steps
@@ -191,35 +191,44 @@ BWD_NAMES = ("dfeats", "dqfeats", "dw", "da", "dt")
 def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats,
               precision="highest"):
     """Least time the card could take for one backward kernel, as
-    ``bound`` for the forward, all operations at the fp32 rate.  data:
-    reads idx, a, t, feats, w, qfeats, dout, writes dfeats, dqfeats, da,
-    dt; computes dT on the (query, tap row) pairs some slot's hats touch
-    (2 Cin Cout each) and, per touched tap, the dA dot product and the dg
-    update (4 Cin).  filter: reads the same but w, writes dW; rebuilds T
-    over the non-zero taps (2 Cin each) and multiplies it by dout over the
-    touched rows (2 Cin Cout each).  The bf16 variants read feats and w as
+    ``bound`` for the forward: bytes over the HBM rate, or operations over
+    the rate of the unit the kernel does them on.  data: reads idx, a, t,
+    feats, w, qfeats, dout, writes dfeats, dqfeats, da, dt; computes dT on
+    the (query, tap row) pairs some slot's hats touch (2 Cin Cout each),
+    the dA dot product on every touched tap (2 Cin: da needs it for a
+    padded slot too) and the dg update only on the taps of slots with a !=
+    0 (2 Cin: a padded slot's dg is 0 and is not summed).  filter:
+    reads the same but w, writes dW; rebuilds T over the non-zero taps (2
+    Cin each) and multiplies it by dout over the touched rows (2 Cin Cout
+    each).  Both kernels do their product (dT, T^T dout) on the tensor
+    cores: the fp32 variant (and the symmetric form) as three TF32
+    products (3xTF32, 495 / 3 = 165 TFLOP/s), the bf16 variant as two (W
+    or T exact in TF32 against dout split big + small, 495 / 2); the rest
+    at the fp32 rate (67 TFLOP/s).  The bf16 variants read feats and w as
     bf16 and write dfeats and dW in fp32.  Returns (ms, by)."""
     from dmcf_tpu_torch.kernels.cconv_klist import _tap_tensor, is_bf16
     cin, cout = feats.shape[1], w.shape[1]
     half = 2 if is_bf16(precision) else 4
+    mma_rate = TF32_FLOP_PER_S / (2 if half == 2 else 3)
 
     def nbytes(xs):
         return sum(x.numel() * x.element_size() for x in xs if x is not None)
 
     if which == "data":
         hz = _tap_tensor(t, torch.ones_like(a), ksize) != 0
-        ops = 2 * int(hz.any(dim=1).sum()) * cin * cout \
-            + 4 * int(hz.sum()) * cin
+        product = 2 * int(hz.any(dim=1).sum()) * cin * cout
+        rest = 2 * int(hz.sum()) * cin \
+            + 2 * int((_tap_tensor(t, a, ksize) != 0).sum()) * cin
         moved = nbytes((idx, a, t, qfeats, dout)) \
             + (feats.numel() + w.numel()) * half \
             + feats.numel() * 4 + nbytes((qfeats, a, t))
     else:
         nz = _tap_tensor(t, a, ksize) != 0
-        ops = 2 * int(nz.sum()) * cin + 2 * int(nz.any(dim=1).sum()) * cin \
-            * cout
+        rest = 2 * int(nz.sum()) * cin
+        product = 2 * int(nz.any(dim=1).sum()) * cin * cout
         moved = nbytes((idx, a, t, qfeats, dout)) + feats.numel() * half \
             + nbytes((w,))
-    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    ops_ms = (product / mma_rate + rest / FP32_FLOP_PER_S) * 1e3
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
@@ -231,10 +240,18 @@ def bwd_check(args, qfeats, seed, precision="highest"):
     random dout: per gradient the max abs error over that gradient's max
     abs (0 where both are 0), and the max abs error; the bf16 variant's
     dfeats and dW apart from one-step rounding flips, whose count is
-    checked and printed.  The filter kernel is launched twice and the two
-    results must be bitwise equal (it is deterministic)."""
+    checked and printed.  The bf16 variant's da and dt are held as phase 7
+    holds T (``bf16_data_flips``): the data kernel's dT, summed on the
+    tensor cores, may lie one bf16 step from the plain dT; those flips are
+    counted (at most max(4, 1e-3 of dT's elements), the other elements
+    within 1e-4 of dT's max), da and dt are held within the tolerance
+    against the plain backward fed the kernel's dT, and an element beyond
+    it against the plain backward itself only in a slot that touches a
+    tap row of its query where dT flipped.  Each kernel is
+    launched twice and the two results must be bitwise equal (both are
+    deterministic): dW, and dfeats, dqfeats, da and dt."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
-        cconv_klist_bwd_data, cconv_klist_bwd_filter,
+        bf16_data_flips, cconv_klist_bwd_data, cconv_klist_bwd_filter,
         cconv_klist_bwd_reference, is_bf16, rounding_flips)
     idx, a, t, feats, w, ksize = args
     half = is_bf16(precision)
@@ -248,9 +265,14 @@ def bwd_check(args, qfeats, seed, precision="highest"):
     dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*full, **kw)
     got = (dfeats, dqfeats, cconv_klist_bwd_filter(*full, **kw), da, dt)
     again = cconv_klist_bwd_filter(*full, **kw)
+    data_again = cconv_klist_bwd_data(*full, **kw)
     torch.cuda.synchronize()
     check(torch.equal(got[2], again), "dw: two filter launches bitwise "
           "equal")
+    for name, x, y in zip(("dfeats", "dqfeats", "da", "dt"),
+                          (dfeats, dqfeats, da, dt), data_again):
+        check((x is None and y is None) or torch.equal(x, y),
+              f"{name}: two data launches bitwise equal")
     tol = BF16_BWD_TOL if half else BWD_TOL
     rel, abs_err, flips = {}, {}, {}
     for name, x, want in zip(BWD_NAMES, got, cconv_klist_bwd_reference(
@@ -267,12 +289,41 @@ def bwd_check(args, qfeats, seed, precision="highest"):
             err = float((x - want).abs().max())
         rel[name] = err / scale if scale > 0 else err
         abs_err[name] = err
-        check(err <= tol * scale,
-              f"{name}: kernel vs plain backward {err} > {tol} x {scale}")
+        if not (half and name in ("da", "dt")):  # those: below
+            check(err <= tol * scale,
+                  f"{name}: kernel vs plain backward {err} > {tol} x {scale}")
+    if half:  # da and dt as phase 7 holds T: dT's one-step flips counted
+        res = bf16_data_flips(*full[:7], (dfeats, da, dt), tol)
+        check(res["dT_flips"] <= max(4, 1e-3 * res["dT_elements"])
+              and res["dT_err"] <= 1e-4 * res["dT_scale"],
+              f"dT: {res['dT_flips']} one-step flips, other elements "
+              f"{res['dT_err']}")
+        err, n_flip = res["forced"]["dfeats"]
+        check(n_flip <= max(4, 1e-3 * dfeats.numel())
+              and err <= tol * res["dfeats_scale"],
+              f"dfeats vs the plain backward fed the kernel's dT: {err}, "
+              f"{n_flip} flips")
+        for name in ("da", "dt"):
+            check(res["forced"][name] <= tol,
+                  f"{name} vs the plain backward fed the kernel's dT: "
+                  f"{res['forced'][name]} > {tol}")
+            check(res["unexplained"][name] == 0,
+                  f"{name}: {res['unexplained'][name]} elements beyond "
+                  f"{tol} in slots that touch no flipped tap row of dT")
+        flips["dT"] = res["dT_flips"]
+        print(f"    dT: {res['dT_flips']} one-step flips of "
+              f"{res['dT_elements']}; fed the kernel's dT, the plain "
+              f"backward's da {res['forced']['da']:.2e}, dt "
+              f"{res['forced']['dt']:.2e} of the max; beyond {tol} of the "
+              f"plain backward itself: da {res['beyond']['da']}, dt "
+              f"{res['beyond']['dt']} elements")
     if flips:
+        sizes = {k: got[BWD_NAMES.index(k)].numel() for k in flips
+                 if k != "dT"}
+        if half:
+            sizes["dT"] = res["dT_elements"]
         print("    one-step bf16 rounding flips: " + ", ".join(
-            f"{k} {v} of {got[BWD_NAMES.index(k)].numel()}"
-            for k, v in flips.items()))
+            f"{k} {v} of {sizes[k]}" for k, v in flips.items()))
     return rel, abs_err, full
 
 
@@ -641,12 +692,17 @@ def bwd_phase(root, dev, wr_shapes):
     totals = {p: dict(data_ms=0.0, data_device_ms=0.0, filter_ms=0.0,
                       filter_device_ms=0.0, plain_ms=0.0, data_bound_ms=0.0,
                       filter_bound_ms=0.0) for p in precisions}
-    bitwise = dict.fromkeys(precisions, 0)  # shapes whose two filter
-    #                                         launches were bitwise equal
+    bitwise = dict.fromkeys(precisions, 0)  # shapes whose two launches
+    #                                         of each kernel were bitwise
+    #                                         equal
 
     def one(args, qfeats, seed, prec, what):
+        from dmcf_tpu_torch.kernels.cconv_klist import data_workspace_bytes
         rel, err, full = bwd_check(args, qfeats, seed, prec)
         bitwise[prec] += 1
+        idx_, _, _, f_, w_, ks_ = args
+        work = data_workspace_bytes(*idx_.shape, *f_.shape, w_.shape[1],
+                                    *ks_, prec == "default")
         tm = bwd_times(full, prec)
         for k, v in err.items():
             worst_abs[prec][k] = max(worst_abs[prec].get(k, 0.0), v)
@@ -655,8 +711,9 @@ def bwd_phase(root, dev, wr_shapes):
         print(f"  {what} {'bf16' if prec == 'default' else 'fp32'}: data "
               f"{tm[0]:.4f} ms (device {tm[1]:.4f}, bound {tm[5][0]:.5f} "
               f"{tm[5][1]}), filter {tm[2]:.4f} ms (device {tm[3]:.4f}, "
-              f"bound {tm[6][0]:.5f} {tm[6][1]}), plain {tm[4]:.4f} ms; rel "
-              "err " + " ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+              f"bound {tm[6][0]:.5f} {tm[6][1]}), plain {tm[4]:.4f} ms; "
+              f"data workspace {work} B; rel err " + " ".join(
+                  f"{k} {v:.2e}" for k, v in rel.items()))
         return tm
 
     for i, (name, args, kw, _) in enumerate(log):
@@ -695,11 +752,12 @@ def bwd_phase(root, dev, wr_shapes):
         print(f"  worst rel err over all shapes, "
               f"{'bf16' if prec == 'default' else 'fp32'} (tol {tol:g}): "
               + " ".join(f"{k} {v:.2e}" for k, v in worst[prec].items()))
-    print("  filter kernel, two launches bitwise equal at every shape: "
-          + ", ".join(f"{'bf16' if p == 'default' else 'fp32'} {n}"
-                      for p, n in bitwise.items()))
+    print("  filter and data kernels, two launches bitwise equal at every "
+          "shape (dW; dfeats, dqfeats, da, dt): " + ", ".join(
+              f"{'bf16' if p == 'default' else 'fp32'} {n}"
+              for p, n in bitwise.items()))
     out["worst"], out["worst_abs"] = worst, worst_abs
-    out["filter_bitwise_shapes"] = bitwise
+    out["bitwise_shapes"] = bitwise
     return out
 
 
@@ -927,13 +985,15 @@ def fp32_train_phase(root, dev, steps=3):
     return step_s
 
 
-def waterramps_train_phase(root, dev, model, sample, klist, klist_bf16):
+def waterramps_train_phase(root, dev, model, sample, klist, klist_bf16,
+                           batch_size=None):
     """Phase 12: one WaterRamps train step at the config's first
     curriculum stage (batch 16, window 3, ``dense_n_chunk`` 256) and its
     precision (a bf16 trunk) on a 4-frame sequence the port's rollout makes
     from the bench scene: time, peak device memory, a finite loss, the
     launches of each kernel variant counted exactly (``klist`` K-list convs
-    a step, ``klist_bf16`` of them bf16)."""
+    a step, ``klist_bf16`` of them bf16).  ``batch_size`` replaces the
+    config's (its items are copies of one sequence)."""
     import yaml
 
     from dmcf_tpu_torch.models.losses import get_loss
@@ -943,7 +1003,7 @@ def waterramps_train_phase(root, dev, model, sample, klist, klist_bf16):
 
     with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
         cfg = yaml.safe_load(f)
-    batch_size = int(cfg["pipeline"]["batch_size"])
+    batch_size = batch_size or int(cfg["pipeline"]["batch_size"])
     window = int(cfg["pipeline"]["windows"][0])
     n = sample["pos"].shape[0]
     frames = (torch.empty((window + 1, n, 3), device=dev),
@@ -1380,12 +1440,14 @@ def launch_checks(log, what, max_err):
                   f"{kw['qfeats'] is not None:d}: max_abs_err {err:.3e}")
 
 
-def train_step_phase(root, cfg_path, dev, model, sample, what):
-    """One train step at the config's batch and first window (its first
-    curriculum stage, its precision) on a sequence the port's rollout makes
-    from ``sample``: time, peak device memory, a finite loss and
-    gradients, each kernel variant's launches counted exactly against the
-    forward launches of one step of ``model`` on ``sample``."""
+def train_step_phase(root, cfg_path, dev, model, sample, what,
+                     batch_size=None):
+    """One train step at the config's batch (or ``batch_size``: its items
+    are copies of one sequence) and first window (its first curriculum
+    stage, its precision) on a sequence the port's rollout makes from
+    ``sample``: time, peak device memory, a finite loss and gradients,
+    each kernel variant's launches counted exactly against the forward
+    launches of one step of ``model`` on ``sample``."""
     import yaml
 
     from dmcf_tpu_torch.models.losses import get_loss
@@ -1395,7 +1457,7 @@ def train_step_phase(root, cfg_path, dev, model, sample, what):
 
     with open(os.path.join(root, "configs", cfg_path)) as f:
         cfg = yaml.safe_load(f)
-    batch_size = int(cfg["pipeline"]["batch_size"])
+    batch_size = batch_size or int(cfg["pipeline"]["batch_size"])
     window = int(cfg["pipeline"]["windows"][0])
     zero_counts()
     with torch.no_grad():
@@ -1417,6 +1479,8 @@ def train_step_phase(root, cfg_path, dev, model, sample, what):
         model, cfg["pipeline"]["optimizer"]), window=window)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_bwd_data
+    cconv_klist_bwd_data.workspace_peak = 0
     zero_counts()                # this training path starts here
     t0 = time.time()
     lvec, _, stats = step(batch, np.ones(window, np.float32))
@@ -1431,7 +1495,8 @@ def train_step_phase(root, cfg_path, dev, model, sample, what):
           f"pair_overflow {float(stats['pair_overflow']):.0f}; launches "
           f"(fp32, bf16) fwd {launches[0:2]} bwd_data {launches[2:4]} "
           f"bwd_filter {launches[4:6]} (want {want}: {fwd} forward "
-          f"launches a step)")
+          f"launches a step); largest data-kernel workspace "
+          f"{cconv_klist_bwd_data.workspace_peak} B")
     check(bool(torch.isfinite(lvec).all()), f"finite {what} loss")
     check(launches == want, f"{what} train launches {launches}")
     check(all(bool(torch.isfinite(p.grad).all())
@@ -2328,11 +2393,9 @@ def main(argv):
                 "momentum_step_device_ms": mom[f"{which}_device_ms"],
                 "momentum_step_bound_ms": mom[f"{which}_bound_ms"],
             })
-            if which == "filter":  # two launches bitwise equal (phase 10)
-                kernels[-1]["deterministic"] = \
-                    bwd["filter_bitwise_shapes"][prec] > 0
-                kernels[-1]["bitwise_shapes"] = \
-                    bwd["filter_bitwise_shapes"][prec]
+            # two launches bitwise equal at every phase-10 shape
+            kernels[-1]["deterministic"] = bwd["bitwise_shapes"][prec] > 0
+            kernels[-1]["bitwise_shapes"] = bwd["bitwise_shapes"][prec]
     kernels.append({
         "name": "column_sph",
         "route": "cuda",

@@ -42,7 +42,8 @@ differentiates; a CUDA tensor goes through ``_KListConv``, an autograd
 Function whose forward launches the forward kernel and whose backward
 launches the two backward kernels (``cconv_klist_bwd_data`` for the
 gradients of feats, qfeats, a and t; ``cconv_klist_bwd_filter`` for w), or
-raises — there is no fallback.
+raises — there is no fallback.  Every kernel is deterministic: no float
+atomics, so two launches give the same bits.
 
 The hats' derivative is PyTorch autograd's on the twin's
 ``relu(1 - |clamp(t, -h, h) - p|)``: clamp' = 1 on [-h, h] (bounds
@@ -128,14 +129,99 @@ def rounding_flips(got, want):
     (max abs difference over the elements that are not one step apart,
     number of elements exactly one step apart)."""
     w = want.to(torch.bfloat16)
-    bits = w.view(torch.int16)
+    flip = _one_step(got, w)
+    err = torch.where(flip, 0.0, (got.float() - w.float()).abs())
+    return float(err.max()) if err.numel() else 0.0, int(flip.sum())
+
+
+def _one_step(got, want):
+    """Where ``got`` lies exactly one bf16 step from the bf16 ``want``."""
+    bits = want.view(torch.int16)
     g = got.float()
     flip = torch.zeros_like(g, dtype=torch.bool)
     for step in (1, -1):  # the neighbours away from and towards zero
         n = (bits + step).view(torch.bfloat16).float()
-        flip |= (g == n) & (w != 0)
-    err = torch.where(flip, 0.0, (g - w.float()).abs())
-    return float(err.max()) if err.numel() else 0.0, int(flip.sum())
+        flip |= (g == n) & (want != 0)
+    return flip
+
+
+def bwd_data_from_dT(dT, idx, a, t, feats, kernel_size):
+    """The bf16 plain backward's data gradients (dfeats, da, dt) with the
+    gradient of T, dT [Q, S, Cin], given: the twin's T (rounded to bf16,
+    as ``cconv_klist_reference`` rounds it) differentiated by autograd with
+    that dT.  Fed the plain dT = bf16(dout bf16(W)^T) it is
+    ``cconv_klist_bwd_reference``'s; fed the kernel's dT it shows what
+    else the kernel's bf16 roundings moved."""
+    leaves = [x.detach().float().requires_grad_(True) for x in (a, t, feats)]
+    with torch.enable_grad():
+        A = round_bf16(_tap_tensor(leaves[1], leaves[0], kernel_size))
+        f = round_bf16(leaves[2])[idx.long().clamp(0, feats.shape[0] - 1)]
+        T = round_bf16(torch.einsum("qks,qkc->qsc", A, f))
+        da, dt, dfeats = torch.autograd.grad(T, leaves, dT)
+    return dfeats, da, dt
+
+
+def bf16_data_flips(dout, idx, a, t, feats, w, kernel_size, got, tol):
+    """Holds the bf16 data kernel's (dfeats, da, dt) ``got`` on CUDA
+    tensors the way the bf16 forward's T is held: the tensor cores sum dT
+    in another order than the plain backward's fp32 product, so an element
+    of dT lying at a rounding midpoint can come out one bf16 step apart,
+    and move dA, da and dt downstream.  Relaunches the kernel (two
+    launches give the same bits) to read its dT, and returns a dict: the
+    one-step flips of dT against the plain dT (``dT_flips`` of
+    ``dT_elements``, the elements on the tap rows the query's slots
+    touch, the only ones the kernel reads; ``dT_err`` the largest
+    difference of the other elements, ``dT_scale`` the plain dT's max);
+    ``forced``, the errors of da and dt (max abs over the max) and of
+    dfeats (apart from one-step flips, and their count) against
+    ``bwd_data_from_dT`` fed the kernel's dT (``dfeats_scale`` its
+    max); ``beyond``, the elements of da and dt beyond ``tol`` of the max
+    against the plain backward itself; ``unexplained``, those of them
+    whose slot touches no tap row of its query where dT flipped (a slot's
+    da and dt read dT only there, so a flip can move no other)."""
+    q, cin = idx.shape[0], feats.shape[1]
+    s_total = int(kernel_size[0]) * int(kernel_size[1]) * int(kernel_size[2])
+    f16, w16 = feats.to(torch.bfloat16), w.to(torch.bfloat16)
+    shape = _shapes(idx, a, t, f16, w16, kernel_size, None, dout)
+    work = torch.empty(data_workspace_bytes(*shape), dtype=torch.uint8,
+                       device=dout.device)
+    again = _bwd_data_launch(dout, idx, a, t, f16, w16, kernel_size, None,
+                             work=work)
+    if not all(torch.equal(x.to(y.dtype), y) for x, y in zip(
+            (again[0], again[2], again[3]), got)):
+        raise AssertionError("the data kernel's relaunch differs")
+    # the kernel forms dT only on tap rows a slot of the query's tile
+    # touches, and reads it only on those of the query's own slots
+    hz = _tap_tensor(t, torch.ones_like(a), kernel_size) != 0
+    rows = hz.any(dim=1)
+    dT = work[:2 * q * s_total * cin].view(torch.bfloat16).float().reshape(
+        q, s_total, cin)
+    dT = torch.where(rows[..., None], dT, 0.0)
+    plain = round_bf16(dout @ round_bf16(w.detach().float()).T).reshape(
+        dT.shape)
+    plain = torch.where(rows[..., None], plain, 0.0)
+    n = int(rows.sum()) * cin
+    dT_err, flips = rounding_flips(dT, plain)
+    f_dfeats, f_da, f_dt = bwd_data_from_dT(dT, idx, a, t, feats,
+                                            kernel_size)
+    forced = {"dfeats": rounding_flips(got[0], f_dfeats)}
+    for name, x, y in (("da", got[1], f_da), ("dt", got[2], f_dt)):
+        scale = float(y.abs().max())
+        forced[name] = float((x - y).abs().max()) / scale if scale else 0.0
+    _, _, _, r_da, r_dt = cconv_klist_bwd_reference(
+        dout, idx, a, t, f16, w16, kernel_size, precision="default")
+    flipped = _one_step(dT, plain.to(torch.bfloat16)).any(dim=2)  # [Q, S]
+    explained = (hz & flipped[:, None, :]).any(dim=2)             # [Q, K]
+    beyond, unexplained = {}, {}
+    for name, x, y in (("da", got[1], r_da), ("dt", got[2], r_dt)):
+        far = ((x - y).abs() > tol * float(y.abs().max())).reshape(
+            explained.shape + (-1,))
+        beyond[name] = int(far.sum())
+        unexplained[name] = int((far & ~explained[..., None]).sum())
+    return {"dT_flips": flips, "dT_elements": n, "dT_err": dT_err,
+            "dT_scale": float(plain.abs().max()), "forced": forced,
+            "beyond": beyond, "unexplained": unexplained,
+            "dfeats_scale": float(f_dfeats.abs().max())}
 
 
 def _check(name, x, dtype, shape, device):
@@ -190,8 +276,11 @@ def _bwd_launchers():
     lib = load_library("cconv_klist_bwd")
     data = lib.cconv_klist_bwd_data_launch
     data.restype = ctypes.c_int
-    data.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
+    data.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
+    data_work = lib.cconv_klist_bwd_data_workspace
+    data_work.restype = ctypes.c_longlong
+    data_work.argtypes = [ctypes.c_int] * 9
     filt = lib.cconv_klist_bwd_filter_launch
     filt.restype = ctypes.c_int
     filt.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
@@ -199,7 +288,41 @@ def _bwd_launchers():
     work = lib.cconv_klist_bwd_filter_workspace
     work.restype = ctypes.c_longlong
     work.argtypes = [ctypes.c_int] * 8
-    return data, filt, work
+    return data, filt, work, data_work
+
+
+def data_workspace_bytes(q, k, n, cin, cout, kz, ky, kx, bf16):
+    """Bytes of the data launch's workspace at this shape: dT [Q, S*Cin]
+    (bf16 in the bf16 variant) and the feats rows' counters [N + 1]."""
+    return _data_workspace(q, k, n, cin, cout, kz, ky, kx, int(bf16))
+
+
+@functools.lru_cache(maxsize=1024)
+def _data_workspace(*shape):
+    nbytes = int(_bwd_launchers()[3](*shape))
+    if nbytes < 0:
+        raise ValueError(f"the data kernels do not take the shape {shape}")
+    return nbytes
+
+
+def transposed_slots(idx, a, n):
+    """The data kernel's transposed neighbour list, plain PyTorch: the
+    slots that add to dfeats, grouped by the feats row they read.  A slot
+    (flat id q*K + k) is listed under its clamped row ``clamp(idx, 0, n -
+    1)`` (a negative index under row 0, one past the end under row n - 1,
+    the rows the forward reads) when ``a != 0``; the slots with ``a == 0``
+    (the padded ones, idx 0) add nothing and are left out.  Returns (order
+    [Q*K] int32: the listed slot ids by row, ascending within a row, then
+    the ones left out, ascending; offsets [n + 1] int32: row r's slots are
+    ``order[offsets[r]:offsets[r + 1]]``).  A stable sort of the clamped
+    rows, the slots left out keyed n; the card's data launch builds the
+    same list of the listed slots itself (``_bwd_data_launch``)."""
+    key = idx.clamp(0, n - 1).masked_fill_(a == 0, n).reshape(-1)
+    rows, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        rows, torch.arange(n + 1, dtype=rows.dtype, device=rows.device),
+        out_int32=True)
+    return order.to(torch.int32), offsets
 
 
 @functools.lru_cache(maxsize=1024)
@@ -276,31 +399,57 @@ def _launch(idx, a, t, feats, w, kernel_size, qfeats):
     return out
 
 
+def _bwd_data_launch(dout, idx, a, t, feats, w, kernel_size, qfeats,
+                     work=None):
+    """One data launch on CUDA tensors of the variant's dtypes: (dfeats
+    fp32, dqfeats or None, da, dt, order, offsets), the last two the
+    transposed list the launch built: ``transposed_slots``'s, but for
+    ``order`` past ``offsets[-1]`` (the slots left out), undefined.  A
+    ``work`` of ``data_workspace_bytes`` uint8 given, it holds dT [Q,
+    S*Cin] (fp32, or bf16) in its first bytes afterwards."""
+    shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout)
+    q, k, n, cin = shape[:4]
+    dev = feats.device
+    if work is None:
+        work = torch.empty(data_workspace_bytes(*shape), dtype=torch.uint8,
+                           device=dev)
+    order = torch.empty(q * k, dtype=torch.int32, device=dev)
+    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    dfeats = torch.empty((n, cin), dtype=torch.float32, device=dev)
+    dqfeats = None if qfeats is None else torch.empty_like(qfeats)
+    da = torch.empty_like(a)
+    dt = torch.empty_like(t)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(_bwd_launchers()[0](
+        idx.data_ptr(), a.data_ptr(), t.data_ptr(), feats.data_ptr(),
+        _ptr(qfeats), w.data_ptr(), dout.data_ptr(), order.data_ptr(),
+        offsets.data_ptr(), work.data_ptr(), dfeats.data_ptr(),
+        _ptr(dqfeats), da.data_ptr(), dt.data_ptr(), *shape, stream),
+        "cconv_klist_bwd_data")
+    _count(cconv_klist_bwd_data, shape[-1])
+    cconv_klist_bwd_data.workspace_peak = max(
+        cconv_klist_bwd_data.workspace_peak, work.numel())
+    return dfeats, dqfeats, da, dt, order, offsets
+
+
 def cconv_klist_bwd_data(dout, idx, a, t, feats, w, kernel_size,
                          qfeats=None, precision="highest"):
     """Gradients of the K-list conv in its data inputs: (dfeats, dqfeats or
-    None, da, dt).  CUDA tensors launch ``cconv_klist_bwd_data_kernel``
-    (dfeats and dqfeats summed with float atomics: two launches may differ
-    in the last bits; in the bf16 variant dfeats is then rounded to a bf16
-    tensor); CPU tensors take ``cconv_klist_bwd_reference``."""
+    None, da, dt).  CUDA tensors launch the data kernels of
+    ``csrc/cconv_klist_bwd.cu``: dT on the tensor cores into a workspace
+    allocated here, the transposed list (``transposed_slots``, built on
+    the card), the slot walk for da, dt and dqfeats, dfeats summed a row at
+    a time through the list in ascending slot id.  Deterministic: two
+    launches give the same bits; in the bf16 variant dfeats is then
+    rounded to a bf16 tensor.  One call counts as one launch, however many
+    kernels it runs.  CPU tensors take ``cconv_klist_bwd_reference``."""
     if not feats.is_cuda:
         dfeats, dqfeats, _, da, dt = cconv_klist_bwd_reference(
             dout, idx, a, t, feats, w, kernel_size, qfeats, precision)
         return dfeats, dqfeats, da, dt
     feats, w = _variant(feats, w, precision)
-    shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout)
-    dfeats = torch.zeros(feats.shape, dtype=torch.float32,
-                         device=feats.device)
-    dqfeats = None if qfeats is None else torch.zeros_like(qfeats)
-    da = torch.empty_like(a)
-    dt = torch.empty_like(t)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    _raise_on(_bwd_launchers()[0](
-        idx.data_ptr(), a.data_ptr(), t.data_ptr(), feats.data_ptr(),
-        _ptr(qfeats), w.data_ptr(), dout.data_ptr(), dfeats.data_ptr(),
-        _ptr(dqfeats), da.data_ptr(), dt.data_ptr(), *shape, stream),
-        "cconv_klist_bwd_data")
-    _count(cconv_klist_bwd_data, shape[-1])
+    dfeats, dqfeats, da, dt, _, _ = _bwd_data_launch(
+        dout, idx, a, t, feats, w, kernel_size, qfeats)
     return dfeats.to(feats.dtype), dqfeats, da, dt
 
 
@@ -379,4 +528,7 @@ def cconv_klist(idx, a, t, feats, w, kernel_size, qfeats=None,
 # ``launches_bf16`` the bf16 one (plain-version calls are not counted)
 cconv_klist.launches = cconv_klist.launches_bf16 = 0
 cconv_klist_bwd_data.launches = cconv_klist_bwd_data.launches_bf16 = 0
+# the largest dT workspace a data launch allocated, bytes (set it to 0 to
+# measure a span)
+cconv_klist_bwd_data.workspace_peak = 0
 cconv_klist_bwd_filter.launches = cconv_klist_bwd_filter.launches_bf16 = 0

@@ -1,5 +1,5 @@
-"""Layouts and parts of the column solver and the K-list filter-gradient
-kernel, timed on one card.
+"""Layouts and parts of the column solver and the K-list filter- and
+data-gradient kernels, timed on one card.
 
     python -m scripts.torch_redesign_variants [--splits train]
 
@@ -23,6 +23,23 @@ substitution whose text is not in the source stops the run) and times:
           wrong dW, its time only), without the product (``no_product``)
           and without the T build (``no_T``), and with the header's
           ``mma.sync`` not volatile (``mma_asm``)
+  data    at the WaterRamps trunk shape and the momentum model's K 48
+          (also with 80 sources: long runs a feats row), and K 256 shapes,
+          both variants, device time of the whole launch (the transposed
+          list included): as it is, with other block and in-flight
+          counts (``kDBlocks``, ``kDKB``), one channel a load in the slot
+          walk (``scalar``), the short runs sorted by the long runs'
+          bitonic network (``bitonic``: same outputs), and without the dT
+          product (``no_product``), the sort of a row's slots
+          (``no_sort``: the run summed unsorted), the slot walk's dA, da
+          and dt (``no_walk``: the slots still filed into the list, so the
+          source side reads only ids the launch wrote) or the dfeats sum
+          (``no_dfeats``); each part cut gives wrong outputs, its time
+          only, and takes no address from memory the launch did not
+          write; and the transposed list made by PyTorch ops instead (the
+          plain ``transposed_slots``) whole and by part: the key (clamp,
+          mask), the stable sort of int32 keys and of int16 ones, the
+          offsets (``searchsorted``)
 
 Needs a CUDA device and nvcc; imports only the port.
 """
@@ -62,6 +79,26 @@ FILTER = {
     "no_T": [("    klist::build_T<kTaps, kBF16>(p, T, p.LD, taps, tmask, q0, "
               "s0, nr, clo,\n                                 cw);", "")],
 }
+
+DATA = {"as_is": []}
+for const, base, alts in (("kDBlocks", 264, (132, 528)),):
+    for v in alts:
+        DATA[f"{const}{v}"] = [(f"constexpr int {const} = {base};",
+                                f"constexpr int {const} = {v};")]
+DATA["no_product"] = [("    if (!on) continue;  // uniform across the warp",
+                       "    if (true) continue;")]
+DATA["scalar"] = [("  p.vec4 = (Cin & 3) == 0 &&", "  p.vec4 = 0 &&")]
+_FR = "    const size_t fr = static_cast<size_t>(row) * p.Cin;"
+DATA["no_walk"] = [(_FR, "    if (true) return;\n" + _FR)]
+DATA["no_dfeats"] = [("  if (r >= p.N) return;", "  if (true) return;")]
+DATA["kDKB1"] = [("constexpr int kDKB = 4;", "constexpr int kDKB = 1;")]
+DATA["no_sort"] = [("    rank_sort(sb, sorted, len);",
+                     "    for (int i = lane; i < len; i += 32) "
+                     "sorted[i] = sb[i];")]
+DATA["bitonic"] = [("    rank_sort(sb, sorted, len);",
+                    "    warp_sort(sb, len);\n"
+                    "    for (int i = lane; i < len; i += 32) "
+                    "sorted[i] = sb[i];")]
 
 
 def build_variant(src_name, name, subs):
@@ -205,10 +242,128 @@ def filter_variants(root, dev):
     return out
 
 
+def pair_inputs(q, n, k, cin, cout, seed, device):
+    """A downsampling pair of the momentum model: Q queries and N sources,
+    apart, in a square, the radius sized to ~0.8 K sources a query,
+    kernel [1, 8, 8], poly6 window (so each source row has ~Q K / N
+    slots)."""
+    from dmcf_tpu_torch.ops import cconv, neighbors, windows
+
+    g = torch.Generator().manual_seed(seed)
+    side = 0.1
+    src = torch.rand((n, 3), generator=g) * side
+    qry = torch.rand((q, 3), generator=g) * side
+    src[:, 2] = qry[:, 2] = 0.0
+    radius = side * (0.8 * k / (n * np.pi)) ** 0.5
+    nl = neighbors.search(src, qry, radius, k)
+    idx, a, t = cconv.klist_geometry(nl, 2 * radius, (1, 8, 8),
+                                     window_fn=windows.get_window_func(
+                                         "poly6"))
+    feats = torch.randn((n, cin), generator=g)
+    w = torch.randn((64 * cin, cout), generator=g) * 0.1
+    return [x.to(device) for x in (idx, a, t, feats, w)], (1, 8, 8)
+
+
+def data_variants(root, dev):
+    import chip_smoke
+    import yaml
+    from dmcf_tpu_torch.kernels.cconv_klist import data_workspace_bytes
+    from dmcf_tpu_torch.profile_step import graph_ms
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+    from scripts.torch_redesign_ab import long_list_inputs
+
+    with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
+        cfg = yaml.safe_load(f)["model"]
+    sample = bench_sample(*build_scene(), device=dev)
+    i_, a_, t_, f_, w_, ks_, _ = chip_smoke.waterramps_shapes(
+        cfg, sample, dev)["trunk"]
+    shapes = {"trunk": ([i_, a_, t_, f_, w_], ks_),
+              "K48": long_list_inputs(320, 320, 48, 32, 32, 80, dev),
+              "K48_N80": pair_inputs(320, 80, 48, 4, 32, 81, dev),
+              "K256": long_list_inputs(80, 320, 256, 24, 4, 280, dev)}
+    libs = {}
+    for name, subs in DATA.items():
+        fn = build_variant("cconv_klist_bwd.cu", f"data_{name}",
+                           subs).cconv_klist_bwd_data_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        libs[name] = fn
+    out = {}
+    for shape, (xs, ks) in shapes.items():
+        idx, a, t, feats, w = xs
+        q, k = idx.shape
+        n, cin = feats.shape
+        cout = w.shape[1]
+        dout = torch.randn((q, cout), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(0))
+        outs = [torch.empty(q * k, dtype=torch.int32, device=dev),
+                torch.empty(n + 1, dtype=torch.int32, device=dev),
+                torch.empty((n, cin), device=dev), torch.empty_like(a),
+                torch.empty_like(t)]
+        for half in (0, 1):
+            fe, we = (feats.bfloat16(), w.bfloat16()) if half else (feats, w)
+            work = torch.empty(data_workspace_bytes(q, k, n, cin, cout, *ks,
+                                                    half),
+                               dtype=torch.uint8, device=dev)
+            row = {}
+            for name, fn in libs.items():
+                def call(fn=fn):
+                    err = fn(idx.data_ptr(), a.data_ptr(), t.data_ptr(),
+                             fe.data_ptr(), None, we.data_ptr(),
+                             dout.data_ptr(), outs[0].data_ptr(),
+                             outs[1].data_ptr(), work.data_ptr(),
+                             outs[2].data_ptr(), None, outs[3].data_ptr(),
+                             outs[4].data_ptr(), q, k, n, cin, cout, *ks,
+                             half, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"data {name}: error {err}")
+                row[name] = graph_ms(call)
+            out[f"{shape}_{'bf16' if half else 'fp32'}"] = row
+            print(f"data {shape} {'bf16' if half else 'fp32'}: " + ", ".join(
+                f"{k_} {v:.4f}" for k_, v in row.items()), flush=True)
+    return out
+
+
+def prep_variants(root, dev):
+    import chip_smoke
+    import yaml
+    from dmcf_tpu_torch.kernels.cconv_klist import transposed_slots
+    from dmcf_tpu_torch.profile_step import graph_ms
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+    from scripts.torch_redesign_ab import long_list_inputs
+
+    with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
+        cfg = yaml.safe_load(f)["model"]
+    sample = bench_sample(*build_scene(), device=dev)
+    i_, a_, *_ = chip_smoke.waterramps_shapes(cfg, sample, dev)["trunk"]
+    shapes = {"trunk": (i_, a_, i_.shape[0]),
+              "K256": long_list_inputs(80, 320, 256, 24, 4, 280, dev)[0][:2]
+              + [320]}
+    out = {}
+    for shape, (idx, a, n) in shapes.items():
+        key = idx.clamp(0, n - 1).masked_fill_(a == 0, n).reshape(-1)
+        rows = torch.sort(key, stable=True)[0]
+        ar = torch.arange(n + 1, dtype=rows.dtype, device=dev)
+        k16 = key.to(torch.int16)
+        row = {"whole": graph_ms(lambda: transposed_slots(idx, a, n)),
+               "key": graph_ms(lambda: idx.clamp(0, n - 1).masked_fill_(
+                   a == 0, n)),
+               "sort_int32": graph_ms(lambda: torch.sort(key, stable=True)),
+               "sort_int16": graph_ms(lambda: torch.sort(k16, stable=True)),
+               "offsets": graph_ms(lambda: torch.searchsorted(
+                   rows, ar, out_int32=True))}
+        out[shape] = row
+        print(f"prep {shape} ({key.numel()} slots): " + ", ".join(
+            f"{k_} {v:.4f}" for k_, v in row.items()), flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--splits", default="train")
-    ap.add_argument("--skip", default="", help="column,filter")
+    ap.add_argument("--skip", default="", help="column,filter,data,prep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_redesign_variants needs a CUDA device")
@@ -219,6 +374,10 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     out = {}
+    if "data" not in args.skip:
+        out["data"] = data_variants(root, dev)
+    if "prep" not in args.skip:
+        out["prep"] = prep_variants(root, dev)
     if "filter" not in args.skip:
         out["filter"] = filter_variants(root, dev)
     if "column" not in args.skip:

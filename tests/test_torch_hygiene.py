@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dmcf_tpu")
 PORT_FILES = sorted((ROOT / "dmcf_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_klist_phases.py",
     ROOT / "scripts" / "torch_redesign_ab.py",
-    ROOT / "scripts" / "torch_redesign_variants.py"]
+    ROOT / "scripts" / "torch_redesign_variants.py",
+    ROOT / "scripts" / "torch_bwd_flips.py"]
 
 
 def imported_modules(path):

@@ -7,27 +7,36 @@ suite's conftest sets up JAX, which a GPU machine need not have).
 Tolerances: the forward 2e-5 absolute (the kernel sums the K slots and the
 S*Cin filter product in another order than the twin's einsum/matmul; fp32,
 TF32 off); each backward gradient within 1e-5 of that gradient's largest
-reference entry (sums over slots and queries in another order, float
-atomics); a train step's parameter gradients, card against CPU, within
-1e-4 of each tensor's largest (fp32 through a two-step window of 25 convs).
+reference entry (sums over slots and queries in another order; every
+kernel is deterministic, two launches bitwise equal); a train step's
+parameter gradients, card against CPU, within 1e-4 of each tensor's
+largest (fp32 through a two-step window of 25 convs).
 The bf16 variants: the forward within 1e-4 of max |out| (sums taken in
 another order before T's bf16 rounding can move an element of T by one
 bf16 step); each backward gradient within 2e-3 of its max, where dfeats
 and dW, rounded to bf16 last, are compared apart from elements exactly one
-bf16 step from the plain version's (at most max(4, 1e-3 of them)); a
-train step's gradients card against CPU within 2e-2 of each tensor's max.
+bf16 step from the plain version's (at most max(4, 1e-3 of them)), and da
+and dt as the forward's T is held: the data kernel's dT (tensor cores,
+another sum order) one bf16 step from the plain dT at most max(4, 1e-3 of
+its elements), da and dt within 2e-3 of the max against the plain
+backward fed the kernel's dT, and beyond it against the plain backward
+itself only where dT flips were counted (``check_bf16_grads``); a train
+step's gradients card against CPU within 2e-2 of each tensor's max.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
+from dmcf_tpu_torch.kernels.cconv_klist import (_bwd_data_launch,
+                                                cconv_klist,
                                                 cconv_klist_bwd_data,
                                                 cconv_klist_bwd_filter,
                                                 cconv_klist_bwd_reference,
                                                 cconv_klist_reference,
-                                                rounding_flips)
+                                                bf16_data_flips,
+                                                rounding_flips,
+                                                transposed_slots)
 from dmcf_tpu_torch.ops import cconv, coords, neighbors, windows
 from dmcf_tpu_torch.models.pbf import drop_coincident
 
@@ -370,25 +379,40 @@ def test_bwd_kernels_match_reference(cuda, q, n, k, cin, cout, ksize,
         assert err <= 1e-5 * scale, (name, err, scale)
 
 
-def check_bf16_grads(got, ref, tol=2e-3):
+def check_bf16_grads(got, ref, inputs, tol=2e-3):
     """The bf16 backward's gradients against the plain backward's: dfeats
     and dw (rounded to bf16 last) apart from one-step rounding flips (~1e-4
-    of the elements on the card; at most max(4, 1e-3 of them)), da and dt
-    within ``tol`` of their max."""
+    of the elements on the card; at most max(4, 1e-3 of them)).  da and
+    dt as the bf16 forward's T is held (``bf16_data_flips``: the data
+    kernel's dT on the tensor cores can land one bf16 step from the plain
+    dT, and move dA downstream): dT's one-step flips at most max(4, 1e-3
+    of its elements), its other elements within 1e-4 of its max; da, dt
+    within ``tol`` of their max and dfeats as above against the plain
+    backward fed the kernel's dT; against the plain backward itself, an
+    element of da or dt beyond ``tol`` of the max only in a slot that
+    touches a tap row of its query where dT flipped.
+    ``inputs``: (dout, idx, a, t, feats, w, kernel_size)."""
     for name, g, want in zip(("dfeats", "dqfeats", "dw", "da", "dt"), got,
                              ref):
         if want is None:
             assert g is None, name
             continue
         assert torch.isfinite(g.float()).all(), name
-        scale = float(want.abs().max())
         if name in ("dfeats", "dw"):
             assert g.dtype == torch.bfloat16, name
             err, flips = rounding_flips(g, want)
             assert flips <= max(4, 1e-3 * want.numel()), (name, flips)
-        else:
-            err = float((g - want).abs().max())
-        assert err <= tol * scale, (name, err, scale)
+            assert err <= tol * float(want.abs().max()), (name, err)
+    if got[0] is None:
+        return
+    res = bf16_data_flips(*inputs, (got[0], got[3], got[4]), tol)
+    assert res["dT_flips"] <= max(4, 1e-3 * res["dT_elements"]), res
+    assert res["dT_err"] <= 1e-4 * res["dT_scale"], res
+    err, flips = res["forced"]["dfeats"]
+    assert flips <= max(4, 1e-3 * got[0].numel()), res
+    assert err <= tol * res["dfeats_scale"], res
+    assert res["forced"]["da"] <= tol and res["forced"]["dt"] <= tol, res
+    assert res["unexplained"] == {"da": 0, "dt": 0}, res
 
 
 @pytest.mark.parametrize("q,n,k,cin,cout,ksize,symmetric,geometry",
@@ -413,7 +437,8 @@ def test_bf16_bwd_kernels_match_reference(cuda, q, n, k, cin, cout, ksize,
             (cconv_klist_bwd_data, cconv_klist_bwd_filter)] == \
         [(c[0], c[1] + 1) for c in counts]
     check_bf16_grads((dfeats, dqfeats, dw, da, dt),
-                     cconv_klist_bwd_reference(*args, precision="default"))
+                     cconv_klist_bwd_reference(*args, precision="default"),
+                     args[:7])
 
 
 def test_bwd_kernels_clamped_idx(cuda):
@@ -478,7 +503,8 @@ def test_autograd_runs_the_bf16_bwd_kernels(cuda):
     got = [x.grad for x in leaves]
     assert all(g.dtype == torch.float32 for g in got)
     check_bf16_grads((got[2].bfloat16(), None, got[3].bfloat16(), got[0],
-                      got[1]), (dfeats, None, dw, da, dt))
+                      got[1]), (dfeats, None, dw, da, dt),
+                     (dout, idx, a, t, feats, w, (1, 8, 8)))
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
@@ -619,7 +645,7 @@ def test_kernels_at_the_new_configs_shapes(cuda, q, n, k, cin, cout, ksize,
     dw = cconv_klist_bwd_filter(*args, precision=precision)
     ref = cconv_klist_bwd_reference(*args, precision=precision)
     if bf16:
-        check_bf16_grads((dfeats, dqfeats, dw, da, dt), ref)
+        check_bf16_grads((dfeats, dqfeats, dw, da, dt), ref, args[:7])
         return
     for name, g_, want in zip(("dfeats", "dqfeats", "dw", "da", "dt"),
                               (dfeats, dqfeats, dw, da, dt), ref):
@@ -757,3 +783,84 @@ def test_filter_kernel_is_deterministic(cuda, q, n, k, cin, cout, ksize,
         assert err <= 2e-3 * scale, (err, scale)
     else:
         assert float((first - want).abs().max()) <= 1e-5 * scale
+
+
+DATA_DET_CASES = [c + (prec, "as_is") for c in FILTER_DET_CASES
+                  for prec in ("highest", "default")
+                  if prec == "highest" or not c[7]] + [
+    # most slots padded (idx 0, a 0: the row-0 pile-up the transposed list
+    # leaves out) and indices past the end (landing in row N-1)
+    (2688, 2688, 40, 32, 32, (1, 8, 8), 2, False, prec, variant)
+    for variant in ("padded", "clamped") for prec in ("highest", "default")]
+
+
+@pytest.mark.parametrize(
+    "q,n,k,cin,cout,ksize,dim,symmetric,precision,variant", DATA_DET_CASES,
+    ids=[f"{name}_{prec}" for name, c in zip(
+        ("trunk", "K256", "S216_sym", "Cin8192", "Cout256", "Q1001"),
+        FILTER_DET_CASES) for prec in ("fp32", "bf16")
+        if prec == "fp32" or not c[7]]
+    + [f"{v}_{p}" for v in ("padded", "clamped") for p in ("fp32", "bf16")])
+def test_data_kernel_is_deterministic(cuda, q, n, k, cin, cout, ksize, dim,
+                                      symmetric, precision, variant):
+    """The data kernels sum dfeats a feats row at a time through the
+    transposed neighbour list, in ascending slot id, and dqfeats, da and dt
+    with one writer each: two launches give the same bits for all four,
+    in both variants, and stay within the plain backward's tolerance."""
+    (idx, a, t, feats, w), qf, _ = cloud_inputs(
+        q, n, k, cin, cout, ksize, dim, symmetric, 17, cuda)
+    if variant == "padded":
+        pad = torch.from_numpy(np.random.RandomState(3).rand(q, k) < 0.9)
+        pad = pad.to(cuda)
+        idx = torch.where(pad, 0, idx).contiguous()
+        a = torch.where(pad, 0.0, a).contiguous()
+    elif variant == "clamped":
+        feats = feats[:40].contiguous()
+        assert int(idx.max()) >= 40
+    dout = torch.randn((q, cout), device=cuda)
+    args = (dout, idx, a, t, feats, w, ksize, qf)
+    first = cconv_klist_bwd_data(*args, precision=precision)
+    second = cconv_klist_bwd_data(*args, precision=precision)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dfeats", "dqfeats", "da", "dt"), first, second):
+        assert (x is None and y is None) or torch.equal(x, y), name
+    ref = cconv_klist_bwd_reference(*args, precision=precision)
+    if variant == "clamped":
+        assert float(first[0][39].abs().max()) > 0
+    got = (first[0], first[1], None, first[2], first[3])
+    if precision == "default":
+        check_bf16_grads(got, ref[:2] + (None,) + ref[3:], args[:7])
+        return
+    for name, g_, want in zip(("dfeats", "dqfeats", "dw", "da", "dt"), got,
+                              ref):
+        if name == "dw" or want is None:
+            assert g_ is None, name
+            continue
+        scale = float(want.abs().max())
+        assert float((g_ - want).abs().max()) <= 1e-5 * scale, name
+
+
+@pytest.mark.parametrize("variant", ["as_is", "padded", "clamped"])
+def test_data_kernel_transposed_list_matches_plain(cuda, variant):
+    """The transposed neighbour list the data launch builds on the card
+    (the rows' counts and offsets, each slot filed into its row's run, each
+    run sorted) is ``transposed_slots``'s, element for element over the
+    listed slots (the card leaves the rest of ``order`` undefined)."""
+    (idx, a, t, feats, w), _, _ = cloud_inputs(
+        2688, 2688, 40, 32, 32, (1, 8, 8), 2, False, 19, cuda)
+    if variant == "padded":
+        pad = torch.from_numpy(np.random.RandomState(4).rand(2688, 40)
+                               < 0.9).to(cuda)
+        idx = torch.where(pad, 0, idx).contiguous()
+        a = torch.where(pad, 0.0, a).contiguous()
+    elif variant == "clamped":
+        feats = feats[:40].contiguous()
+    dout = torch.randn((2688, 32), device=cuda)
+    *_, order, offsets = _bwd_data_launch(dout, idx, a, t, feats, w,
+                                          (1, 8, 8), None)
+    want_order, want_offsets = transposed_slots(idx.cpu(), a.cpu(),
+                                                feats.shape[0])
+    torch.cuda.synchronize()
+    assert torch.equal(offsets.cpu(), want_offsets)
+    listed = int(want_offsets[-1])
+    assert torch.equal(order.cpu()[:listed], want_order[:listed])

@@ -39,7 +39,15 @@ protocol on a generated scene of the canyon's size (``bench.bench_canyon``
 with the cell search, the contact crop, every K-list launch of its first
 step held against its plain version, the searches against each other and
 the CPU, and lazy dense pairs against eager ones; phase 19) and
-``run_sample``'s inflow regime (phase 20), and prints one
+``run_sample``'s inflow regime (phase 20), runs the model options on two
+paths (phase 21: WaterRamps' SymNet with the farthest-point pyramid, on
+the hand-written ``csrc/fps.cu``, density and pressure features,
+``dens_norm`` and the pre-advection branch; phase 22:
+``column/hrnet.yml`` with the farthest-point pyramid, the equivariant
+output, circular kernels, an extra per-scale conv and transposed
+searches: each FPS launch of the first steps bitwise against its plain
+version, each inverted list against a search, a 100-step rollout under
+the gate, card vs CPU, a train step), and prints one
 ``kernels`` JSON line (each kernel variant, its launches on each path),
 the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
 kernel's ``ms`` is the mean of calls issued back to back (CUDA events
@@ -94,8 +102,11 @@ TRAIN_ITERS = 20             # phase 11's run_train iterations
 DRIFT_BOUND = 1e-4
 
 
+_START = time.time()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.time() - _START:.1f} s)", flush=True)
 
 
 def bf16(kw):
@@ -489,6 +500,7 @@ def valid_phase(root, dev):
     from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
                                                     cconv_klist_reference)
     from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.models.layers import ContinuousConv
     from dmcf_tpu_torch.models.losses import density_loss
     from dmcf_tpu_torch.ops.emd import emd_loss
     from dmcf_tpu_torch.ops.windows import get_window_func
@@ -523,8 +535,7 @@ def valid_phase(root, dev):
     # each ContinuousConv runs once a step: the 2 scale-0 convs, every
     # (output scale, input scale) pair of every trunk layer, the ASCC stack
     n_sym = len(model.sym_convs)       # fp32 (ASCC) launches a step
-    per_step = 2 + sum(len(row) for layer in model.convs for row in layer) \
-        + n_sym
+    per_step = sum(isinstance(m, ContinuousConv) for m in model.modules())
     half = model.precision != "highest"
     per_variant = ([n_sym, per_step - n_sym] if half else [per_step, 0])
     seqs = sequences(dg["scale"])
@@ -772,23 +783,30 @@ def counts():
 
 
 def zero_counts():
+    """Every kernel's launch counts to 0 (``counts`` and
+    ``fps_launches`` read them)."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
         cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
+    from dmcf_tpu_torch.kernels.fps import farthest_point_sample
     for f in (cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter):
         f.launches = f.launches_bf16 = 0
+    farthest_point_sample.launches = 0
 
 
-def expected_train_launches(items, window, convs, bf16_convs):
+def expected_train_launches(items, window, convs, bf16_convs,
+                            step0_free=2):
     """Launches of one train step over ``items`` items, as ``counts``
     orders them, of a model with ``convs`` K-list convs of which
     ``bf16_convs`` (the scale-0 and trunk convs at the default precision)
     run the bf16 variants: each variant's forward kernel twice a conv a
     step (the forward and its recompute under the per-step checkpoint), its
     filter kernel once a conv a step, its data kernel the same but for the
-    two scale-0 convs of step 0, whose inputs (the detached starting state)
-    take no gradient."""
+    ``step0_free`` scale-0 convs of step 0 (two, three with the
+    pre-advection conv), whose inputs (the detached starting state) take
+    no gradient."""
     n = {False: convs - bf16_convs, True: bf16_convs}
-    scale0 = {False: 2 - min(2, bf16_convs), True: min(2, bf16_convs)}
+    scale0 = {False: step0_free - min(step0_free, bf16_convs),
+              True: min(step0_free, bf16_convs)}
     out = [0] * 6
     for half in (False, True):
         out[int(half)] = 2 * items * window * n[half]
@@ -983,63 +1001,6 @@ def fp32_train_phase(root, dev, steps=3):
           f"(want {want})")
     check(got == want, f"fp32 train launches {got} == {want}")
     return step_s
-
-
-def waterramps_train_phase(root, dev, model, sample, klist, klist_bf16,
-                           batch_size=None):
-    """Phase 12: one WaterRamps train step at the config's first
-    curriculum stage (batch 16, window 3, ``dense_n_chunk`` 256) and its
-    precision (a bf16 trunk) on a 4-frame sequence the port's rollout makes
-    from the bench scene: time, peak device memory, a finite loss, the
-    launches of each kernel variant counted exactly (``klist`` K-list convs
-    a step, ``klist_bf16`` of them bf16).  ``batch_size`` replaces the
-    config's (its items are copies of one sequence)."""
-    import yaml
-
-    from dmcf_tpu_torch.models.losses import get_loss
-    from dmcf_tpu_torch.pipelines.simulator import (make_optimizer,
-                                                    make_train_step)
-    from dmcf_tpu_torch.rollout import rollout
-
-    with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
-        cfg = yaml.safe_load(f)
-    batch_size = batch_size or int(cfg["pipeline"]["batch_size"])
-    window = int(cfg["pipeline"]["windows"][0])
-    n = sample["pos"].shape[0]
-    frames = (torch.empty((window + 1, n, 3), device=dev),
-              torch.empty((window + 1, n, 3), device=dev))
-    rollout(model, sample, window, frames=frames)
-    batch = {"pos": frames[0], "vel": frames[1],
-             "grav": sample["grav"].expand(window + 1, n, 3)}
-    batch = {k: v[None].expand(batch_size, *v.shape).contiguous()
-             for k, v in batch.items()}
-    for k in ("box", "box_normals", "fluid_mask", "box_mask"):
-        batch[k] = sample[k][None].expand(batch_size, *sample[k].shape)
-    batch["pre"] = torch.zeros(batch_size, dtype=torch.int32, device=dev)
-    loss = {k: get_loss(**v) for k, v in cfg["model"]["loss"].items()}
-    step = make_train_step(model, loss, *make_optimizer(
-        model, cfg["pipeline"]["optimizer"]), window=window)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    zero_counts()                # the WaterRamps training path starts here
-    t0 = time.time()
-    lvec, _, stats = step(batch, np.ones(window, np.float32))
-    torch.cuda.synchronize()
-    seconds = time.time() - t0
-    launches = counts()          # and ends here
-    peak = torch.cuda.max_memory_allocated(dev)
-    want = expected_train_launches(batch_size, window, klist, klist_bf16)
-    print(f"  batch {batch_size} x window {window}, {n} fluid rows: "
-          f"{seconds:.3f} s, peak memory allocated {peak / 2 ** 30:.3f} GiB"
-          f", loss {float(lvec.sum()):.6e}, max_neighbors "
-          f"{float(stats['max_neighbors']):.0f}, pair_overflow "
-          f"{float(stats['pair_overflow']):.0f}; launches {launches} (want "
-          f"{want}: {klist} K-list convs a step, {klist_bf16} bf16)")
-    check(bool(torch.isfinite(lvec).all()), "finite WaterRamps loss")
-    check(launches == want, f"WaterRamps train launches {launches}")
-    check(all(bool(torch.isfinite(p.grad).all())
-              for p in model.parameters()), "finite WaterRamps gradients")
-    return {"launches": launches, "seconds": seconds, "peak_bytes": peak}
 
 
 def waterramps_shapes(cfg, sample, dev):
@@ -1441,13 +1402,18 @@ def launch_checks(log, what, max_err):
 
 
 def train_step_phase(root, cfg_path, dev, model, sample, what,
-                     batch_size=None):
+                     batch_size=None, step0_free=2, cpu_check=False):
     """One train step at the config's batch (or ``batch_size``: its items
     are copies of one sequence) and first window (its first curriculum
-    stage, its precision) on a sequence the port's rollout makes from
-    ``sample``: time, peak device memory, a finite loss and gradients,
-    each kernel variant's launches counted exactly against the forward
-    launches of one step of ``model`` on ``sample``."""
+    stage, the model's precision) on a sequence the port's rollout makes
+    from ``sample``, its targets moved by seeded noise of 1e-3 (else every
+    residual is 0): time, peak device memory, a finite loss and gradients,
+    each K-list variant's and the FPS kernel's launches counted exactly
+    against the forward launches of one step of ``model`` on ``sample``
+    (``expected_train_launches`` with ``step0_free``; FPS twice an item a
+    window step).  With ``cpu_check`` the step also runs on a CPU copy of
+    ``model`` made before it: the loss within 1e-4 and every parameter's
+    gradient within GRAD_TOL of that tensor's largest CPU element."""
     import yaml
 
     from dmcf_tpu_torch.models.losses import get_loss
@@ -1459,50 +1425,119 @@ def train_step_phase(root, cfg_path, dev, model, sample, what,
         cfg = yaml.safe_load(f)
     batch_size = batch_size or int(cfg["pipeline"]["batch_size"])
     window = int(cfg["pipeline"]["windows"][0])
+    cpu_model = copy.deepcopy(model).to("cpu") if cpu_check else None
     zero_counts()
     with torch.no_grad():
         model(sample)
-    fwd = counts()[:2]           # K-list launches of one forward step
+    fwd, fps_fwd = counts()[:2], fps_launches()   # one forward step's
     n = sample["pos"].shape[0]
     frames = (torch.empty((window + 1, n, 3), device=dev),
               torch.empty((window + 1, n, 3), device=dev))
     rollout(model, sample, window, frames=frames)
-    batch = {"pos": frames[0], "vel": frames[1],
-             "grav": sample["grav"].expand(window + 1, n, 3)}
+    jitter = np.random.RandomState(0).normal(
+        scale=1e-3, size=(window, n, 3)).astype(np.float32)
+    frames[0][1:] += torch.from_numpy(jitter).to(dev) \
+        * sample["fluid_mask"][:, None]
+    batch = {"pos": frames[0], "vel": frames[1]}
+    if sample.get("grav") is not None:
+        batch["grav"] = sample["grav"].expand(window + 1, n, 3)
     batch = {k: v[None].expand(batch_size, *v.shape).contiguous()
              for k, v in batch.items()}
     for k in ("box", "box_normals", "fluid_mask", "box_mask"):
         batch[k] = sample[k][None].expand(batch_size, *sample[k].shape)
     batch["pre"] = torch.zeros(batch_size, dtype=torch.int32, device=dev)
     loss = {k: get_loss(**v) for k, v in cfg["model"]["loss"].items()}
-    step = make_train_step(model, loss, *make_optimizer(
-        model, cfg["pipeline"]["optimizer"]), window=window)
+    steps = [make_train_step(m, loss, *make_optimizer(
+        m, cfg["pipeline"]["optimizer"]), window=window)
+        for m in (model, cpu_model) if m is not None]
+    time_w = np.ones(window, np.float32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_bwd_data
     cconv_klist_bwd_data.workspace_peak = 0
     zero_counts()                # this training path starts here
     t0 = time.time()
-    lvec, _, stats = step(batch, np.ones(window, np.float32))
+    lvec, _, stats = steps[0](batch, time_w)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = counts()          # and ends here
+    launches = counts() + [fps_launches()]          # and ends here
     peak = torch.cuda.max_memory_allocated(dev)
-    want = expected_train_launches(batch_size, window, sum(fwd), fwd[1])
+    want = expected_train_launches(batch_size, window, sum(fwd), fwd[1],
+                                   step0_free=step0_free) \
+        + [2 * batch_size * window * fps_fwd]
     print(f"  {what} train step, batch {batch_size} x window {window}, "
           f"{n} fluid rows: {seconds:.3f} s, peak memory allocated "
           f"{peak / 2 ** 30:.3f} GiB, loss {float(lvec.sum()):.6e}, "
           f"pair_overflow {float(stats['pair_overflow']):.0f}; launches "
           f"(fp32, bf16) fwd {launches[0:2]} bwd_data {launches[2:4]} "
-          f"bwd_filter {launches[4:6]} (want {want}: {fwd} forward "
-          f"launches a step); largest data-kernel workspace "
+          f"bwd_filter {launches[4:6]} fps {launches[6]} (want {want}: "
+          f"{fwd} K-list and {fps_fwd} FPS launches a forward step); "
+          f"largest data-kernel workspace "
           f"{cconv_klist_bwd_data.workspace_peak} B")
     check(bool(torch.isfinite(lvec).all()), f"finite {what} loss")
     check(launches == want, f"{what} train launches {launches}")
     check(all(bool(torch.isfinite(p.grad).all())
               for p in model.parameters() if p.grad is not None),
           f"finite {what} gradients")
-    return {"launches": launches, "seconds": seconds, "peak_bytes": peak}
+    out = {"launches": launches, "seconds": seconds, "peak_bytes": peak}
+    if cpu_model is None:
+        return out
+    lc, _, _ = steps[1]({k: v.cpu() for k, v in batch.items()}, time_w)
+    close(lvec.sum(), lc.sum(), 1e-4, 0.0, f"{what} train loss")
+    worst, zero = 0.0, []
+    for (name, pg), (_, pc) in zip(model.named_parameters(),
+                                   cpu_model.named_parameters()):
+        check(pg.grad is not None and pc.grad is not None,
+              f"{what} {name}: a gradient")
+        scale = float(pc.grad.abs().max())
+        err = float((pg.grad.cpu() - pc.grad).abs().max())
+        check(err <= GRAD_TOL * scale,
+              f"{what} {name}: grad card vs CPU {err} > {GRAD_TOL} x {scale}")
+        worst = max(worst, err / scale if scale else err)
+        if scale == 0:
+            zero.append(name)
+    print(f"  gradients card vs CPU within {worst:.2e} of each tensor's max "
+          f"(tol {GRAD_TOL}); zero gradients: {zero}")
+    return dict(out, grad_rel_err=worst)
+
+
+def gated_rollout(model, sample, steps, what, log, fps_per_step=0,
+                  momentum=False):
+    """A rollout phase's main path: a ``steps``-step rollout
+    (``bench.timed_rollout``) under the exactness gate, finite fluid rows,
+    its peak memory, the K-list launches (fp32, bf16) counted exactly
+    against the recorded step ``log`` and the FPS launches against
+    ``fps_per_step``; with ``momentum``, the ASCC output's momentum ratio
+    |sum out| / sum |out| after it (below 1e-5)."""
+    from dmcf_tpu_torch.bench import timed_rollout
+    from dmcf_tpu_torch.profile_step import record_launches
+
+    dev = sample["pos"].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                # the rollout starts here
+    pos, vel, gate, dt = timed_rollout(model, sample, steps)
+    launches = counts()[:2] + [fps_launches()]      # and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = 1e3 * dt / steps
+    want = [steps * x for x in counts_of(log)] + [steps * fps_per_step]
+    print(f"  {steps}-step rollout: {ms:.3f} ms/step, peak "
+          f"{peak / 2 ** 30:.3f} GiB, gate {gate}, launches K-list (fp32, "
+          f"bf16) and FPS {launches} (want {want})")
+    check(bool(torch.isfinite(pos[sample["fluid_mask"]]).all()),
+          f"finite {what} rollout")
+    check(gate["exact"], f"{what} exactness gate {gate}")
+    check(launches == want, f"{what} rollout launches {launches}")
+    ratio = None
+    if momentum:
+        _, end_log = record_launches(model, dict(sample, pos=pos, vel=vel))
+        sym = [o for n_, _, _, o in end_log if n_ == "sym_conv0"][0]
+        ratio = float((sym.sum(0).abs() / sym.abs().sum()).max())
+        print(f"  ASCC output after the rollout: |sum out| / sum |out| "
+              f"{ratio:.3e} (< 1e-5)")
+        check(ratio < 1e-5, f"{what} ASCC momentum ratio {ratio}")
+    return {"launches": launches, "ms_per_step": ms, "peak_bytes": peak,
+            "gate": gate, "momentum_ratio": ratio}
 
 
 def dropped(counts, caps):
@@ -1522,7 +1557,6 @@ def liquid3d_phase(root, dev, max_err):
     train step at the config's batch 8, window 2."""
     import yaml
 
-    from dmcf_tpu_torch.bench import timed_rollout
     from dmcf_tpu_torch.models import build_model
     from dmcf_tpu_torch.profile_step import record_launches
     from dmcf_tpu_torch.scene import bench_sample
@@ -1556,12 +1590,9 @@ def liquid3d_phase(root, dev, max_err):
               and int(np.prod(a_[5])) == 216 and a_[0].shape[1] == 96) == 1,
           "one symmetric S 216 ASCC launch")
     print(f"  convs chunked over K (launches): {chunked}")
-    zero_counts()                # the Liquid3d rollout starts here
-    pos_t, vel_t, gate, dt = timed_rollout(model, sample, LIQUID_STEPS)
-    launches = counts()[:2]      # and ends here
-    fm = sample["fluid_mask"]
-    print(f"  {LIQUID_STEPS}-step rollout: {1e3 * dt / LIQUID_STEPS:.3f} "
-          f"ms/step, gate {gate}, launches {launches}")
+    run = gated_rollout(model, sample, LIQUID_STEPS, "Liquid3d", log,
+                        momentum=True)
+    gate = run["gate"]
     # a scale over its cap drops voxels (the JAX package's pyramid counts
     # the same on this scene: scripts/liquid_pyramid.py); these timings
     # are those of the pyramid so cut, not of the uncut model
@@ -1569,21 +1600,10 @@ def liquid3d_phase(root, dev, max_err):
           f"{dropped(aux['scale_counts'], aux['scale_caps'])}, most over "
           f"the rollout {dropped(gate['scale_counts'], gate['scale_caps'])}"
           f" (scales_fit {gate['scales_fit']})")
-    check(bool(torch.isfinite(pos_t[fm]).all()), "finite Liquid3d rollout")
-    check(gate["exact"], f"Liquid3d exactness gate {gate}")
-    check(launches == [LIQUID_STEPS * x for x in step],
-          f"Liquid3d rollout launches {launches}")
-    end = dict(sample, pos=pos_t, vel=vel_t)
-    _, end_log = record_launches(model, end)
-    sym = [o for n_, _, _, o in end_log if n_ == "sym_conv0"][0]
-    ratio = float((sym.sum(0).abs() / sym.abs().sum()).max())
-    print(f"  ASCC output after the rollout: |sum out| / sum |out| "
-          f"{ratio:.3e} (< 1e-5)")
-    check(ratio < 1e-5, f"Liquid3d ASCC momentum ratio {ratio}")
     train = train_step_phase(root, "Liquid3d.yml", dev, model, sample,
                              "Liquid3d")
-    return {"step": step, "rollout_launches": launches, "train": train,
-            "ms_per_step": 1e3 * dt / LIQUID_STEPS, "gate": gate,
+    return {"step": step, "rollout_launches": run["launches"],
+            "train": train, "ms_per_step": run["ms_per_step"], "gate": gate,
             "dropped": dropped(gate["scale_counts"], gate["scale_caps"])}
 
 
@@ -2054,6 +2074,302 @@ def inflow_phase(root, dev):
             "exact": exact}
 
 
+OPTION_STEPS = 100           # phases 21-22: each option path's rollout
+OPTION_CHECKED = 5           # its first steps: every FPS launch vs plain
+OPTION_BATCH = 2             # its train step (at "highest"; the config's
+                             # first window, 3 on both paths)
+# phase 21 (path A): WaterRamps' SymNet with the FPS pyramid, density and
+# pressure features, dens_norm and the pre-advection branch; phase 22
+# (path B): column/hrnet.yml with the FPS pyramid, the equivariant output,
+# circular kernels, one extra conv at scale 0 of layer 1 (at the config's
+# own width) and transposed searches (its K-list pairs run both ways
+# between 4 scales at one radius; path A's downward pairs are dense)
+PATH_A = dict(voxel_size=None, dens_feats=True, pres_feats=True,
+              dens_norm=True, use_pre_adv=True)
+PATH_B = dict(voxel_size=None, equivar=True, circular=True,
+              transpose_search_reuse=True,
+              layer_channels=[[[8]], [[16, 16], [8], [4], [4]],
+                              [[16], [8], [4], [4]], [[16]], [[1]]])
+
+
+def fps_launches():
+    from dmcf_tpu_torch.kernels.fps import farthest_point_sample
+    return farthest_point_sample.launches
+
+
+class CheckedFps:
+    """Within: each FPS kernel launch the model makes held against the
+    plain version on the same inputs, its inputs kept with the largest
+    absolute difference of any output element (idx as integers, the
+    selection mask as 0 / 1; 0 where the two are bitwise equal); the
+    plain calls count no launch."""
+
+    def __init__(self):
+        self.log = []
+
+    def __enter__(self):
+        from dmcf_tpu_torch.kernels import fps
+        from dmcf_tpu_torch.ops import sph
+
+        def call(pos, mask, sample_max, count):
+            idx, sel = fps.farthest_point_sample(pos, mask, sample_max,
+                                                 count)
+            ref = fps.farthest_point_sample_reference(pos, mask, sample_max,
+                                                      count)
+            err = max(int((idx.long() - ref[0].long()).abs().max()),
+                      int((sel.int() - ref[1].int()).abs().max()))
+            self.log.append(((pos, mask, sample_max, count), err))
+            return idx, sel
+
+        sph.farthest_point_sample = call
+        return self
+
+    def __exit__(self, *exc):
+        from dmcf_tpu_torch.kernels.fps import farthest_point_sample
+        from dmcf_tpu_torch.ops import sph
+        sph.farthest_point_sample = farthest_point_sample
+
+
+class CheckedInversions:
+    """Within: each neighbour list that a ``SearchCache`` makes by
+    inverting its transposed pair's list (``transpose_search_reuse``)
+    held against the search it stands in for (``same_sets``: the same
+    neighbour sets and counts), and each call of a conv of ``model`` fed
+    such a list counted (``fed``)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.checked, self.fed = [], 0
+
+    def __enter__(self):
+        from dmcf_tpu_torch.models import pbf
+        from dmcf_tpu_torch.models.layers import ContinuousConv
+        from dmcf_tpu_torch.ops.neighbors import search
+
+        made = []
+        invert, get = pbf.invert_neighbors_list, pbf.SearchCache.get
+        self._orig = invert, get
+
+        def inverting(*args, **kw):
+            made.append(invert(*args, **kw))
+            return made[-1]
+
+        def checked_get(cache, src, dst, radius, points, pmask, queries,
+                        qmask, occ_cap=None, k=None):
+            n = len(made)
+            nl = get(cache, src, dst, radius, points, pmask, queries, qmask,
+                     occ_cap=occ_cap, k=k)
+            if len(made) > n:    # this call inverted the transposed list
+                ref = search(points, queries, radius, k or cache.k,
+                             method=cache.method, points_mask=pmask,
+                             queries_mask=qmask,
+                             occ_cap=occ_cap or cache.occ_cap)
+                self.checked.append(((src, dst, float(radius)),
+                                     same_sets(nl, ref)))
+            return nl
+
+        def count_fed(mod, args):
+            if len(args) > 4 and any(args[4] is nl for nl in made):
+                self.fed += 1
+
+        pbf.invert_neighbors_list = inverting
+        pbf.SearchCache.get = checked_get
+        self._hooks = [m.register_forward_pre_hook(count_fed)
+                       for m in self.model.modules()
+                       if isinstance(m, ContinuousConv)]
+        return self
+
+    def __exit__(self, *exc):
+        from dmcf_tpu_torch.models import pbf
+        pbf.invert_neighbors_list, pbf.SearchCache.get = self._orig
+        for h in self._hooks:
+            h.remove()
+
+
+def fps_bound(pos, mask, sample_max):
+    """Least time of one FPS call: bytes (positions and mask read once,
+    the count, idx and the selection mask written once) over the memory
+    rate, or operations (each pick after the first: each valid row's
+    distance to the last pick, 3 subtractions, a product, two fused
+    multiply-adds at 2 each, and a minimum, 9 fp32 operations) over the
+    fp32 rate, whichever is larger.  Returns (ms, by, bytes, operations);
+    the latency floor (sample_max dependent picks) is not in it."""
+    b = pos.shape[0] if pos.dim() == 3 else 1
+    n = pos.shape[-2]
+    nbytes = b * (13 * n + 4 + 5 * sample_max)
+    ops = 9 * int(mask.sum()) * (sample_max - 1)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def fps_times(log):
+    """The FPS kernel at each distinct (rows, sample_max) of ``log``: ms of
+    calls back to back, device ms (graph replay), the plain version's ms
+    and the bound (after the main path's counts are read)."""
+    from dmcf_tpu_torch.kernels.fps import (farthest_point_sample,
+                                            farthest_point_sample_reference)
+    from dmcf_tpu_torch.profile_step import graph_ms
+    out = {}
+    for (pos, mask, s, count), _ in log:
+        key = (pos.shape[-2], s)
+        if key in out:
+            continue
+        ms = cuda_ms(lambda: farthest_point_sample(pos, mask, s, count),
+                     iters=20)
+        d_ms = graph_ms(lambda: farthest_point_sample(pos, mask, s, count))
+        p_ms = cuda_ms(lambda: farthest_point_sample_reference(
+            pos, mask, s, count), iters=2, warmup=1)
+        b_ms, b_by, nbytes, ops = fps_bound(pos, mask, s)
+        out[key] = dict(ms=ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by=b_by)
+        print(f"  fps N {key[0]} sample_max {s} valid {int(mask.sum())}: "
+              f"kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {nbytes} B, "
+              f"{ops} FLOP), latency floor {s} dependent picks")
+    return out
+
+
+def option_phase(root, what, cfg_path, overrides, sample, dev,
+                 fps_per_step, step0_free, max_err, momentum=False,
+                 inverted=False):
+    """Phases 21-22: one option path, ``configs/<cfg_path>``'s model with
+    ``overrides`` at its precision (seed-0 weights): its first
+    OPTION_CHECKED steps with every FPS launch held against the plain
+    version bit for bit, every K-list launch of the first step against
+    its plain version and, with ``inverted``, every list inverted from its
+    transpose (``transpose_search_reuse``) against the search it stands
+    in for, at least one of them fed to a conv; then the main path, an
+    OPTION_STEPS-step rollout (``gated_rollout``, FPS exactly
+    ``fps_per_step`` a step), its device time a step (profiler), each FPS
+    shape timed; then at "highest" one step card vs CPU (the correction
+    within 1e-4 of its max) and one train step card vs CPU
+    (``train_step_phase``, batch OPTION_BATCH)."""
+    import yaml
+
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.profile_step import record_launches, trace
+    from dmcf_tpu_torch.rollout import rollout
+
+    with open(os.path.join(root, "configs", cfg_path)) as f:
+        cfg = dict(yaml.safe_load(f)["model"], **overrides)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    fm = sample["fluid_mask"]
+    rows = sample["pos"].shape[0] + sample["box"].shape[0]
+    print(f"  {what}: {int(fm.sum())} fluid + {int(sample['box_mask'].sum())}"
+          f" boundary particles in {rows} rows, precision "
+          f"{model.precision}")
+    with CheckedFps() as chk, CheckedInversions(model) as inv:
+        (_, _, aux), log = record_launches(model, sample)
+        rollout(model, sample, OPTION_CHECKED - 1)
+    torch.cuda.synchronize()
+    fps_err = max(err for _, err in chk.log)
+    print(f"  FPS launches of the first {OPTION_CHECKED} steps: "
+          f"{len(chk.log)}, bitwise equal to the plain version: "
+          f"{sum(err == 0 for _, err in chk.log)}, largest difference "
+          f"{fps_err} (shapes "
+          f"{sorted({(a[0].shape[-2], a[2]) for a, _ in chk.log})})")
+    check(len(chk.log) == fps_per_step * OPTION_CHECKED,
+          f"{what}: {len(chk.log)} FPS launches in {OPTION_CHECKED} steps")
+    check(fps_err == 0, f"{what}: FPS kernel vs plain")
+    pairs = sorted({key for key, _ in inv.checked})
+    print(f"  lists inverted from their transpose in the first "
+          f"{OPTION_CHECKED} steps: {len(inv.checked)} (pairs {pairs}), "
+          f"equal to a search of the pair: "
+          f"{sum(eq for _, eq in inv.checked)}; conv calls fed one: "
+          f"{inv.fed}")
+    check(all(eq for _, eq in inv.checked),
+          f"{what}: inverted lists = searches")
+    check(bool(inv.fed) == inverted, f"{what}: {inv.fed} conv calls fed "
+          f"an inverted list (transpose_search_reuse {inverted})")
+    excess = {k: int(v) for k, v in aux["pair_overflow_detail"].items()}
+    print(f"  first step: pair excess {excess}, scale counts "
+          f"{aux['scale_counts'].tolist()} caps "
+          f"{aux['scale_caps'].tolist()}")
+    launch_checks(log, what, max_err)
+    with torch.no_grad():
+        model(sample)                            # warm-up step
+    run = gated_rollout(model, sample, OPTION_STEPS, what, log,
+                        fps_per_step=fps_per_step, momentum=momentum)
+    with torch.no_grad():
+        report = trace(lambda: model(sample), reps=3, top=8)
+    print(f"  device time {report['device_ms_per_step']:.3f} ms a step in "
+          f"{report['kernel_launches_per_step']} kernel launches, busy "
+          f"share {report['device_busy_share']:.3f} of "
+          f"{report['profiled_ms_per_step']:.3f} ms")
+    times = fps_times(chk.log)
+
+    # card vs CPU at "highest"
+    exact = build_model(dict(cfg, precision="highest"), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(exact).to("cpu")
+    with torch.no_grad():
+        pg, _, ag = exact(sample)
+        pc, _, ac = cpu_model({k: v.cpu() for k, v in sample.items()})
+    want = ac["pos_correction"]
+    scale = float(want.abs().max())
+    err = float((ag["pos_correction"].cpu() - want).abs().max())
+    print(f"  one step at highest, card vs CPU: pos_correction max diff "
+          f"{err:.3e} of max {scale:.3e} (tol 1e-4 of it); positions "
+          f"{float((pg.cpu() - pc).abs().max()):.3e}")
+    check(scale > 0 and err <= 1e-4 * scale,
+          f"{what}: card vs CPU pos_correction {err}")
+    train = train_step_phase(root, cfg_path, dev, exact, sample, what,
+                             batch_size=OPTION_BATCH, step0_free=step0_free,
+                             cpu_check=True)
+    return dict(run, fps=times, fps_max_abs_err=fps_err,
+                fps_checked=len(chk.log), inverted=len(inv.checked),
+                inverted_fed=inv.fed,
+                device_ms=report["device_ms_per_step"],
+                device_launches=report["kernel_launches_per_step"],
+                card_cpu_err=err / scale, train=train)
+
+
+def counts_of(log):
+    """K-list launches (fp32, bf16) in a recorded step's log."""
+    n_bf16 = sum(bf16(kw) for _, _, kw, _ in log)
+    return [len(log) - n_bf16, n_bf16]
+
+
+def path_a_phase(root, dev, max_err):
+    """Phase 21: path A, configs/WaterRamps.yml's SymNet at full width and
+    depth (its bf16 trunk) with PATH_A's options on the bench scene."""
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+    sample = bench_sample(*build_scene(), device=dev)
+    return option_phase(root, "path A", "WaterRamps.yml", PATH_A, sample,
+                        dev, 2, 3, max_err, momentum=True)
+
+
+def path_b_phase(root, dev, max_err):
+    """Phase 22: path B, configs/column/hrnet.yml at full width with
+    PATH_B's options, on the train split's largest scene, made on the card
+    by the column kernel."""
+    from dmcf_tpu_torch.data import (DatasetGroup, get_rollout,
+                                     pad_rollout_state)
+    from dmcf_tpu_torch.pipelines.simulator import _STATE_KEYS
+
+    full = column_config(root, "hrnet.yml")
+    ds = dict(full["dataset"])
+    ds["valid"] = dict(ds["valid"], timesteps=2)
+    ds["test"] = dict(ds["test"], timesteps=2)
+    group = DatasetGroup(split="train", cache_dir=None, device=dev.type,
+                         **ds)
+    dg = full["pipeline"]["data_generator"]
+    split = {k: v for k, v in dg.items() if k not in ("train", "valid",
+                                                      "test")}
+    seqs = get_rollout(group.train, **split)
+    seq = max(seqs, key=lambda s: s["pos"].shape[1])
+    state = pad_rollout_state(seq)
+    sample = {k: torch.as_tensor(np.ascontiguousarray(
+        state[k][0] if k in ("pos", "vel", "grav") else state[k]),
+        device=dev) for k in _STATE_KEYS if state.get(k) is not None}
+    return option_phase(root, "path B", "column/hrnet.yml", PATH_B, sample,
+                        dev, 3, 2, max_err, inverted=True)
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -2262,7 +2578,8 @@ def main(argv):
     train = train_phase(root, dev)
 
     phase("12 one WaterRamps train step (batch 16, window 3, bf16 trunk)")
-    wr_train = waterramps_train_phase(root, dev, model, sample, 19, 18)
+    wr_train = train_step_phase(root, "WaterRamps.yml", dev, model, sample,
+                                "WaterRamps")
 
     phase(f"13 the fp32 path: {FP32_STEPS}-step rollout and momentum train "
           "steps at precision highest")
@@ -2311,6 +2628,16 @@ def main(argv):
           f"every {INFLOW_EVERY}, crop {INFLOW_CROP}")
     inflow = inflow_phase(root, dev)
 
+    phase(f"21 path A: WaterRamps SymNet with the FPS pyramid, density and "
+          f"pressure features, dens_norm, pre-advection: {OPTION_STEPS}-step "
+          f"rollout, card vs CPU, train step")
+    path_a = path_a_phase(root, dev, max_err)
+
+    phase(f"22 path B: column/hrnet.yml with the FPS pyramid, equivar, "
+          f"circular kernels, an extra per-scale conv, transposed searches: "
+          f"{OPTION_STEPS}-step rollout, card vs CPU, train step")
+    path_b = path_b_phase(root, dev, max_err)
+
     pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
         "(pallas_continuous_conv)"
     vjp = "none (no TPU kernel): the VJP of dmcf_tpu/ops/cconv.py:173 " \
@@ -2345,6 +2672,8 @@ def main(argv):
             "canyon_launches_per_step": canyon["step"][int(half)],
             "canyon_rollout_launches": canyon["launches"][int(half)],
             "run_sample_launches": inflow["launches"][int(half)],
+            "path_a_launches": path_a["launches"][int(half)],
+            "path_b_launches": path_b["launches"][int(half)],
             "max_abs_err": max_err[half],
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
@@ -2420,6 +2749,42 @@ def main(argv):
         "us_per_iteration": {k: v["us_per_iteration"]
                              for k, v in column["splits"].items()},
     })
+    fps_a = path_a["fps"][max(path_a["fps"])]   # scale 1, the larger
+    kernels.append({
+        "name": "fps",
+        "route": "cuda",
+        "source": "dmcf_tpu_torch/csrc/fps.cu",
+        "replaces": "none (no TPU kernel): dmcf_tpu/ops/sph.py:223 "
+                    "farthest_point_sample (an XLA fori_loop)",
+        "launches": path_a["launches"][2] + path_b["launches"][2],
+        "path_a_launches": path_a["launches"][2],
+        "path_b_launches": path_b["launches"][2],
+        "path_a_train_launches": path_a["train"]["launches"][6],
+        "path_b_train_launches": path_b["train"]["launches"][6],
+        # the largest difference of any output element (idx, mask) from
+        # the plain version over every checked launch of both paths
+        "max_abs_err": max(path_a["fps_max_abs_err"],
+                           path_b["fps_max_abs_err"]),
+        "checked_launches": path_a["fps_checked"] + path_b["fps_checked"],
+        "ms": fps_a["ms"],
+        "device_ms": fps_a["device_ms"],
+        "plain_ms": fps_a["plain_ms"],
+        "bound_ms": fps_a["bound_ms"],
+        "bound_by": fps_a["bound_by"],
+        "library_ms": None,
+        "shapes": {f"{p} N {k[0]} S {k[1]}": v
+                   for p, r in (("path A", path_a), ("path B", path_b))
+                   for k, v in r["fps"].items()},
+    })
+    for label, r in (("A", path_a), ("B", path_b)):
+        print(f"path {label} ({smi}): {r['ms_per_step']:.3f} ms/step, device "
+              f"{r['device_ms']:.3f} ms in {r['device_launches']} launches, "
+              f"peak {r['peak_bytes'] / 2 ** 30:.3f} GiB, launches (K-list "
+              f"fp32, bf16, fps) {r['launches']}, card vs CPU "
+              f"{r['card_cpu_err']:.2e}, train step "
+              f"{r['train']['seconds']:.3f} s (grads within "
+              f"{r['train']['grad_rel_err']:.2e}), inverted lists "
+              f"{r['inverted']} fed to {r['inverted_fed']} conv calls")
     print(f"column: splits {column['splits']}; symnet.yml losses "
           f"{column_cfgs['losses'][0]:.4e} -> {column_cfgs['losses'][-1]:.4e}"
           f"; Liquid3d {liquid['ms_per_step']:.3f} ms/step (voxels "

@@ -1,10 +1,16 @@
 """Weight bridge from the JAX package's flax param tree to the port.
 
 The port's modules carry the flax module paths as their PyTorch names
-(HRNet/SymNet ``conv100_0.kernel``, ``dense100_0.Dense_0.kernel``,
-``sym_conv0.kernel`` — the half kernel; CConv ``conv{i}.kernel`` and
-``dense{i}.Dense_0.kernel``; PointNet ``dense{i}.Dense_0.kernel``), so the
-bridge is a path flattening.  The tree
+(HRNet/SymNet ``conv{i}{j}{k}_{l}.kernel``, ``dense{i}{j}{k}_{l}.Dense_0
+.kernel`` — extra per-scale convs k >= 1, the cross-scale denses of the
+farthest-point pyramid —, ``sym_conv0.kernel`` — the half kernel, or the
+radial stack of a circular kernel; ``adv_conv0`` and ``adv_dense0`` of
+the pre-advection branch; ``scale`` of the equivariant output; CConv
+``conv{i}.kernel`` and ``dense{i}.Dense_0.kernel``; PointNet
+``dense{i}.Dense_0.kernel``), and create a parameter exactly where flax
+does (not for a module flax declares and never calls, such as the
+reference's ``rot``, ``adv_conv1`` and ``adv_dense1``), so the bridge is
+a path flattening and the state dict loads strictly.  The tree
 arrives as nested dicts of numpy arrays, so the port never imports flax.
 """
 

@@ -22,7 +22,7 @@ class CConv(PBFNet):
 
     def setup_net(self):
         lc = self.layer_channels
-        prev = 3 * self.channels  # scale-0 fluid conv, boundary conv, dense
+        prev = self.scale0_channels
         self.convs, self.denses = [], []
         for i in range(1, len(lc)):
             self.convs.append(self.make_cconv(f"conv{i}", prev, lc[i],
@@ -30,6 +30,7 @@ class CConv(PBFNet):
             self.denses.append(self.make_dense(prev, lc[i],
                                                name=f"dense{i}"))
             prev = lc[i]
+        self.out_channels = prev
 
     def net_forward(self, ctx, data, training=False):
         n_fluid = ctx["n_fluid"]

@@ -1,13 +1,19 @@
-"""HRNet: multi-scale continuous-conv trunk over the voxel pyramid (port of
-dmcf_tpu/models/hrnet.py).
+"""HRNet: multi-scale continuous-conv trunk over the position pyramid (port
+of dmcf_tpu/models/hrnet.py).
 
 A grid of convs ``layer_channels[layer][scale][conv_idx]``: each layer
 computes every output scale from every input scale (the coarser scale's
-radius), merged by sum or concat.  Same-scale and upsampling pairs use
-K-list neighbor lists; pairs whose K budget reaches ``dense_pair_min_k``
-(the downsampling pairs of WaterRamps) run densely over all source points,
-and where the pair's Q*N reaches ``dense_lazy_min_elems`` without keeping
-the [Q, N] field (``LazyDensePair``).
+radius), merged by sum or concat, then runs the scale's extra convs
+(``conv_idx >= 1``) on the merged output.  Same-scale and upsampling pairs
+use K-list neighbor lists; pairs whose K budget reaches
+``dense_pair_min_k`` (the downsampling pairs of WaterRamps) run densely
+over all source points, and where the pair's Q*N reaches
+``dense_lazy_min_elems`` without keeping the [Q, N] field
+(``LazyDensePair``).  On the farthest-point pyramid (``voxel_size: None``)
+a cross-scale pair also adds a dense layer of its input carried across
+the scales by the pyramid's indices: gathered down, scatter-added up.
+With ``dens_norm`` every trunk conv of a scale with a density takes
+``[f, f / dens^2]``.
 """
 
 from __future__ import annotations
@@ -32,28 +38,42 @@ class HRNet(PBFNet):
                     add_merge=False, out_activation=None)
 
     def setup_net(self):
+        """``self.convs[i][j][k][l]`` and ``self.denses[i][j][k][l]`` are
+        the reference's ``conv{i+1}{j}{k}_{l}`` and ``dense{i+1}{j}{k}_{l}``
+        (None where the reference never calls the dense: a cross-scale
+        input of the voxel pyramid)."""
         lc = self.layer_channels
-        # scale-0 features: fluid conv, boundary conv, dense — channels each
-        prev = [3 * self.channels]
+        n_dens = len(self._dens_radii) if self.dens_norm else 0
+        prev = [self.scale0_channels]
         self.convs, self.denses = [], []
         for i in range(1, len(lc)):
             convs_i, denses_i, widths = [], [], []
+            # the inputs' widths, doubled where dens_norm appends f / dens^2
+            cin = [w * (2 if l < n_dens else 1) for l, w in enumerate(prev)]
             for j in range(len(lc[i])):
-                if len(lc[i][j]) != 1:
-                    raise NotImplementedError(
-                        "extra per-scale convs (conv_idx >= 1) are not "
-                        "ported yet")
-                ch = lc[i][j][0]
-                convs_i.append([
-                    self.make_cconv(f"conv{i}{j}0_{l}", prev[l], ch,
-                                    window_func=self.window)
-                    for l in range(len(prev))])
-                # same-scale inputs get a dense skip; cross-scale ones do
-                # not (voxel pyramid), so the reference never creates them
-                denses_i.append(
-                    self.make_dense(prev[j], ch, name=f"dense{i}{j}0_{j}")
-                    if j < len(prev) else None)
-                widths.append(ch if self.add_merge else ch * len(prev))
+                convs_j, denses_j = [], []
+                for k, ch in enumerate(lc[i][j]):
+                    if k == 0:
+                        convs_j.append([
+                            self.make_cconv(f"conv{i}{j}0_{l}", cin[l], ch,
+                                            window_func=self.window)
+                            for l in range(len(prev))])
+                        denses_j.append([
+                            self.make_dense(cin[l], ch,
+                                            name=f"dense{i}{j}0_{l}")
+                            if l == j or self.voxel_size is None else None
+                            for l in range(len(prev))])
+                        width = ch if self.add_merge else ch * len(prev)
+                    else:
+                        convs_j.append([self.make_cconv(
+                            f"conv{i}{j}{k}_0", width, ch,
+                            window_func=self.window)])
+                        denses_j.append([self.make_dense(
+                            width, ch, name=f"dense{i}{j}{k}_0")])
+                        width = ch
+                convs_i.append(convs_j)
+                denses_i.append(denses_j)
+                widths.append(width)
             self.convs.append(convs_i)
             self.denses.append(denses_i)
             prev = widths
@@ -83,9 +103,19 @@ class HRNet(PBFNet):
             nl = drop_coincident(nl, dpos[inp_scale], dpos[out_scale])
         return nl
 
-    def net_forward(self, ctx, data, training=False):
+    def _conv(self, conv, ctx, f, inp_scale, out_scale, ext, ignore_query,
+              n_chunk):
         pos = ctx["dilated_pos"]
+        nl = self._pair_neighbors(ctx, inp_scale, out_scale, ext / 2.0,
+                                  ignore_query=ignore_query)
+        cached = isinstance(nl, NeighborList) and self.caches_taps(nl)
+        return conv(f, pos[inp_scale], pos[out_scale], ext, nl,
+                    n_chunk=n_chunk, cached_taps=cached)
+
+    def net_forward(self, ctx, data, training=False):
         masks = ctx["dilated_mask"]
+        idx = [None if i is None else i.long() for i in ctx["dilated_idx"]]
+        dens = ctx["dens_pyramid"]
         filter_extent = ctx["filter_extent"]
         nck = self.dense_chunk_for(training)
 
@@ -97,26 +127,40 @@ class HRNet(PBFNet):
             ans = []
             for scale in range(len(self.convs[layer])):
                 importance = self.part_scale if scale == 0 else 1.0
+                convs = self.convs[layer][scale]
+                denses = self.denses[layer][scale]
                 inp = []
+                ext = filter_extent[0]
                 for inp_scale in range(len(ans_convs[-1])):
                     f = torch.relu(ans_convs[-1][inp_scale])
                     ext = filter_extent[max(inp_scale, scale)]
+                    if dens is not None and inp_scale < len(dens):
+                        f = torch.cat([f, f / dens[inp_scale] ** 2], dim=-1)
                     f = torch.where(masks[inp_scale][:, None], f, 0.0)
-                    nl = self._pair_neighbors(
-                        ctx, inp_scale, scale, ext / 2.0,
-                        ignore_query=self.ignore_query_points
-                        and scale == inp_scale)
-                    conv = self.convs[layer][scale][inp_scale]
-                    cached = (isinstance(nl, NeighborList)
-                              and self.caches_taps(nl))
-                    ans_conv = conv(f * importance, pos[inp_scale],
-                                    pos[scale], ext, nl, n_chunk=nck,
-                                    cached_taps=cached)
+                    ans_conv = self._conv(
+                        convs[0][inp_scale], ctx, f * importance, inp_scale,
+                        scale, ext, self.ignore_query_points
+                        and scale == inp_scale, nck)
                     if scale == inp_scale:
-                        ans_conv = ans_conv + self.denses[layer][scale](f)
+                        ans_conv = ans_conv + denses[0][inp_scale](f)
                         if ans_conv.shape[-1] == \
                                 ans_convs[-1][scale].shape[-1]:
                             ans_conv = ans_conv + ans_convs[-1][scale]
+                    elif self.voxel_size is None and scale > inp_scale:
+                        # the input carried down the pyramid's picks
+                        g = f
+                        for i in range(inp_scale, scale):
+                            g = g[idx[i + 1]]
+                        ans_conv = ans_conv + denses[0][inp_scale](g)
+                    elif self.voxel_size is None:
+                        # and scatter-added up to the rows it was picked
+                        # from
+                        ind = idx[scale + 1]
+                        for i in range(scale + 1, inp_scale):
+                            ind = ind[idx[i + 1]]
+                        d = torch.where(masks[inp_scale][:, None],
+                                        denses[0][inp_scale](f), 0.0)
+                        ans_conv = ans_conv.index_add(0, ind, d)
                     inp.append(ans_conv)
                 if self.add_merge:
                     merged = inp[0]
@@ -124,6 +168,18 @@ class HRNet(PBFNet):
                         merged = merged + t
                 else:
                     merged = torch.cat(inp, dim=-1)
+                # the scale's extra convs, at the last input's extent (the
+                # reference's loop variable, reproduced on purpose)
+                for k in range(1, len(convs)):
+                    f = torch.where(masks[scale][:, None], merged, 0.0)
+                    ans_conv = self._conv(
+                        convs[k][0], ctx, f * importance, scale, scale, ext,
+                        self.ignore_query_points, nck) \
+                        + denses[k][0](merged)
+                    if len(ans_convs[-1]) > scale and ans_conv.shape[-1] \
+                            == ans_convs[-1][scale].shape[-1]:
+                        ans_conv = ans_conv + ans_convs[-1][scale]
+                    merged = ans_conv
                 ans.append(merged)
             ans_convs.append(ans)
         return _act(self.out_activation)(ans_convs[-1][0])

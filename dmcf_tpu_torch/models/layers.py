@@ -3,7 +3,8 @@
 Parameter names and shapes match the flax modules, so a flax param tree
 loads by module path (``interop.params_from_flax``): a conv holds
 ``kernel`` [kz, ky, kx, Cin, Cout] (the half kernel along ``sym_axis`` when
-symmetric) and ``bias`` [Cout]; a ``Dense`` holds ``Dense_0.kernel``
+symmetric, the radial stack [ceil(max(ks) / 2), Cin, Cout] when circular)
+and ``bias`` [Cout]; a ``Dense`` holds ``Dense_0.kernel``
 [in, out] and ``Dense_0.bias`` [out].
 """
 
@@ -14,8 +15,9 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.cconv import (build_symmetric_kernel, continuous_conv,
-                         continuous_conv_dense, continuous_conv_dense_lazy)
+from ..ops.cconv import (build_circular_kernel, build_symmetric_kernel,
+                         continuous_conv, continuous_conv_dense,
+                         continuous_conv_dense_lazy)
 from ..ops.neighbors import DensePair, LazyDensePair, NeighborList
 
 
@@ -25,7 +27,10 @@ def _uniform(shape, scale, generator, device):
 
 
 class ContinuousConv(nn.Module):
-    """Continuous convolution layer (dense or symmetric/ASCC kernel).
+    """Continuous convolution layer (dense, symmetric/ASCC or circular
+    kernel).  A circular kernel is a radial weight stack expanded to the
+    cube at each call (``build_circular_kernel``; odd when ``symmetric``),
+    and its conv adds no ASCC self term, as in the reference.
 
     Dispatches on the neighbor structure: a ``NeighborList`` runs the
     K-list conv (the hand-written kernel on CUDA), a ``DensePair`` the
@@ -43,8 +48,7 @@ class ContinuousConv(nn.Module):
     and the chunk outputs are summed in fp32 in chunk order.  At the
     default precision each chunk rounds its T to bf16 on its own, so the
     chunked conv is not bit for bit the unchunked one, in either package.
-    Not ported in this slice (raise): ``circular`` kernels,
-    ``inp_importance``.
+    Not ported in this slice (raise): ``inp_importance``.
     """
 
     def __init__(self, in_channels: int, filters: int,
@@ -59,8 +63,6 @@ class ContinuousConv(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
-        if circular:
-            raise NotImplementedError("circular kernels are not ported yet")
         self.k_chunk = int(k_chunk)
         self.filters = filters
         self.kernel_size = tuple(int(k) for k in kernel_size)
@@ -72,9 +74,12 @@ class ContinuousConv(nn.Module):
         self.window_function = window_function
         self.symmetric = symmetric
         self.sym_axis = sym_axis
+        self.circular = circular
         self.precision = precision
         shape = list(self.kernel_size)
-        if symmetric:
+        if circular:
+            shape = [-(-max(shape) // 2)]
+        elif symmetric:
             if shape[sym_axis] % 2:
                 raise ValueError(
                     "symmetric kernel size must be even along sym_axis")
@@ -84,7 +89,23 @@ class ContinuousConv(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(filters, device=device))
                      if use_bias else None)
 
+    def resize_input(self, in_channels, generator):
+        """Re-draw the kernel for ``in_channels`` inputs, in place: the
+        same Parameter, so an optimizer made before still holds it."""
+        shape = (*self.kernel.shape[:-2], in_channels, self.filters)
+        self.kernel.data = _uniform(shape, 0.05, generator,
+                                    self.kernel.device)
+
+    @property
+    def symmetric_conv(self):
+        """Whether the conv adds the ASCC self term (not with a circular
+        kernel, whose odd field is in the kernel itself)."""
+        return self.symmetric and not self.circular
+
     def full_kernel(self):
+        if self.circular:
+            return build_circular_kernel(self.kernel, self.kernel_size,
+                                         symmetric=self.symmetric)
         if self.symmetric:
             return build_symmetric_kernel(self.kernel, self.sym_axis)
         return self.kernel
@@ -96,7 +117,7 @@ class ContinuousConv(nn.Module):
         conv over a model-cached tap tensor does (``ops.cconv``)."""
         kernel = self.full_kernel()
         if isinstance(neighbors, (DensePair, LazyDensePair)) and (
-                self.symmetric or self.normalize):
+                self.symmetric_conv or self.normalize):
             raise ValueError("dense conv path covers plain trunk convs only")
         if isinstance(neighbors, LazyDensePair):
             lp = neighbors
@@ -120,7 +141,7 @@ class ContinuousConv(nn.Module):
                 align_corners=self.align_corners, n_chunk=n_chunk,
                 precision=self.precision)
         elif isinstance(neighbors, NeighborList):
-            if self.symmetric and query_features is None:
+            if self.symmetric_conv and query_features is None:
                 query_features = inp_features
             k = neighbors.idx.shape[1]
             kc = self.k_chunk
@@ -135,7 +156,7 @@ class ContinuousConv(nn.Module):
                     coordinate_mapping=self.coordinate_mapping,
                     interpolation=self.interpolation,
                     align_corners=self.align_corners,
-                    normalize=self.normalize, symmetric=self.symmetric,
+                    normalize=self.normalize, symmetric=self.symmetric_conv,
                     query_features=query_features,
                     precision=self.precision, cached_taps=cached_taps)
                 out = y if out is None else out + y
@@ -157,14 +178,18 @@ def _k_slice(nl: NeighborList, start, stop) -> NeighborList:
         disp=None if nl.disp is None else nl.disp[:, start:stop])
 
 
+def _glorot(in_features, units, generator, device):
+    limit = (6.0 / (in_features + units)) ** 0.5  # glorot uniform
+    return _uniform((in_features, units), limit, generator, device)
+
+
 class _Linear(nn.Module):
     """flax ``nn.Dense`` parameters: ``kernel`` [in, out], ``bias``."""
 
     def __init__(self, in_features, units, use_bias, generator, device):
         super().__init__()
-        limit = (6.0 / (in_features + units)) ** 0.5  # glorot uniform
-        self.kernel = nn.Parameter(_uniform((in_features, units), limit,
-                                            generator, device))
+        self.kernel = nn.Parameter(_glorot(in_features, units, generator,
+                                           device))
         self.bias = (nn.Parameter(torch.zeros(units, device=device))
                      if use_bias else None)
 
@@ -181,6 +206,13 @@ class Dense(nn.Module):
         super().__init__()
         self.Dense_0 = _Linear(in_features, units, use_bias, generator,
                                device)
+
+    def resize_input(self, in_features, generator):
+        """Re-draw the kernel for ``in_features`` inputs, in place (as
+        ``ContinuousConv.resize_input``)."""
+        kernel = self.Dense_0.kernel
+        kernel.data = _glorot(in_features, kernel.shape[1], generator,
+                              kernel.device)
 
     def forward(self, x):
         return self.Dense_0(x)

@@ -12,15 +12,23 @@ contact with the fluid into that many slots before any search, and HRNet's
 dense pairs past ``dense_lazy_min_elems`` rebuild their geometry a source
 chunk at a time (``LazyDensePair``).
 
-Left out on purpose: the reference's batched pair prefetch and tap-tensor
-caching are TPU launch-count devices that give bitwise-identical lists
-(the K-list kernel builds its taps inline; the reference's cached bf16
-taps equal the inline ones rounded once).  Options this slice does not
-port raise instead of being ignored; config keys the port has no use for
-(the reference's TPU tuning knobs, the density-feature constants) are
-dropped with a warning by ``build_model``.  ``window_dens`` and
-``rest_dens`` are kept on the module, as in the reference, because the
-valid suite's max-density metric reads ``window_dens`` from the model.
+Every model option of the reference is here: density and pressure
+features (``dens_feats``, ``pres_feats``, ``dens_radius``, ``stiffness``),
+the density-normalised trunk (``dens_norm``), per-particle input
+features (``use_feats``; their width sized at the first forward or
+state-dict load, where flax sizes it at init), the pre-advection branch
+(``use_pre_adv``), the
+equivariant output (``equivar``), circular kernels, the farthest-point
+pyramid (``voxel_size: None``, the hand-written CUDA kernel on the card),
+a first stride other than 1 and ``transpose_search_reuse``.  Left out on
+purpose: the reference's batched pair prefetch and tap-tensor caching
+are TPU launch-count devices that give bitwise-identical lists (the
+K-list kernel builds its taps inline; the reference's cached bf16 taps
+equal the inline ones rounded once).  Config keys the port has no use
+for (the reference's TPU tuning knobs) are dropped with a warning by
+``build_model``.  ``window_dens`` and ``rest_dens`` are kept on the
+module, as in the reference, because the valid suite's max-density
+metric reads ``window_dens`` from the model.
 
 ``precision`` is the reference's trunk knob (``pbf.py:300-304``): its
 default "default" (or None) runs every conv that ``make_cconv`` builds —
@@ -42,10 +50,12 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..ops.cconv import dense_geometry
+from ..ops.cconv import dense_geometry, point_sampling
 from ..ops.neighbors import (DensePair, LazyDensePair, NeighborList,
-                             search, select_k_valid)
-from ..ops.sph import align_vector, get_dilated_pos, masked_positions
+                             invert_neighbors_list, search, select_k_valid)
+from ..ops.sph import (align_vector, compute_pressure,
+                       compute_transformed_dx, get_dilated_pos,
+                       masked_positions)
 from ..ops.windows import get_window_func
 from ..kernels.cconv_klist import is_bf16
 from .layers import ContinuousConv, Dense
@@ -77,12 +87,17 @@ def drop_coincident(nl: NeighborList, points=None,
 
 class SearchCache:
     """One fixed-radius search per (src, dst, radius) per step, and one
-    dense pair field per (src, dst, radius), shared by every conv."""
+    dense pair field per (src, dst, radius), shared by every conv.  With
+    ``transpose_reuse`` a pair whose transpose was searched already is
+    that list inverted (``invert_neighbors_list``), exact wherever the
+    transpose kept every neighbour."""
 
-    def __init__(self, k: int, method: str = "auto", occ_cap: int = 128):
+    def __init__(self, k: int, method: str = "auto", occ_cap: int = 128,
+                 transpose_reuse: bool = False):
         self.k = k
         self.method = method
         self.occ_cap = occ_cap
+        self.transpose_reuse = transpose_reuse
         self._cache: Dict[Tuple, object] = {}
 
     def get_dense(self, src_name, dst_name, radius, points, pmask, queries,
@@ -107,7 +122,12 @@ class SearchCache:
     def get(self, src_name, dst_name, radius, points, pmask, queries, qmask,
             occ_cap=None, k=None) -> NeighborList:
         key = (src_name, dst_name, float(radius))
-        if key not in self._cache:
+        tkey = (dst_name, src_name, float(radius))
+        if key not in self._cache and self.transpose_reuse \
+                and src_name != dst_name and tkey in self._cache:
+            self._cache[key] = invert_neighbors_list(
+                self._cache[tkey], queries.shape[0], k or self.k)
+        elif key not in self._cache:
             self._cache[key] = search(
                 points, queries, radius, k or self.k, method=self.method,
                 points_mask=pmask, queries_mask=qmask,
@@ -130,7 +150,7 @@ class PBFNet(nn.Module):
         transformation=None, timestep=0.01, circular=False, dens_feats=False,
         pres_feats=False, equivar=False, use_vel=True, use_acc=True,
         use_feats=False, use_box_feats=True, use_pre_adv=False,
-        use_bnds=True, dens_norm=False,
+        use_bnds=True, dens_norm=False, dens_radius=None, stiffness=20.0,
         voxel_size=None, centralize=False, out_scale=(0.01, 0.01, 0.01),
         sample_pad=0, sample_hyst=0.1, part_scale=1.0, sym_axis=2,
         neighbor_k=64, neighbor_k_gaps=None, neighbor_k_pairs=None,
@@ -155,14 +175,26 @@ class PBFNet(nn.Module):
             setattr(self, k, v)
         self.device = resolve_device(device)
         is_bf16(self.precision)  # raises on an unknown precision
-        self._check_supported()
         self._radii = tuple(float(r) for r in self.particle_radii)
+        self._dens_radii = (self._radii if self.dens_radius is None else
+                            tuple(float(r) for r in self.dens_radius))
+        self.window_dens_fn = get_window_func(self.window_dens)
         self._transform_cfg = dict(self.transformation or {})
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self._generator = generator
-        self.fluid_in = 1 + 3 * int(self.use_vel) + 3 * int(self.use_acc)
-        box_in = 1 + 3 * int(self.use_box_feats)
+        extra = int(self.dens_feats) + int(self.pres_feats)
+        # the fluid features but the sample's "feats" (``_fit_feats``)
+        self.fluid_in = 1 + 3 * int(self.use_vel) + 3 * int(self.use_acc) \
+            + extra
+        self._feats_width = None
+        self._feats_seed = int(torch.randint(
+            2 ** 31 - 1, (1,), generator=generator)) if self.use_feats else 0
+        box_in = 1 + 3 * int(self.use_box_feats) + extra
+        # the scale-0 features: fluid conv, boundary conv, (pre-advection
+        # conv,) dense, (pre-advection dense)
+        self.scale0_channels = self.channels * (
+            5 if self.use_pre_adv and self._use_scale0_convs() else 3)
         if self._use_scale0_convs():
             self.fluid_obs = self.make_cconv("fluid_obs", self.fluid_in,
                                              self.channels,
@@ -172,29 +204,53 @@ class PBFNet(nn.Module):
                                             self.channels,
                                             window_func=self.window)
             self.obs_dense = self.make_dense(box_in, self.channels)
+            if self.use_pre_adv:
+                # the reference also declares adv_conv1 / adv_dense1; flax
+                # creates no parameter for a module never called
+                pre_in = 1 + 3 * int(self.use_vel)
+                self.adv_conv0 = self.make_cconv("adv_conv0", pre_in,
+                                                 self.channels,
+                                                 window_func=self.window)
+                self.adv_dense0 = self.make_dense(pre_in, self.channels)
         self.setup_net()
+        if self.equivar:
+            # the reference's "rot" Dense is never called: no parameter
+            self.scale = self.make_dense(self.out_channels, 1)
         del self._generator
-
-    def _check_supported(self):
-        unported = {
-            "use_pre_adv": self.use_pre_adv,
-            "equivar": self.equivar,
-            "dens_feats": self.dens_feats,
-            "dens_norm": self.dens_norm,
-            "pres_feats": self.pres_feats,
-            "voxel_size: None (FPS pyramid)": self.voxel_size is None
-            and any(st != 1 for st in self.strides),
-            "use_feats": self.use_feats,
-            "strides[0] != 1": tuple(self.strides)[0] != 1,
-            "transpose_search_reuse": self.transpose_search_reuse,
-        }
-        bad = [name for name, on in unported.items() if on]
-        if bad:
-            raise NotImplementedError(
-                f"{type(self).__name__} options not ported yet: {bad}")
 
     def setup_net(self):
         raise NotImplementedError
+
+    def _fluid_input_layers(self):
+        """(name, layer) of each layer that takes the fluid features."""
+        return [("fluid_obs", self.fluid_obs),
+                ("fluid_dense", self.fluid_dense)]
+
+    def _fit_feats(self, width):
+        """``use_feats``: the fluid-input layers take ``width`` feature
+        channels more, fixed by the first forward (its sample's "feats",
+        0 without) or state dict (its kernels), as flax sizes them at init
+        from the first sample.  Their kernels are re-drawn in place from
+        the model's generator, so an optimizer made before holds them
+        still; a later width that differs raises."""
+        if self._feats_width is None:
+            if width:
+                g = torch.Generator().manual_seed(self._feats_seed)
+                for _, layer in self._fluid_input_layers():
+                    layer.resize_input(self.fluid_in + width, g)
+            self._feats_width = width
+        elif width != self._feats_width:
+            raise ValueError(f"the sample's feats have {width} channels, "
+                             f"the model takes {self._feats_width}")
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kw):
+        if self.use_feats:
+            name, layer = self._fluid_input_layers()[0]
+            key = prefix + name + "." + next(
+                k for k, _ in layer.named_parameters() if k.endswith("kernel"))
+            if key in state_dict:
+                self._fit_feats(state_dict[key].shape[-2] - self.fluid_in)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kw)
 
     def _use_scale0_convs(self):
         """Whether preprocess runs the scale-0 fluid/boundary convs
@@ -392,8 +448,10 @@ class PBFNet(nn.Module):
 
     def preprocess(self, data, vel_corr=None):
         """Advect (or take ``vel_corr``), assemble features, run the
-        scale-0 convs, build the position pyramid."""
+        scale-0 convs, build the position pyramid (and the density
+        pyramid with ``dens_norm``)."""
         acc = data.get("grav")
+        feats_in = data.get("feats")
         box, bfeats = data["box"], data["box_normals"]
         fluid_mask = data["fluid_mask"].bool()
         box_mask = data["box_mask"].bool()
@@ -417,7 +475,8 @@ class PBFNet(nn.Module):
         all_mask = torch.cat([fluid_mask, box_mask], dim=0)
 
         cache = SearchCache(self.neighbor_k, method=self.search_method,
-                            occ_cap=self.occ_for_radius(self._radii[-1]))
+                            occ_cap=self.occ_for_radius(self._radii[-1]),
+                            transpose_reuse=self.transpose_search_reuse)
 
         # the pyramid is built over every particle, or over the fluid alone
         # without ``use_bnds``
@@ -433,17 +492,18 @@ class PBFNet(nn.Module):
         out_maxes = [all_max if s == 1 else
                      max(8, int(np.ceil(all_max * factors[si])))
                      for si, s in enumerate(self.strides)]
-        dpos, dmask, dcount = get_dilated_pos(
+        dpos, dmask, dcount, didx = get_dilated_pos(
             base_pos, base_mask, list(self.strides), out_maxes,
             voxel_size=(None if self.voxel_size is None
                         else np.asarray(self.voxel_size, np.float32)),
             centralize=self.centralize, pad=self.sample_pad,
             hyst=self.sample_hyst)
 
-        # with use_bnds, scale 0 of the pyramid IS all_pos: one all->all
-        # search at the finest radius serves the trunk pair (0, 0), the
-        # scale-0 convs and the ASCC layer
-        name0 = "dilated0" if self.use_bnds else "all"
+        # where scale 0 of the pyramid IS all_pos (stride 1, use_bnds), one
+        # all->all search at the finest radius serves the trunk pair
+        # (0, 0), the scale-0 convs, the densities and the ASCC layer
+        name0 = "dilated0" if self.strides[0] == 1 and self.use_bnds \
+            else "all"
         nl_all0 = cache.get(name0, name0, r0, all_pos, all_mask, all_pos,
                             all_mask, occ_cap=self.occ_for_radius(r0))
         nl_fluid0 = subset_neighbors(nl_all0, lambda i, d: i < n_fluid)
@@ -455,9 +515,33 @@ class PBFNet(nn.Module):
         if self.use_acc:
             fluid_feats.append(acc if acc is not None
                                else self._gravity(vel))
+        if self.use_feats:
+            self._fit_feats(0 if feats_in is None else feats_in.shape[-1])
+            if feats_in is not None:
+                fluid_feats.append(feats_in)
         box_feats = [torch.where(box_mask[:, None], 1.0, 0.0)]
         if self.use_box_feats:
             box_feats.append(bfeats)
+
+        dens = None
+        if self.dens_feats or self.dens_norm or self.pres_feats:
+            rd = self._dens_radii[0]
+            nl_dens = nl_all0 if rd == r0 else cache.get(
+                "all", "all", rd, all_pos, all_mask, all_pos, all_mask,
+                occ_cap=self.occ_for_radius(rd))
+            # the reference divides by the Python float rd ** 2
+            q = nl_dens.dist / torch.tensor(rd ** 2, dtype=torch.float32,
+                                            device=all_pos.device)
+            w = self.window_dens_fn(q) if self.window_dens_fn is not None \
+                else q
+            dens = torch.where(nl_dens.mask, w, 0.0).sum(dim=1)
+            if self.dens_feats:
+                fluid_feats.append(dens[:n_fluid, None])
+                box_feats.append(dens[n_fluid:, None])
+            if self.pres_feats:
+                pres = compute_pressure(dens, self.rest_dens, self.stiffness)
+                fluid_feats.append(pres[:n_fluid, None])
+                box_feats.append(pres[n_fluid:, None])
         fluid_feats = torch.where(fluid_mask[:, None],
                                   torch.cat(fluid_feats, dim=-1), 0.0)
         box_feats = torch.where(box_mask[:, None],
@@ -484,10 +568,46 @@ class PBFNet(nn.Module):
                                     all_pos if cached else box_pos,
                                     all_pos, ext0, nl_box0,
                                     cached_taps=cached)
-            ans_dense = torch.cat([ans_dense, self.obs_dense(box_feats)],
-                                  dim=0)
-            feats = torch.cat([ans_conv, ans_obs, ans_dense], dim=-1)
+            ans_dense_obs = self.obs_dense(box_feats)
+            ans_dense = torch.cat([ans_dense, ans_dense_obs], dim=0)
+            if self.use_pre_adv:
+                # a conv over the un-advected fluid positions
+                pre_pos = masked_positions(data["pos"], fluid_mask)
+                pre_feats = [torch.where(fluid_mask[:, None], 1.0, 0.0)]
+                if self.use_vel:
+                    pre_feats.append(data["vel"])
+                pre_feats = torch.where(fluid_mask[:, None],
+                                        torch.cat(pre_feats, dim=-1), 0.0)
+                nl_pre = cache.get("pre", "all", r0, pre_pos, fluid_mask,
+                                   all_pos, all_mask,
+                                   occ_cap=self.occ_for_radius(r0))
+                ans_adv = self.adv_conv0(pre_feats * self.part_scale,
+                                         pre_pos, all_pos, ext0, nl_pre)
+                ans_dense_adv = torch.cat(
+                    [self.adv_dense0(pre_feats), ans_dense_obs], dim=0)
+                feats = torch.cat([ans_conv, ans_obs, ans_adv, ans_dense,
+                                   ans_dense_adv], dim=-1)
+            else:
+                feats = torch.cat([ans_conv, ans_obs, ans_dense], dim=-1)
             feats = torch.where(all_mask[:, None], feats, 0.0)
+
+        dens_pyramid = None
+        if self.dens_norm:
+            d0 = dens if self.use_bnds else dens[:n_fluid]
+            dens_pyramid = [torch.where(base_mask, torch.clamp(d0, min=1e-2),
+                                        1.0)[:, None]]
+            for scale in range(1, len(self._dens_radii)):
+                ext_s = self._dens_radii[scale]
+                nl_s = cache.get(f"dilated{scale - 1}", f"dilated{scale}",
+                                 ext_s / 2.0, dpos[scale - 1],
+                                 dmask[scale - 1], dpos[scale], dmask[scale],
+                                 occ_cap=self.occ_for_radius(ext_s / 2.0),
+                                 k=self.k_for_pair(scale - 1, scale))
+                d = torch.clamp(point_sampling(
+                    dens_pyramid[-1], nl_s, ext_s,
+                    window_fn=self.window_dens_fn, normalize=True), min=1e-2)
+                dens_pyramid.append(torch.where(dmask[scale][:, None], d,
+                                                1.0))
 
         return {
             "cache": cache,
@@ -501,9 +621,20 @@ class PBFNet(nn.Module):
             "dilated_mask": dmask,
             "dilated_count": dcount,
             "dilated_caps": out_maxes,
+            "dilated_idx": didx,
+            "dens_pyramid": dens_pyramid,
             "nl_all0": nl_all0,
             "nl_fluid0": nl_fluid0,
         }
+
+    def equivariant_output(self, out, ctx):
+        """``equivar``: the output becomes the mean displacement to the
+        neighbours at the finest radius, each scaled by the neighbour's
+        learned scale (the reference's ``rot`` is never applied)."""
+        return compute_transformed_dx(ctx["all_pos"], ctx["all_mask"],
+                                      scale=self.scale(out), rot=None,
+                                      radius=self._radii[0],
+                                      k=self.neighbor_k)
 
     @staticmethod
     def pair_excess(ctx):
@@ -537,6 +668,8 @@ class PBFNet(nn.Module):
         num_fluid_neighbors = ctx["nl_fluid0"].mask.sum(dim=1).to(
             torch.float32)[:n_fluid]
 
+        if self.equivar:
+            out = self.equivariant_output(out, ctx)
         if out.shape[-1] == 1:
             out = out.repeat(1, 3)
         elif out.shape[-1] == 2:

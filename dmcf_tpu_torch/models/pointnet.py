@@ -5,8 +5,9 @@ No conv pyramid and no scale-0 convs: per-point dense layers whose outputs
 are sum-pooled over a fixed-radius search at ``particle_radii[0]`` (not
 doubled), every block.  The dense layers see the fluid features; the
 boundary rows are zero-padded, so boundary neighbours add zero, as the
-reference's out-of-range gather does.  The reference's ``equivar`` branch
-(``sph.compute_transformed_dx``) is not ported (it raises).
+reference's out-of-range gather does.  With ``equivar`` the output
+becomes the equivariant displacement field (``sph.compute_transformed_dx``,
+as in ``PBFNet``), not broadcast to 3D either.
 """
 
 from __future__ import annotations
@@ -24,12 +25,16 @@ class PointNet(PBFNet):
     def _use_scale0_convs(self):
         return False
 
+    def _fluid_input_layers(self):
+        return [("dense0", self.denses[0])]
+
     def setup_net(self):
         self.denses = []
         prev = self.fluid_in
         for i, ch in enumerate(self.layer_channels):
             self.denses.append(self.make_dense(prev, ch, name=f"dense{i}"))
             prev = ch
+        self.out_channels = prev
 
     def net_forward(self, ctx, data, training=False):
         pos = ctx["dilated_pos"][0]
@@ -66,6 +71,8 @@ class PointNet(PBFNet):
         nl = ctx["nl_pointnet"]
         num_fluid_neighbors = nl.mask.sum(dim=1).to(
             torch.float32)[:n_fluid]
+        if self.equivar:
+            out = self.equivariant_output(out, ctx)
         out_scale = torch.tensor(self.out_scale, dtype=torch.float32,
                                  device=pos.device)
         pos_correction = torch.where(fluid_mask[:, None],

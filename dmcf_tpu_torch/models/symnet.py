@@ -33,6 +33,7 @@ class SymNet(HRNet):
                 window_func=self.window_sym, sym_axis=self.sym_axis,
                 precision="highest"))
             cin = ch
+        self.out_channels = cin
 
     def net_forward(self, ctx, data, training=False):
         return self.ascc(HRNet.net_forward(self, ctx, data,

@@ -43,6 +43,57 @@ def build_symmetric_kernel(half_kernel, sym_axis):
     return torch.cat([-flipped, half_kernel], dim=sym_axis)
 
 
+def build_circular_kernel(radial_kernel, kernel_size, symmetric=False):
+    """Expand a radial weight stack [R, Cin, Cout] to the cube kernel
+    [kz, ky, kx, Cin, Cout]: each cell takes the radial weight indexed by
+    the largest |centred coordinate| of the cell (a gather, so autograd
+    carries the cube's gradient back to the stack).  With ``symmetric``
+    the kernel is multiplied by the normalised signed coordinate (x, y, z
+    on Cout's three channels): an odd vector field."""
+    ks = tuple(int(s) for s in kernel_size)
+    dev = radial_kernel.device
+    zr, yr, xr = torch.meshgrid(torch.arange(ks[0], device=dev),
+                                torch.arange(ks[1], device=dev),
+                                torch.arange(ks[2], device=dev),
+                                indexing="ij")
+    grid = torch.stack([xr, yr, zr], dim=-1).to(torch.float32)
+    ks_rev = torch.tensor([ks[2], ks[1], ks[0]], dtype=torch.float32,
+                          device=dev)
+    grid = grid - ks_rev / 2.0 + 0.5
+    idx = torch.floor(grid.abs()).amax(dim=-1).long()
+    kernel = radial_kernel[idx]
+    if symmetric:
+        kernel = kernel * (grid * 2.0 / ks_rev)[..., None, :]
+    return kernel
+
+
+def point_sampling(inp_features, neighbors: NeighborList, extents, *,
+                   window_fn=None, normalize=True):
+    """Windowed average (or sum) of the neighbours' features: the
+    reference's PointSampling, an identity-kernel continuous conv.
+    ``extents`` is the scalar filter diameter.  A row with no weight is 0,
+    as in the reference, whose division by that zero weight inside the
+    ``where`` makes the gradient NaN (0 times an infinite or NaN partial)
+    for every input that reaches it: the port divides by 1 there, so its
+    values are the reference's and its gradients finite (ROADMAP §3)."""
+    a = neighbors.mask.to(inp_features.dtype)
+    if window_fn is not None:
+        ext = torch.as_tensor(extents, dtype=inp_features.dtype,
+                              device=inp_features.device)
+        if ext.ndim != 0:
+            raise NotImplementedError("per-query extents are not ported "
+                                      "yet")
+        radius = 0.5 * ext
+        a = a * window_fn(neighbors.dist / (radius * radius)).to(a.dtype)
+    f = inp_features[neighbors.idx.long()]
+    out = torch.einsum("qk,qkc->qc", a, f)
+    if normalize:
+        denom = a.sum(dim=1)[:, None]
+        has = denom > 1e-9
+        out = torch.where(has, out / torch.where(has, denom, 1.0), 0.0)
+    return out
+
+
 def _radius_terms(extents, like):
     """(1/radius, radius^2) in the working dtype, as the reference forms
     them (radius = extents / 2)."""

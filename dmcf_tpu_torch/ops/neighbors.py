@@ -244,3 +244,35 @@ def search(points, queries, radius, k, *, method="auto", points_mask=None,
                                points_mask=points_mask,
                                queries_mask=queries_mask, metric=metric,
                                ignore_query_point=ignore_query_point)
+
+
+def invert_neighbors_list(nl: NeighborList, num_points: int,
+                          k_out: int) -> NeighborList:
+    """Transpose a padded neighbor list: for each of ``num_points`` input
+    points, the queries that list it, in ascending query row (a stable
+    sort of the flattened pairs by input index), capped at ``k_out``;
+    ``count`` is the number of pairs that name it.  Distances carry over,
+    displacements flip sign.  An L2 ball is symmetric, so the inverse of a
+    search A->B is the search B->A wherever the forward list kept every
+    in-radius neighbour (``SearchCache``'s ``transpose_reuse``)."""
+    q, k = nl.idx.shape
+    dev = nl.idx.device
+    flat_idx = torch.where(nl.mask, nl.idx, num_points).reshape(-1)
+    rows = torch.arange(q * k, dtype=torch.int32, device=dev) // k
+    sorted_idx, order = torch.sort(flat_idx, stable=True)
+    targets = torch.arange(num_points, dtype=sorted_idx.dtype, device=dev)
+    starts = torch.searchsorted(sorted_idx, targets, side="left")
+    ends = torch.searchsorted(sorted_idx, targets, side="right")
+    counts = (ends - starts).to(torch.int32)
+    slot = torch.arange(k_out, device=dev)
+    valid = slot[None, :] < counts[:, None]
+    gather = order[torch.clamp(starts[:, None] + slot[None, :], 0,
+                               q * k - 1)]
+    out_idx = torch.where(valid, rows[gather], 0).to(torch.int32)
+    out_dist = torch.where(valid, nl.dist.reshape(-1)[gather], 0.0)
+    disp = None
+    if nl.disp is not None:
+        disp = torch.where(valid[..., None],
+                           -nl.disp.reshape(q * k, -1)[gather], 0.0)
+    return NeighborList(idx=out_idx, mask=valid, dist=out_dist,
+                        count=counts, disp=disp)

@@ -1,10 +1,13 @@
-"""Sentinel padding, the voxel position pyramid, SPH number density and
-nearest-neighbour distances (port of the parts of dmcf_tpu/ops/sph.py that
-the rollout and evaluation paths run).
+"""Sentinel padding, the position pyramid (voxel grids or farthest-point
+sampling), SPH number density and pressure, nearest-neighbour distances,
+quaternion helpers and the equivariant displacement field (port of
+dmcf_tpu/ops/sph.py; ``grid_pos_bnds`` and ``prob_sample`` are not
+ported).
 
 Padded entries sit at far, spread-out sentinel positions so they never
 enter any neighborhood; all functions take and return padded tensors plus
-masks and counts.
+masks and counts.  Farthest-point sampling runs the hand-written CUDA
+kernel on CUDA tensors (``kernels/fps.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.fps import farthest_point_sample
 from .neighbors import fixed_radius_search
 
 PAD_POS = 1e8  # sentinel coordinate for padded particles
@@ -146,35 +150,111 @@ def grid_pos(pos, mask, voxel_size, out_max, centralize=False, pad=0,
     return gp, out_mask, count
 
 
+def compute_pressure(dens, rest_dens=3.5, stiffness=20.0):
+    """Tait equation of state, ``relu(stiffness * ((dens / rest_dens)^7 -
+    1))``, the seventh power as JAX's ``integer_pow`` forms it
+    (``(x * x^2) * (x^2)^2``) and the quotient a true division."""
+    x = dens / torch.tensor(float(rest_dens), dtype=dens.dtype,
+                            device=dens.device)
+    x2 = x * x
+    return torch.relu(stiffness * ((x * x2) * (x2 * x2) - 1.0))
+
+
 def get_dilated_pos(pos, mask, strides, out_maxes, voxel_size=None,
                     centralize=False, pad=0, hyst=0.1):
-    """Multi-scale position pyramid (voxel branch).
+    """Multi-scale position pyramid.
 
-    Returns (positions, masks, counts) lists, one entry per stride: stride
-    1 is the input itself, coarser scales are occupied voxel grids at
-    ``voxel_size * stride`` padded to ``out_maxes[s]``.  The
-    farthest-point-sampling branch (``voxel_size=None`` with a stride
-    above 1) is not ported.
+    Returns (positions, masks, counts, idx) lists, one entry per stride:
+    stride 1 is the input itself; with ``voxel_size`` coarser scales are
+    occupied voxel grids at ``voxel_size * stride`` padded to
+    ``out_maxes[s]`` (idx None); without it each coarser scale is a
+    farthest-point sample of the previous scale, ``max(count // stride,
+    1)`` valid picks of ``out_maxes[s]`` (the absolute stride, as JAX
+    divides), and idx[s] its rows in the previous scale.
     """
-    if voxel_size is None and any(s != 1 for s in strides):
-        raise NotImplementedError(
-            "the farthest-point-sampling pyramid (voxel_size=None) is not "
-            "ported yet")
     pcount = mask.sum(dtype=torch.int32)
-    positions, masks, counts = [], [], []
+    positions, masks, counts, idx = [], [], [], []
     for si, stride in enumerate(strides):
         if stride == 1:
             positions.append(pos)
             masks.append(mask)
             counts.append(pcount)
-        else:
+            idx.append(None)
+        elif voxel_size is not None:
             vs = np.asarray(voxel_size, np.float32) * stride
             gp, gm, gc = grid_pos(pos, mask, vs, out_maxes[si],
                                   centralize=centralize, pad=pad, hyst=hyst)
             positions.append(gp)
             masks.append(gm)
             counts.append(gc)
-    return positions, masks, counts
+            idx.append(None)
+        else:
+            if not positions:
+                raise ValueError("farthest-point sampling needs scale 0 "
+                                 "at stride 1 (it samples the previous "
+                                 "scale)")
+            prev_pos, prev_mask = positions[-1], masks[-1]
+            cnt = torch.clamp(counts[-1] // stride, min=1)
+            sel, sel_mask = farthest_point_sample(prev_pos, prev_mask,
+                                                  out_maxes[si], cnt)
+            positions.append(masked_positions(prev_pos[sel.long()],
+                                              sel_mask))
+            masks.append(sel_mask)
+            counts.append(cnt)
+            idx.append(sel)
+    return positions, masks, counts, idx
+
+
+def quat_mult(q, r):
+    w = r[..., 0] * q[..., 0] - r[..., 1] * q[..., 1] \
+        - r[..., 2] * q[..., 2] - r[..., 3] * q[..., 3]
+    x = r[..., 0] * q[..., 1] + r[..., 1] * q[..., 0] \
+        - r[..., 2] * q[..., 3] + r[..., 3] * q[..., 2]
+    y = r[..., 0] * q[..., 2] + r[..., 1] * q[..., 3] \
+        + r[..., 2] * q[..., 0] - r[..., 3] * q[..., 1]
+    z = r[..., 0] * q[..., 3] - r[..., 1] * q[..., 2] \
+        + r[..., 2] * q[..., 1] + r[..., 3] * q[..., 0]
+    return torch.stack([w, x, y, z], dim=-1)
+
+
+def quat_conj(q):
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def quat_rot(v, q):
+    r = torch.cat([torch.zeros_like(v[..., :1]), v], dim=-1)
+    return quat_mult(quat_mult(q, r), quat_conj(q))[..., 1:]
+
+
+def quat_mean(q0, q1):
+    return (q0 + q1) / torch.sqrt(2.0 + 2.0 * (q0 * q1).sum(dim=-1))[..., None]
+
+
+def compute_transformed_dx(pos, mask, scale=None, rot=None, radius=0.005,
+                           k=64):
+    """Equivariant displacement field: the mean over the in-radius
+    neighbours (self included, the first ``k`` by index) of ``x_j - x_i``,
+    optionally turned by the averaged quaternion of ``rot`` and scaled by
+    the neighbour's ``scale``.  ``scale`` and ``rot`` may hold fewer rows
+    than ``pos`` (a fluid-only output): their gather clamps, as JAX's
+    does."""
+    nl = fixed_radius_search(pos, pos, radius, k, points_mask=mask,
+                             queries_mask=mask)
+    idx = nl.idx.long()
+    if nl.disp is not None:
+        dx = nl.disp
+    else:
+        dx = torch.where(nl.mask[..., None], pos[idx] - pos[:, None, :],
+                         0.0)
+    if rot is not None:
+        dx = quat_rot(dx, quat_mean(rot[idx.clamp(max=rot.shape[0] - 1)],
+                                    rot[:, None, :]))
+    if scale is not None:
+        dx = dx * torch.where(nl.mask[..., None],
+                              scale[idx.clamp(max=scale.shape[0] - 1)], 0.0)
+    denom = torch.clamp(nl.mask.sum(dim=1), min=1).to(pos.dtype)
+    return dx.sum(dim=1) / denom[:, None]
 
 
 def align_vector(v0, v1):

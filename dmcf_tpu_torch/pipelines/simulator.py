@@ -633,8 +633,10 @@ def make_train_step(model, loss_fns, optimizer, scheduler=None, *, window,
     def item_loss(item, time_w, denom):
         """One item's warm-up and window; back-propagates its share of the
         batch loss.  Returns (its lvec share, pre_eff, stats)."""
+        # per-particle "feats" (use_feats) ride along where a batch has
+        # them; the JAX package's batches never do
         base = {k2: item[k2] for k2 in ("box", "box_normals", "fluid_mask",
-                                        "box_mask")}
+                                        "box_mask", "feats") if k2 in item}
         grav0 = item["grav"][0] if "grav" in item else None
 
         def make_sample(pos, vel):

@@ -127,8 +127,8 @@ def capture(path, dev):
         model = build_model(cfg("WaterRamps.yml")["model"], device=dev,
                             generator=torch.Generator().manual_seed(0))
         sample = bench_sample(*build_scene(), device=dev)
-        chip_smoke.waterramps_train_phase(root, dev, model, sample, 19, 18,
-                                          batch_size=1)
+        chip_smoke.train_step_phase(root, "WaterRamps.yml", dev, model,
+                                    sample, "WaterRamps", batch_size=1)
 
     def column(tmp):
         _run_pipeline(tmp, dev, "--cfg_file", os.path.join(

@@ -22,6 +22,7 @@ its elements), da and dt within 2e-3 of the max against the plain
 backward fed the kernel's dT, and beyond it against the plain backward
 itself only where dT flips were counted (``check_bf16_grads``); a train
 step's gradients card against CPU within 2e-2 of each tensor's max.
+The farthest-point kernel picks the plain version's rows bit for bit.
 """
 
 import numpy as np
@@ -864,3 +865,71 @@ def test_data_kernel_transposed_list_matches_plain(cuda, variant):
     assert torch.equal(offsets.cpu(), want_offsets)
     listed = int(want_offsets[-1])
     assert torch.equal(order.cpu()[:listed], want_order[:listed])
+
+
+def fps_inputs(b, n, dim, lattice, holes, seed, device):
+    """Point sets [b, n, 3] (random, or an exact lattice at spacing 0.01
+    with its distance ties), every ``holes``-th row masked at the
+    sentinel positions."""
+    from dmcf_tpu_torch.ops.sph import masked_positions
+    rng = np.random.RandomState(seed)
+    if lattice:
+        side = int(np.ceil(n ** (1.0 / dim)))
+        g = np.stack(np.meshgrid(*[np.arange(side)] * dim, indexing="ij"),
+                     -1).reshape(-1, dim)[:n] * 0.01
+        pos = np.zeros((b, n, 3), np.float32)
+        pos[:, :, :dim] = g
+    else:
+        pos = rng.uniform(-0.5, 0.5, (b, n, 3)).astype(np.float32)
+        pos[:, :, dim:] = 0.0
+    mask = np.ones((b, n), bool)
+    if holes:
+        mask[:, ::holes] = False
+    pos = torch.stack([masked_positions(torch.from_numpy(p),
+                                        torch.from_numpy(m))
+                       for p, m in zip(pos, mask)])
+    return pos.to(device), torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.parametrize("b,n,sample_max,dim,lattice,holes", [
+    (1, 2654, 1327, 2, False, 0),     # WaterRamps' scale 1
+    (1, 1327, 664, 2, True, 7),       # scale 2, lattice ties, holes
+    (2, 343, 200, 3, True, 0),        # a batch of 3D lattices
+    (3, 48, 48, 1, False, 5),         # column-sized sets
+    (1, 12000, 48, 3, False, 3),      # past the registers: a workspace
+    (1, 20000, 48, 3, False, 0),      # and past the shared-memory opt-in
+], ids=["wr_scale1", "lattice_holes", "batch_3d", "column",
+        "workspace_shared", "workspace_global"])
+def test_fps_kernel_matches_plain(cuda, b, n, sample_max, dim, lattice,
+                                  holes):
+    """The farthest-point kernel picks the plain version's rows bit for
+    bit (idx and mask), in each of its layouts (the minima in registers or
+    a workspace, the positions in shared or global memory), and counts one
+    launch a call."""
+    from dmcf_tpu_torch.kernels.fps import (farthest_point_sample,
+                                            farthest_point_sample_reference)
+    pos, mask = fps_inputs(b, n, dim, lattice, holes, 0, cuda)
+    count = torch.arange(b, dtype=torch.int32, device=cuda) * 3 \
+        + sample_max // 2
+    before = farthest_point_sample.launches
+    idx, sel = farthest_point_sample(pos, mask, sample_max, count)
+    again, _ = farthest_point_sample(pos, mask, sample_max, count)
+    torch.cuda.synchronize()
+    assert farthest_point_sample.launches == before + 2
+    ref_idx, ref_sel = farthest_point_sample_reference(pos, mask,
+                                                       sample_max, count)
+    assert torch.equal(idx, ref_idx)
+    assert torch.equal(sel, ref_sel)
+    assert torch.equal(idx, again)
+    one, one_sel = farthest_point_sample(pos[0], mask[0], sample_max,
+                                         count[0])
+    assert torch.equal(one, idx[0]) and torch.equal(one_sel, sel[0])
+
+
+def test_fps_kernel_rejects_bad_inputs(cuda):
+    from dmcf_tpu_torch.kernels.fps import farthest_point_sample
+    pos, mask = fps_inputs(1, 64, 3, False, 0, 0, cuda)
+    with pytest.raises(ValueError):
+        farthest_point_sample(pos.double(), mask, 8, 8)
+    with pytest.raises(ValueError):
+        farthest_point_sample(pos, mask, 0, 8)

@@ -204,22 +204,6 @@ def test_symnet_correction_sums_to_zero_without_boundary(precision):
     assert np.all(total / scale < 1e-5), (total, scale)
 
 
-@pytest.mark.parametrize("override", [
-    {"use_pre_adv": True},
-    {"equivar": True},
-    {"dens_feats": True},
-    {"dens_norm": True},
-    {"pres_feats": True},
-    {"voxel_size": None},
-    {"circular": True},
-], ids=lambda o: next(iter(o)))
-def test_unported_options_raise(override):
-    cfg = narrow_cfg()
-    cfg.update(override)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
-
-
 def test_cuda_entry_points_raise_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -47,7 +47,11 @@ the hand-written ``csrc/fps.cu``, density and pressure features,
 output, circular kernels, an extra per-scale conv and transposed
 searches: each FPS launch of the first steps bitwise against its plain
 version, each inverted list against a search, a 100-step rollout under
-the gate, card vs CPU, a train step), and prints one
+the gate, card vs CPU, a train step), loads a checkpoint in the
+reference's TensorFlow format without TensorFlow into Liquid3d's SymNet,
+reads a dataset file through the native scene loader (no Python
+``zstandard``), runs ``run_sample`` on it with those weights and checks
+the TensorBoard events file phase 11 wrote (phase 23), and prints one
 ``kernels`` JSON line (each kernel variant, its launches on each path),
 the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
 kernel's ``ms`` is the mean of calls issued back to back (CUDA events
@@ -825,7 +829,9 @@ def train_phase(root, dev):
     before each step): loss vectors and every parameter's gradient
     compared (bf16: within BF16_GRAD_TOL, the card and the CPU rounding
     sums taken in other orders), every trunk and ASCC conv weight's
-    gradient non-zero; then the card's s per train step."""
+    gradient non-zero; then the card's s per train step.  The run's
+    summary directory (``summary_dir``) is kept for phase 23; ``tmp``
+    holds it until then."""
     from dmcf_tpu_torch import run_pipeline
     from dmcf_tpu_torch.data import DatasetGroup, get_dataloader, get_rollout
     from dmcf_tpu_torch.models import build_model
@@ -947,9 +953,10 @@ def train_phase(root, dev):
     print_report(trace(lambda: card_step(
         {k: torch.as_tensor(v, device=dev) for k, v in batches[2].items()
          if v is not None}, time_w), reps=1, top=10), top=10)
-    tmp.cleanup()
+    (run,) = os.listdir(os.path.join(tmp.name, "sum"))
     return {"launches": launches, "launches_per_step": step,
-            "step_s": step_s, "grad_rel_err": grad_err, "seconds": seconds}
+            "step_s": step_s, "grad_rel_err": grad_err, "seconds": seconds,
+            "summary_dir": os.path.join(tmp.name, "sum", run), "tmp": tmp}
 
 
 def fp32_train_phase(root, dev, steps=3):
@@ -2370,6 +2377,201 @@ def path_b_phase(root, dev, max_err):
                         dev, 3, 2, max_err, inverted=True)
 
 
+REF_CKPT = os.path.join("tests", "data", "tf_ckpt_liquid3d", "ckpt")
+REF_SCENE = os.path.join("tests", "data", "liquid_block.msgpack.zst")
+REF_STEPS = 20               # phase 23's run_sample rollout
+
+
+def abs_sum(arrays):
+    """The sum of |w| over ``arrays`` in float64 (``math.fsum``: exact,
+    so no order enters), as ``scripts/make_tf_reference_fixture.py``
+    takes it."""
+    import math
+    return math.fsum(math.fsum(np.abs(np.asarray(a, np.float64)).ravel())
+                     for a in arrays)
+
+
+def reference_phase(root, dev, max_err, summary_dir):
+    """Phase 23: a reference-format checkpoint and a dataset file on the
+    card.  (a) The fixture bundle (``tests/data/tf_ckpt_liquid3d``: the
+    reference's variable layout, the JAX package's init weights, written
+    by TensorFlow) read by ``utils/tf_bundle.py`` and loaded by
+    ``utils/tf_ckpt.py`` strictly into ``configs/Liquid3d.yml``'s SymNet
+    at full width and its bf16 trunk: tensor count and sum |w| equal to
+    ``tests/data/fixtures.json``, in the bundle and in the loaded model.
+    (b) The native scene loader built with g++ and
+    ``tests/data/liquid_block.msgpack.zst`` (phase 16's block) read
+    through ``Dataset`` under ``DMCF_NATIVE_LOADER=1``: each array's
+    sha256 equal to the fixtures'.  (c) ``run_sample.run_sample`` on that
+    frame with those weights, REF_STEPS steps on the card, no velocity
+    boost: the exactness gate, the K-list launches counted exactly
+    against the first step's, every launch of the first step against its
+    plain version (``launch_checks``), one step at "highest" card vs the
+    CPU plain path (the correction within 1e-4 of its max; at bf16 one
+    rounding flip of T moves it ~2e-4, phase 7), and on an isolated blob
+    (``tests/test_tf_ckpt.py``'s) the ASCC output's momentum ratio under
+    1e-5.  (d) Phase 11's events file: every record's masked CRC32C
+    verifies, as many scalar events as ``metrics.jsonl`` has lines, each
+    the same tag, step and value (float32)."""
+    import hashlib
+
+    import yaml
+
+    from dmcf_tpu_torch.data import Dataset, native_loader
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.profile_step import record_launches
+    from dmcf_tpu_torch.run_sample import capacity_for, run_sample, \
+        scene_sample
+    from dmcf_tpu_torch.scene import bench_sample
+    from dmcf_tpu_torch.utils.tb_writer import read_events
+    from dmcf_tpu_torch.utils.tf_bundle import load_checkpoint
+    from dmcf_tpu_torch.utils.tf_ckpt import load_tf_reference_checkpoint
+
+    with open(os.path.join(root, "tests", "data", "fixtures.json")) as f:
+        fixtures = json.load(f)
+
+    print("  (a) checkpoint")
+    prefix = os.path.join(root, REF_CKPT)
+    t0 = time.time()
+    rd = load_checkpoint(prefix)
+    keys = sorted(rd.get_variable_to_shape_map())
+    total = abs_sum(rd.get_tensor(k) for k in keys)
+    with open(os.path.join(root, "configs", "Liquid3d.yml")) as f:
+        cfg = yaml.safe_load(f)["model"]
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    state = load_tf_reference_checkpoint(prefix, model, strict=True)
+    model.load_state_dict(state, strict=True)
+    loaded = abs_sum(v.cpu().numpy() for v in model.state_dict().values())
+    want = fixtures["tf_ckpt_liquid3d"]
+    print(f"  bundle {REF_CKPT}: {len(keys)} tensors, sum |w| {total!r} "
+          f"(fixtures: {want['tensors']}, {want['abs_sum']!r}); loaded "
+          f"strictly into {type(model).__name__} ({model.precision}): "
+          f"{len(state)} tensors, sum |w| {loaded!r} (fixtures: "
+          f"{want['model_tensors']}, {want['model_abs_sum']!r}) in "
+          f"{time.time() - t0:.2f} s")
+    check(len(keys) == want["tensors"] and total == want["abs_sum"],
+          "bundle tensors and sum |w| = fixtures.json")
+    check(len(state) == want["model_tensors"]
+          and loaded == want["model_abs_sum"],
+          "loaded tensors and sum |w| = fixtures.json")
+    check(model.precision == "default", "the config's bf16 trunk")
+
+    print("  (b) dataset file through the native loader")
+    libs = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                          text=True).stdout
+    print("  " + "; ".join(ln.strip() for ln in libs.splitlines()
+                           if "libzstd.so" in ln))
+    t0 = time.time()
+    log = native_loader.build()
+    print(f"  native loader {native_loader.target().name} built in "
+          f"{time.time() - t0:.2f} s" + (f"; g++ said:\n{log}" if log
+                                         else ""))
+    scene = os.path.join(root, REF_SCENE)
+    before = os.environ.get("DMCF_NATIVE_LOADER")
+    os.environ["DMCF_NATIVE_LOADER"] = "1"
+    try:
+        ds = Dataset(dataset_path=os.path.dirname(scene))
+        check(ds.files == [scene], f"one scene file: {ds.files}")
+        t0 = time.time()
+        frames = ds[0]
+        read_s = time.time() - t0
+    finally:
+        if before is None:
+            os.environ.pop("DMCF_NATIVE_LOADER")
+        else:
+            os.environ["DMCF_NATIVE_LOADER"] = before
+    frame = frames[0]
+    want = fixtures["liquid_block"]
+    digests = {k: hashlib.sha256(np.ascontiguousarray(frame[k]).tobytes())
+               .hexdigest() for k in want["sha256"]}
+    print(f"  {REF_SCENE}: {len(frames)} frame, {len(frame['pos'])} fluid "
+          f"and {len(frame['box'])} boundary rows, read in {read_s:.3f} s; "
+          f"sha256 equal to fixtures.json: "
+          f"{ {k: d == want['sha256'][k] for k, d in digests.items()} }")
+    check(digests == want["sha256"], "scene arrays' sha256")
+
+    print(f"  (c) run_sample, {REF_STEPS} steps")
+    zero = [0.0, 0.0, 0.0]
+    n0 = len(frame["pos"])
+    sample, _, _, _ = scene_sample(model, frame, vel=zero,
+                                   capacity=capacity_for(n0, REF_STEPS + 1),
+                                   device=dev, log=lambda m: None)
+    (_, _, aux), log = record_launches(model, sample)
+    step = counts_of(log)
+    print(f"  first step: K-list launches (fp32, bf16) {step}; pair excess "
+          f"{dict((k, int(v)) for k, v in aux['pair_overflow_detail'].items())}")
+    launch_checks(log, "reference", max_err)
+    exact = build_model(dict(cfg, precision="highest"), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    exact.load_state_dict(state, strict=True)
+    cpu_model = copy.deepcopy(exact).to("cpu")
+    with torch.no_grad():
+        _, _, ag = exact(sample)
+        _, _, ac = cpu_model({k: v.cpu() for k, v in sample.items()})
+    fm = sample["fluid_mask"].cpu()
+    want_c = ac["pos_correction"][fm]
+    scale = float(want_c.abs().max())
+    err = float((ag["pos_correction"].cpu()[fm] - want_c).abs().max())
+    print(f"  one step at highest, card vs CPU: pos_correction max diff "
+          f"{err:.3e} of max {scale:.3e} (tol 1e-4 of it)")
+    check(scale > 0 and err <= 1e-4 * scale,
+          f"reference: card vs CPU pos_correction {err}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                # the reference path starts here
+    out, report = run_sample(model, frame, REF_STEPS + 1, vel=zero,
+                             device=dev, log=lambda m: print(f"  {m}"))
+    launches = counts()[:2]      # and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    gate = report["pair_overflow"] <= 0 \
+        and report["max_neighbors"] <= report["neighbor_k"]
+    print(f"  {report['ms_per_step']:.3f} ms/step, peak memory allocated "
+          f"{peak / 2 ** 30:.3f} GiB, exact {gate} (pair_overflow "
+          f"{report['pair_overflow']}, max_neighbors "
+          f"{report['max_neighbors']} of K {report['neighbor_k']}), "
+          f"launches {launches} (want {[REF_STEPS * x for x in step]})")
+    check(bool(np.isfinite(out).all()), "finite run_sample frames")
+    check(gate, f"reference exactness gate: {report['pair_overflow']}, "
+          f"{report['max_neighbors']}")
+    check(launches == [REF_STEPS * x for x in step],
+          f"reference launches {launches}")
+    rng = np.random.RandomState(1)
+    blob = bench_sample(rng.uniform(-0.2, 0.2, (128, 3)).astype(np.float32),
+                        np.full((2, 3), 100.0, np.float32),
+                        np.tile(np.float32([0, 1, 0]), (2, 1)), device=dev)
+    _, blog = record_launches(model, blob)
+    sym = [o for n_, _, _, o in blog if n_ == "sym_conv0"][0]
+    ratio = float((sym.sum(0).abs() / sym.abs().sum()).max())
+    print(f"  isolated blob (128 fluid, boundary far): ASCC output |sum "
+          f"out| / sum |out| {ratio:.3e} (< 1e-5)")
+    check(ratio < 1e-5, f"reference blob momentum ratio {ratio}")
+
+    print("  (d) phase 11's events file")
+    (events_file,) = [n for n in os.listdir(summary_dir)
+                      if n.startswith("events.out.tfevents.")]
+    events = read_events(os.path.join(summary_dir, events_file))
+    with open(os.path.join(summary_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    scalars = [e for e in events if "value" in e]
+    texts = [e["tag"] for e in events if "text" in e]
+    print(f"  {events_file}: {len(events)} records, CRC32C verified; "
+          f"{len(scalars)} scalar events, text events {texts}; "
+          f"metrics.jsonl {len(lines)} lines")
+    check(events[0].get("file_version") == "brain.Event:2",
+          "events file version record")
+    check(len(scalars) == len(lines), "one scalar event a metrics line")
+    check(all(e["tag"] == ln["tag"] and e["step"] == ln["step"]
+              and e["value"] == float(np.float32(ln["value"]))
+              for e, ln in zip(scalars, lines)),
+          "scalar events = metrics.jsonl lines")
+    check("config" in texts, "run_pipeline's config text event")
+    return {"step": step, "launches": launches, "report": report,
+            "peak_bytes": peak, "card_cpu_err": err / scale,
+            "momentum_ratio": ratio, "events": len(events),
+            "scalar_events": len(scalars)}
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -2638,6 +2840,12 @@ def main(argv):
           f"{OPTION_STEPS}-step rollout, card vs CPU, train step")
     path_b = path_b_phase(root, dev, max_err)
 
+    phase(f"23 reference checkpoint and dataset file on the card: the "
+          f"fixture bundle without TensorFlow, the scene through the native "
+          f"loader, a {REF_STEPS}-step run_sample, phase 11's events file")
+    reference = reference_phase(root, dev, max_err, train["summary_dir"])
+    train.pop("tmp").cleanup()
+
     pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
         "(pallas_continuous_conv)"
     vjp = "none (no TPU kernel): the VJP of dmcf_tpu/ops/cconv.py:173 " \
@@ -2674,6 +2882,8 @@ def main(argv):
             "run_sample_launches": inflow["launches"][int(half)],
             "path_a_launches": path_a["launches"][int(half)],
             "path_b_launches": path_b["launches"][int(half)],
+            "reference_ckpt_launches_per_step": reference["step"][int(half)],
+            "reference_ckpt_launches": reference["launches"][int(half)],
             "max_abs_err": max_err[half],
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
@@ -2797,6 +3007,15 @@ def main(argv):
           f"{inflow['peak_bytes'] / 2 ** 30:.3f} GiB, exact "
           f"{inflow['exact']} (pair_overflow "
           f"{inflow['report']['pair_overflow']})")
+    rep = reference["report"]
+    print(f"reference checkpoint ({smi}): run_sample {REF_STEPS} steps "
+          f"{rep['ms_per_step']:.3f} ms/step, peak "
+          f"{reference['peak_bytes'] / 2 ** 30:.3f} GiB, launches (K-list "
+          f"fp32, bf16) {reference['launches']}, card vs CPU "
+          f"{reference['card_cpu_err']:.2e}, blob momentum ratio "
+          f"{reference['momentum_ratio']:.3e}; phase 11's events file "
+          f"{reference['events']} records, {reference['scalar_events']} "
+          f"scalars")
     print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "
           f"fp32 {1e3 * dt32 / FP32_STEPS:.3f} ms/step ({FP32_STEPS} "
           f"steps)")

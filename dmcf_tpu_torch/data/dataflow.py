@@ -1,7 +1,8 @@
 """Windowed training samples, evaluation sequences and fixed-shape padding
 (the port's copy of dmcf_tpu/data/dataflow.py: ``random_rotation_matrix``,
 ``WindowSampler`` with its random augmentations (rotate, jitter,
-jitter_inp) and global transform, ``get_rollout``, ``pad_particles``,
+jitter_inp) and global transform, ``get_normalization_stats``,
+``get_rollout``, ``pad_particles``,
 ``sentinel_rows``, ``batch_samples``, ``pad_rollout_state``, the thread
 ``Prefetcher`` and ``get_dataloader``).
 
@@ -159,6 +160,45 @@ class WindowSampler:
                 s["frame_id"] = np.array([f["frame_id"] for f in frames])
                 s["scene_id"] = frames[0].get("scene_id", str(fi))
                 yield self._augment(s)
+
+
+def get_normalization_stats(dataset, dt):
+    """GNS-style velocity/acceleration statistics over a dataset (the
+    learning_to_simulate metadata format; no pipeline calls it)."""
+    vel_means, vel_vars = [], []
+    acc_means, acc_vars = [], []
+    cnts = []
+    frame_cnt = 0
+    for si in range(len(dataset)):
+        scene = dataset[si]
+        frame_cnt = max(frame_cnt, max(f["frame_id"] for f in scene))
+        p = np.stack([np.asarray(f["pos"]) for f in scene], axis=0)
+        v = p[1:] - p[:-1]
+        a = v[1:] - v[:-1]
+        v = v[:-1].reshape(-1, 3)
+        a = a.reshape(-1, 3)
+        cnts.append(v.shape[0])
+        vel_means.append(v.mean(0))
+        vel_vars.append(v.var(0))
+        acc_means.append(a.mean(0))
+        acc_vars.append(a.var(0))
+    cnts = np.asarray(cnts)[:, None]
+    vel_means = np.stack(vel_means)
+    acc_means = np.stack(acc_means)
+    vel_mean = np.sum(vel_means * cnts, 0) / cnts.sum()
+    acc_mean = np.sum(acc_means * cnts, 0) / cnts.sum()
+    vel_var = np.sum((np.stack(vel_vars) +
+                      (vel_means - vel_mean) ** 2) * cnts, 0) / cnts.sum()
+    acc_var = np.sum((np.stack(acc_vars) +
+                      (acc_means - acc_mean) ** 2) * cnts, 0) / cnts.sum()
+    return {
+        "acc_mean": acc_mean, "acc_std": np.sqrt(acc_var),
+        "vel_mean": vel_mean, "vel_std": np.sqrt(vel_var),
+        "dim": 3, "dt": dt,
+        "default_connectivity_radius": 0.015,
+        "bounds": [[-1.0, 1.0], [-1.0, 1.0]],
+        "sequence_length": int(frame_cnt),
+    }
 
 
 def get_rollout(dataset, stride=1, time_start=0, time_end=None,

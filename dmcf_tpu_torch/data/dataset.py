@@ -6,7 +6,9 @@ A dataset is a directory of ``*.msgpack.zst`` files (one compressed list of
 frame dicts per scene) or an in-memory list made by a generator, cached to
 zstd-msgpack under the md5 of the generator config.  ``msgpack`` and
 ``zstandard`` are imported where a file is read or written, so generating
-and holding scenes in memory needs neither.
+and holding scenes in memory needs neither; nor does reading a scene file
+under ``DMCF_NATIVE_LOADER=1``, which goes through the native loader
+(``native_loader``: C++ and ``libzstd.so.1``).
 """
 
 from __future__ import annotations
@@ -103,6 +105,10 @@ class Dataset:
     def __getitem__(self, idx):
         if self.data is not None:
             return self.data[idx]
+        if os.environ.get("DMCF_NATIVE_LOADER") == "1":
+            # no fallback: a loader that cannot be built or loaded raises
+            from . import native_loader
+            return native_loader.load_scene(self.files[idx])
         return read_msgpack_zst(self.files[idx])
 
 

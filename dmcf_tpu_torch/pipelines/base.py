@@ -1,13 +1,13 @@
-"""Base pipeline: run directories, checkpoints, scalar summaries (port of
+"""Base pipeline: run directories, checkpoints, summaries (port of
 dmcf_tpu/pipelines/base.py).
 
 Checkpoints hold the model's ``state_dict`` per epoch
 (``<logs_dir>/checkpoint/ckpt_<epoch>.pt``) and, once training has built
 them, the optimizer's and the LR schedule's, so a run resumes where it
-stopped; the JAX package's orbax checkpoints are not read (ROADMAP queue 1,
-"Checkpoints").  Scalars go to a
-``metrics.jsonl`` file, the JAX package's JSONL mirror; its tensorboard
-event files are left out.
+stopped; ``scripts/jax_ckpt_to_torch.py`` turns the JAX package's orbax
+checkpoints into this format.  Summaries go to TensorBoard event files
+(``utils/tb_writer.py``, no TensorFlow) with scalars mirrored to a
+``metrics.jsonl`` file, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import glob
 import json
 import logging
 import os
-import re
 import shutil
 from pathlib import Path
 
@@ -24,49 +23,37 @@ import torch
 
 from .. import resolve_device
 from ..utils import Config
+from ..utils.log import get_runid, make_dir
+from ..utils.tb_writer import TBEventWriter
 
 log = logging.getLogger(__name__)
 
 
-def make_dir(path):
-    os.makedirs(path, exist_ok=True)
-
-
-def get_runid(path):
-    """Next 5-digit run id for a summary directory family."""
-    name = os.path.basename(path)
-    parent = os.path.dirname(path) or "."
-    if not os.path.exists(parent):
-        return "00001"
-    best = 0
-    pattern = re.compile(r"^(\d{5})_" + re.escape(name) + r"$")
-    for entry in os.listdir(parent):
-        m = pattern.match(entry)
-        if m:
-            best = max(best, int(m.group(1)))
-    return "%05d" % (best + 1)
-
-
 class SummaryLogger:
-    """Scalar summary writer: one JSON object a line in metrics.jsonl."""
+    """Summary writer: TensorBoard events (scalars and text) and a
+    metrics.jsonl mirror of the scalars, one JSON object a line."""
 
     def __init__(self, directory):
         make_dir(directory)
         self.dir = directory
         self.jsonl = open(os.path.join(directory, "metrics.jsonl"), "a")
+        self.tb = TBEventWriter(directory)
 
     def scalar(self, tag, value, step):
-        self.jsonl.write(json.dumps({"tag": tag, "value": float(value),
+        value = float(value)
+        self.tb.scalar(tag, value, step)
+        self.jsonl.write(json.dumps({"tag": tag, "value": value,
                                      "step": int(step)}) + "\n")
 
     def text(self, tag, value, step=0):
-        self.jsonl.write(json.dumps({"tag": tag, "text": str(value),
-                                     "step": int(step)}) + "\n")
+        self.tb.text(tag, value, step)
 
     def flush(self):
+        self.tb.flush()
         self.jsonl.flush()
 
     def close(self):
+        self.tb.close()
         self.jsonl.close()
 
 

@@ -4,7 +4,8 @@
     python -m dmcf_tpu_torch.run_sample -c configs/Liquid3d.yml \\
         --data_path scene.msgpack.zst --timesteps 41 --inflow 40 \\
         --inflow_every 10 --boundary_crop_max 65536 --vel 2 0 -1.2 \\
-        [--ckpt_path ckpt.pt] [--chunk N] [--device cuda|cpu]
+        [--tf_ckpt ref/ckpt | --ckpt_path ckpt.pt] [--chunk N] \\
+        [--device cuda|cpu]
 
 Reads frame 0 of a msgpack.zst scene, rolls the model out for
 ``--timesteps - 1`` steps and writes the trajectory (frame 0 and every
@@ -26,9 +27,10 @@ capacity.
 
 ``run_sample`` is the in-memory part (a built model and frame 0 in, frames
 and report out): the GPU machine has neither ``zstandard`` nor ``h5py``,
-so scripts there call it directly.  ``--tf_ckpt`` (reference TensorFlow
-checkpoints) and ``--spatial halo`` (multi-device slabs) are not ported
-and raise.
+so scripts there call it directly.  ``--tf_ckpt`` loads a reference
+TensorFlow checkpoint (``utils/tf_ckpt.py``, read without TensorFlow) and
+takes precedence over ``--ckpt_path``, as in the root script.
+``--spatial halo`` (multi-device slabs) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def parse_args(argv=None):
     parser.add_argument("--ckpt_path", help="path to a checkpoint of the "
                         "port (a .pt file that run_pipeline saved)")
     parser.add_argument("--tf_ckpt", help="reference TensorFlow checkpoint "
-                        "(not ported: raises)")
+                        "prefix (e.g. checkpoints/Liquid3d/ckpt)")
     parser.add_argument("--data_path", help="path to the scene data (a "
                         "msgpack.zst scene; frame 0 is read)")
     parser.add_argument("--inflow", default=0, type=int,
@@ -257,10 +259,6 @@ def main(argv=None):
     from .models import build_model
 
     args = parse_args(argv)
-    if args.tf_ckpt:
-        raise NotImplementedError(
-            "--tf_ckpt (reference TensorFlow checkpoints) is not ported yet "
-            "(ROADMAP queue 1, 'Checkpoints')")
     if args.spatial == "halo":
         raise NotImplementedError(
             "--spatial halo (slab decomposition over devices) is not "
@@ -277,7 +275,12 @@ def main(argv=None):
         cfg["model"][key] = yaml.safe_load(val)
     model = build_model(cfg["model"], device=args.device,
                         generator=torch.Generator().manual_seed(0))
-    if args.ckpt_path:
+    if args.tf_ckpt:
+        from .utils.tf_ckpt import load_tf_reference_checkpoint
+        model.load_state_dict(
+            load_tf_reference_checkpoint(args.tf_ckpt, model), strict=True)
+        print(f"Converted reference TF checkpoint {args.tf_ckpt}")
+    elif args.ckpt_path:
         state = torch.load(args.ckpt_path, map_location=model.device,
                            weights_only=True)
         model.load_state_dict(state.get("model", state))

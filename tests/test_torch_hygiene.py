@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no file of ``dmcf_tpu_torch/``, not
 ``chip_smoke.py`` and not the port's diagnostic scripts import JAX, flax,
-optax, orbax or the JAX package (an AST scan, so imports inside functions
-count too)."""
+optax, orbax, TensorFlow or the JAX package (an AST scan, so imports
+inside functions count too)."""
 
 import ast
 import pathlib
@@ -13,7 +13,8 @@ import torch
 torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dmcf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow",
+             "dmcf_tpu")
 PORT_FILES = sorted((ROOT / "dmcf_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_klist_phases.py",
     ROOT / "scripts" / "torch_redesign_ab.py",

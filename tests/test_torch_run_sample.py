@@ -5,7 +5,8 @@ precision, a bf16 trunk): the inflow counts, the hdf5 file and the report
 lines; its frames against root ``run_sample.py`` (JAX, random init from
 ``PRNGKey(0)``) with the same weights, which the test rebuilds in process
 from ``PRNGKey(0)``, converts through ``interop.params_from_flax`` and
-saves as a port checkpoint; and the options that are not ported.
+saves as a port checkpoint; and the option that is not ported
+(``--tf_ckpt`` has its tests in ``tests/test_torch_tf_ckpt.py``).
 
 Tolerance of the frames: 1e-5 absolute on positions (|x| <= 0.6; four
 steps of a bf16 trunk whose sums the two packages take in other orders;
@@ -152,7 +153,6 @@ def test_run_sample_matches_root_run_sample(runs):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--tf_ckpt", "ckpt"], "Checkpoints"),
     (["--spatial", "halo"], "Multi-GPU"),
 ])
 def test_unported_options_raise(extra, what):

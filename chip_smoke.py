@@ -5,7 +5,9 @@
 
 Drives the port (``dmcf_tpu_torch``) only: builds its CUDA kernels from
 the sources in this checkout, holds each kernel variant (fp32 and bf16)
-against its plain PyTorch twin on the card, runs the WaterRamps SymNet
+against its plain PyTorch twin on the card (the farthest-point kernel,
+``csrc/fps.cu``, under every schedule ``kernels.fps.schedule`` chooses and
+every rows-a-thread count it is built for, bit for bit: phase 3b), runs the WaterRamps SymNet
 (``configs/WaterRamps.yml`` at its own precision, a bf16 trunk: full
 width, random weights from a seeded ``torch.Generator``) on the bench
 scene for one step and the bench's timed 600-step rollout
@@ -2193,6 +2195,101 @@ class CheckedInversions:
             h.remove()
 
 
+def fps_sets(b, n, sample_max, dev):
+    """``b`` unequal sets of ``n`` rows for the FPS kernel's checks, in
+    turn: an exact 3D lattice at spacing 0.01 (distance ties at every
+    pick) with every 7th row masked, random 2D points with the last third
+    masked, random 3D points all valid (masked rows at the sentinel
+    positions); and the counts a set, in turn sample_max // 2,
+    sample_max // 3 + 1 and sample_max - 1."""
+    from dmcf_tpu_torch.ops.sph import masked_positions
+    rng = np.random.RandomState(n)
+    side = int(np.ceil(n ** (1.0 / 3.0)))
+    lattice = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                       -1).reshape(-1, 3)[:n] * 0.01
+    pos = np.zeros((b, n, 3), np.float32)
+    mask = np.ones((b, n), bool)
+    for s in range(b):
+        if s % 3 == 0:
+            pos[s] = lattice
+            mask[s, ::7] = False
+        elif s % 3 == 1:
+            pos[s, :, :2] = rng.uniform(-0.5, 0.5, (n, 2))
+            mask[s, n - n // 3:] = False
+        else:
+            pos[s] = rng.uniform(-0.5, 0.5, (n, 3))
+    pos = torch.stack([masked_positions(torch.from_numpy(p),
+                                        torch.from_numpy(m))
+                       for p, m in zip(pos, mask)])
+    count = torch.tensor([(sample_max // 2, sample_max // 3 + 1,
+                           sample_max - 1)[s % 3] for s in range(b)],
+                         dtype=torch.int32)
+    return (pos.to(dev), torch.from_numpy(mask).to(dev), count.to(dev))
+
+
+def fps_cases():
+    """The FPS kernel's checks, (name, batch, n, sample_max, forced
+    schedule or None): ``kernels.fps.schedule`` at N 1, 128 (path B) and
+    each N where it changes and N + 1 (the one-warp limit, each block
+    schedule, the workspace), one warp and a block of two at every
+    rows-a-thread count the kernel is built for, path A's shapes, a batch
+    of nine, and the workspace with the positions in shared and in global
+    memory."""
+    from dmcf_tpu_torch.kernels import fps
+    cases = {}
+    boundaries = [n for n in range(1, fps.REGISTER_ROWS + 1)
+                  if fps.schedule(n) != fps.schedule(n + 1)]
+    for n in [1, 128] + [m for b in boundaries for m in (b, b + 1)]:
+        cases.setdefault(f"n{n}", (3, n, min(n + 8, 64), None))
+    for i in fps.ITEMS:  # every rows-a-thread count the kernel is built for
+        cases[f"warp_items{i}"] = (3, 32 * i, 64, fps.Schedule("warp", 1, i))
+        cases[f"block_items{i}"] = (3, 64 * i - 5, 64,
+                                    fps.Schedule("block", 2, i))
+    cases.update({
+        "wr_scale1": (2, 2688, 1344, None),
+        "wr_scale2": (2, 1344, 672, None),
+        "lattice_holes": (2, 1327, 664, None),
+        "batch_3d": (3, 343, 200, None),
+        "column": (3, 48, 48, None),
+        "batch_9": (9, 128, 128, None),
+        "workspace_shared": (2, 12000, 48, None),
+        "workspace_global": (2, 20000, 48, None),
+    })
+    return [(k,) + v for k, v in cases.items()]
+
+
+def fps_kernel_phase(dev):
+    """Phase 3b: the FPS kernel against its plain version at every case
+    of ``fps_cases`` (idx and the selection mask bitwise equal, two
+    launches bitwise equal).  Returns the cases, the largest difference
+    of any output element and the schedules run."""
+    from dmcf_tpu_torch.kernels.fps import (_launch,
+                                            farthest_point_sample_reference,
+                                            schedule)
+    worst, ran = 0, set()
+    cases = fps_cases()
+    for name, b, n, s, sched in cases:
+        pos, mask, count = fps_sets(b, n, s, dev)
+        idx, sel = _launch(pos, mask, s, count, sched)
+        again, again_sel = _launch(pos, mask, s, count, sched)
+        ref_idx, ref_sel = farthest_point_sample_reference(pos, mask, s,
+                                                           count)
+        torch.cuda.synchronize()
+        err = max(int((idx.long() - ref_idx.long()).abs().max()),
+                  int((sel.int() - ref_sel.int()).abs().max()))
+        check(err == 0, f"fps {name} (B {b} N {n} S {s}): kernel vs plain "
+              f"{err}")
+        check(torch.equal(idx, again) and torch.equal(sel, again_sel),
+              f"fps {name}: two launches bitwise equal")
+        worst = max(worst, err)
+        ran.add(sched or schedule(n))
+    regimes = sorted({r.regime for r in ran})
+    print(f"  FPS kernel: {len(cases)} cases bitwise equal to the plain "
+          f"version and to a second launch, {len(ran)} schedules "
+          f"(regimes {regimes})")
+    return dict(cases=len(cases), max_abs_err=worst, schedules=len(ran))
+
+
 def fps_bound(pos, mask, sample_max):
     """Least time of one FPS call: bytes (positions and mask read once,
     the count, idx and the selection mask written once) over the memory
@@ -2200,7 +2297,8 @@ def fps_bound(pos, mask, sample_max):
     distance to the last pick, 3 subtractions, a product, two fused
     multiply-adds at 2 each, and a minimum, 9 fp32 operations) over the
     fp32 rate, whichever is larger.  Returns (ms, by, bytes, operations);
-    the latency floor (sample_max dependent picks) is not in it."""
+    the latency floor (sample_max dependent picks) is not in it: the
+    smoke measures it (``fps_floor_ms``)."""
     b = pos.shape[0] if pos.dim() == 3 else 1
     n = pos.shape[-2]
     nbytes = b * (13 * n + 4 + 5 * sample_max)
@@ -2211,30 +2309,68 @@ def fps_bound(pos, mask, sample_max):
             else "operations", nbytes, ops)
 
 
+# device ms of csrc/fps.cu's earlier design (two five-round shuffle trees
+# and a barrier a pick, the positions read from shared memory) at the
+# main path's FPS shapes (N, sample_max), as PERF.md records them (NVIDIA
+# H100 80GB HBM3, 700.00 W): printed beside this run's times
+FPS_EARLIER_DEVICE_MS = {(2688, 1344): 1.3674, (1344, 672): 0.6149,
+                         (128, 128): 0.0946}
+
+
+def fps_floor_ms(sched, picks, dev):
+    """Device ms of ``sched``'s latency floor over ``picks`` picks: the
+    kernel, through ``farthest_point_sample``, on a set of one row a
+    thread under the same regime and warps (32 rows for one warp, 32 x
+    ``BLOCK_WARPS`` for the block), where its time is the pick chain
+    alone."""
+    from dmcf_tpu_torch.kernels.fps import farthest_point_sample, schedule
+    from dmcf_tpu_torch.profile_step import graph_ms
+    rows = 32 * sched.warps
+    check(schedule(rows) == sched._replace(items=1),
+          f"fps latency floor: {rows} rows take {schedule(rows)}, not "
+          f"{sched} at one row a thread")
+    pos = torch.rand((rows, 3), generator=torch.Generator().manual_seed(0))
+    pos, mask = pos.to(dev), torch.ones(rows, dtype=torch.bool, device=dev)
+    count = torch.tensor(picks, dtype=torch.int32, device=dev)
+    return graph_ms(lambda: farthest_point_sample(pos, mask, picks, count))
+
+
 def fps_times(log):
     """The FPS kernel at each distinct (rows, sample_max) of ``log``: ms of
-    calls back to back, device ms (graph replay), the plain version's ms
-    and the bound (after the main path's counts are read)."""
+    calls back to back, device ms (graph replay), us a pick, its
+    schedule's latency floor (``fps_floor_ms``) and the multiple of it,
+    the plain version's ms and the bound (after the main path's counts
+    are read)."""
     from dmcf_tpu_torch.kernels.fps import (farthest_point_sample,
-                                            farthest_point_sample_reference)
+                                            farthest_point_sample_reference,
+                                            schedule)
     from dmcf_tpu_torch.profile_step import graph_ms
     out = {}
     for (pos, mask, s, count), _ in log:
         key = (pos.shape[-2], s)
         if key in out:
             continue
+        sched = schedule(key[0])
         ms = cuda_ms(lambda: farthest_point_sample(pos, mask, s, count),
                      iters=20)
         d_ms = graph_ms(lambda: farthest_point_sample(pos, mask, s, count))
+        f_ms = fps_floor_ms(sched, s, pos.device)
         p_ms = cuda_ms(lambda: farthest_point_sample_reference(
             pos, mask, s, count), iters=2, warmup=1)
         b_ms, b_by, nbytes, ops = fps_bound(pos, mask, s)
-        out[key] = dict(ms=ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
-                        bound_by=b_by)
-        print(f"  fps N {key[0]} sample_max {s} valid {int(mask.sum())}: "
-              f"kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
-              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {nbytes} B, "
-              f"{ops} FLOP), latency floor {s} dependent picks")
+        earlier = FPS_EARLIER_DEVICE_MS.get(key)
+        out[key] = dict(ms=ms, device_ms=d_ms, us_a_pick=1e3 * d_ms / s,
+                        floor_ms=f_ms, floor_multiple=d_ms / f_ms,
+                        schedule=sched._asdict(), plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+        print(f"  fps N {key[0]} sample_max {s} valid {int(mask.sum())}, "
+              f"schedule {tuple(sched)}: kernel {ms:.4f} ms (device time "
+              f"{d_ms:.4f}, {1e3 * d_ms / s:.4f} us a pick), latency floor "
+              f"{f_ms:.4f} ms ({1e3 * f_ms / s:.4f} us a pick; the kernel "
+              f"{d_ms / f_ms:.2f} x it), earlier design "
+              f"{earlier if earlier is not None else 'not recorded'} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
+              f"{nbytes} B, {ops} FLOP)")
     return out
 
 
@@ -2676,6 +2812,9 @@ def main(argv):
               f"{b_ms / tm['ms']:.3f} (of device time "
               f"{b_ms / tm['device_ms']:.3f})")
 
+    phase("3b FPS kernel vs its plain version under every schedule")
+    fps_check = fps_kernel_phase(dev)
+
     phase("4 one WaterRamps SymNet step (the config's precision: a bf16 "
           "trunk)")
     model = build_model(cfg, device=dev,
@@ -2974,10 +3113,15 @@ def main(argv):
         # the largest difference of any output element (idx, mask) from
         # the plain version over every checked launch of both paths
         "max_abs_err": max(path_a["fps_max_abs_err"],
-                           path_b["fps_max_abs_err"]),
+                           path_b["fps_max_abs_err"],
+                           fps_check["max_abs_err"]),
         "checked_launches": path_a["fps_checked"] + path_b["fps_checked"],
+        "schedule_cases": fps_check["cases"],
+        "schedules_checked": fps_check["schedules"],
         "ms": fps_a["ms"],
         "device_ms": fps_a["device_ms"],
+        "floor_ms": fps_a["floor_ms"],
+        "floor_multiple": fps_a["floor_multiple"],
         "plain_ms": fps_a["plain_ms"],
         "bound_ms": fps_a["bound_ms"],
         "bound_by": fps_a["bound_by"],
@@ -2986,6 +3130,13 @@ def main(argv):
                    for p, r in (("path A", path_a), ("path B", path_b))
                    for k, v in r["fps"].items()},
     })
+    print(f"fps ({smi}): {fps_check['cases']} schedule cases bitwise; "
+          + "; ".join(f"N {k[0]} S {k[1]} {v['device_ms']:.4f} ms "
+                      f"({v['us_a_pick']:.4f} us a pick, "
+                      f"{v['floor_multiple']:.2f} x the floor "
+                      f"{v['floor_ms']:.4f}; earlier design "
+                      f"{FPS_EARLIER_DEVICE_MS.get(k, 'not recorded')})"
+                      for r in (path_a, path_b) for k, v in r["fps"].items()))
     for label, r in (("A", path_a), ("B", path_b)):
         print(f"path {label} ({smi}): {r['ms_per_step']:.3f} ms/step, device "
               f"{r['device_ms']:.3f} ms in {r['device_launches']} launches, "
@@ -3024,6 +3175,8 @@ def main(argv):
           f"batch 16 x window 3 "
           f"{wr_train['seconds']:.3f} s, peak "
           f"{wr_train['peak_bytes'] / 2 ** 30:.3f} GiB")
+    print(f"smoke wall time: {time.time() - _START:.1f} s (from after "
+          f"importing torch, the kernels' build included)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

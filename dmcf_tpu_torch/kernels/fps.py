@@ -27,17 +27,21 @@ the plain version's (the file note of ``csrc/fps.cu``).
 
 A CPU tensor goes to ``farthest_point_sample_reference``; a CUDA tensor
 launches the kernel (one launch samples every set of the batch) or
-raises.
+raises.  ``schedule`` chooses how the kernel lays a set out (its regime,
+warps and rows a thread) from the set's size; the launcher passes it in.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import re
+from typing import NamedTuple
 
 import torch
 
-from .build import load_library
+from .build import CSRC, load_library
 
 
 def _batched(pos, mask, count):
@@ -94,23 +98,84 @@ def farthest_point_sample_reference(pos, mask, sample_max, count):
     return (idx[0], sel[0]) if single else (idx, sel)
 
 
+def _items_table():
+    """``csrc/fps.cu``'s ``FPS_ITEMS_TABLE``: {rows a thread its register
+    kernels are built for: the most threads a block of them may have}."""
+    text = (CSRC / "fps.cu").read_text()
+    body = re.search(r"#define FPS_ITEMS_TABLE\(X\)((?:.*\\\n)*.*)", text)
+    return {int(i): int(c)
+            for i, c in re.findall(r"X\((\d+),\s*(\d+)\)", body.group(1))}
+
+
+_CAPS = _items_table()
+ITEMS = tuple(sorted(_CAPS))     # rows a thread may hold in registers
+# the registers' capacity (8,192 rows): larger sets keep their minima in a
+# workspace
+REGISTER_ROWS = max(i * c for i, c in _CAPS.items())
+# From scripts/torch_fps_sweep.py on an H100: one warp beats every block up
+# to 384 rows (12 a lane) and loses from 512; a block of 16 warps is the
+# fastest width, or within 2 % of it, from 512 to 8,192 rows but at 768
+# (8 warps 12 % faster).
+WARP_ROWS = 384          # sets of at most this many rows take one warp
+BLOCK_WARPS = 16         # larger sets a block of this many warps
+
+
+class Schedule(NamedTuple):
+    """How ``csrc/fps.cu`` lays a set out: ``regime`` "warp" (one warp a
+    set, ``warps`` 1), "block" (a block of ``warps`` warps a set) or
+    "workspace" (the same, the minima in device memory);
+    ``items`` rows a thread holds in registers (0 for "workspace")."""
+    regime: str
+    warps: int
+    items: int
+
+
+def threads_cap(items):
+    """Threads a block of ``items`` rows a thread may have (the kernel's
+    launch bounds)."""
+    return _CAPS[items]
+
+
+def fit_items(rows):
+    """The fewest rows a thread of ``ITEMS`` that hold ``rows``."""
+    return next(i for i in ITEMS if i >= rows)
+
+
+def schedule(n):
+    """The kernel's schedule for sets of ``n`` rows (constants above)."""
+    if n <= WARP_ROWS:
+        return Schedule("warp", 1, fit_items(math.ceil(n / 32)))
+    if n <= REGISTER_ROWS:
+        return Schedule("block", BLOCK_WARPS,
+                        fit_items(math.ceil(n / (32 * BLOCK_WARPS))))
+    return Schedule("workspace", 32, 0)
+
+
+_REGIMES = {"warp": 0, "block": 1, "workspace": 2}
+
+
 @functools.cache
 def _library():
     """The built library, its ctypes signatures set once."""
     lib = load_library("fps")
     lib.fps_launch.restype = ctypes.c_int
-    lib.fps_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    lib.fps_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p] * 4
-    lib.fps_work_floats.restype = ctypes.c_int
-    lib.fps_work_floats.argtypes = [ctypes.c_int]
     return lib
 
 
 def farthest_point_sample(pos, mask, sample_max, count):
     """Farthest-point sampling (module docstring): CUDA tensors launch
-    ``csrc/fps.cu``, CPU tensors take the plain version."""
+    ``csrc/fps.cu`` with ``schedule``'s layout, CPU tensors take the plain
+    version."""
     if not pos.is_cuda:
         return farthest_point_sample_reference(pos, mask, sample_max, count)
+    return _launch(pos, mask, sample_max, count)
+
+
+def _launch(pos, mask, sample_max, count, sched=None):
+    """One launch of ``csrc/fps.cu`` on CUDA tensors, with ``sched``'s
+    layout (a sweep's or a test's candidate) or ``schedule``'s."""
     single, pos, mask, count = _batched(pos, mask, count)
     b, n, three = pos.shape
     if pos.dtype != torch.float32 or three != 3 or n < 1 \
@@ -119,21 +184,24 @@ def farthest_point_sample(pos, mask, sample_max, count):
                          f"a mask [B, N] and sample_max >= 1 (got "
                          f"{pos.dtype} {tuple(pos.shape)}, mask "
                          f"{tuple(mask.shape)}, sample_max {sample_max})")
+    sched = sched or schedule(n)
     pos = pos.contiguous()
     mask = mask.contiguous()
     count = count.contiguous()
     lib = _library()
     idx = torch.empty((b, sample_max), dtype=torch.int32, device=pos.device)
     sel = torch.empty((b, sample_max), dtype=torch.bool, device=pos.device)
-    floats = lib.fps_work_floats(n)
-    work = torch.empty((b, floats), dtype=torch.float32, device=pos.device) \
-        if floats else None
+    work = torch.empty((b, n), dtype=torch.float32, device=pos.device) \
+        if sched.regime == "workspace" else None
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     err = lib.fps_launch(pos.data_ptr(), mask.data_ptr(), count.data_ptr(),
-                         b, n, sample_max, idx.data_ptr(), sel.data_ptr(),
+                         b, n, sample_max, _REGIMES[sched.regime],
+                         sched.warps, sched.items, idx.data_ptr(),
+                         sel.data_ptr(),
                          None if work is None else work.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"fps kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fps kernel launch failed ({sched}): CUDA "
+                           f"error {err}")
     farthest_point_sample.launches += 1
     return (idx[0], sel[0]) if single else (idx, sel)
 

@@ -1,7 +1,9 @@
 """Farthest-point sampling in the PyTorch port against the JAX reference,
 on the CPU: the plain version of the CUDA kernel (``kernels/fps.py``)
 against ``dmcf_tpu/ops/sph.py:farthest_point_sample``, and the pyramid's
-farthest-point branch (``ops/sph.get_dilated_pos``) against JAX's.
+farthest-point branch (``ops/sph.get_dilated_pos``) against JAX's; the
+kernel's schedule (``kernels/fps.schedule``) and its order-preserving
+arg-max key (mirrored in numpy) on their own.
 
 Tolerance: none.  Every pick depends on exact comparisons of distances
 (a one-ulp change of one distance changes every later pick), so picks,
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from dmcf_tpu.ops import sph as jsph
+from dmcf_tpu_torch.kernels import fps
 from dmcf_tpu_torch.kernels.fps import (farthest_point_sample,
                                         farthest_point_sample_reference)
 from dmcf_tpu_torch.ops import sph
@@ -71,6 +74,9 @@ CASES = {
     "cube_lattice": (_cube_lattice, 216, 216),
     "masked_rows": (_holes, 150, 66),
     "count_below_max": (lambda: _random(2, 96, 3), 48, 7),
+    # the kernel's one-warp limit and one row past it
+    "warp_limit": (lambda: _random(6, fps.WARP_ROWS, 3), 16, 12),
+    "warp_limit_plus_1": (lambda: _random(7, fps.WARP_ROWS + 1, 2), 16, 16),
 }
 
 
@@ -125,3 +131,71 @@ def test_fps_pyramid_matches_jax():
                                           np.asarray(ref[3][s]))
     # the absolute stride: scale 2 holds count_1 // 4 picks
     assert int(got[2][2]) == max(int(got[2][1]) // 4, 1)
+
+
+@pytest.mark.parametrize("regime,first,last", [
+    ("warp", 1, fps.WARP_ROWS),
+    ("block", fps.WARP_ROWS + 1, fps.REGISTER_ROWS),
+    ("workspace", fps.REGISTER_ROWS + 1, fps.REGISTER_ROWS + 300)])
+def test_schedule_holds_every_set(regime, first, last):
+    """For every N from 1 to past the registers' capacity the schedule
+    covers every row with at most 1,024 threads (and the kernel's launch
+    bounds), with the rows a thread the kernel is built for: sets one warp
+    holds take the one-warp regime, larger ones a block of a power of two
+    warps, sets past the registers the workspace."""
+    assert fps.WARP_ROWS <= 32 * fps.ITEMS[-1]
+    assert max(fps.threads_cap(i) for i in fps.ITEMS) == 1024
+    for n in range(first, last + 1):
+        s = fps.schedule(n)
+        assert s.regime == regime, (n, s)
+        if regime == "warp":
+            assert s.warps == 1 and s.items in fps.ITEMS, (n, s)
+            assert 32 * s.items >= n, (n, s)
+        elif regime == "block":
+            assert s.items in fps.ITEMS, (n, s)
+            assert s.warps in (2, 4, 8, 16, 32), (n, s)
+            assert 32 * s.warps * s.items >= n, (n, s)
+            assert 32 * s.warps <= fps.threads_cap(s.items), (n, s)
+        else:
+            assert s.items == 0 and s.warps in (1, 2, 4, 8, 16, 32), (n, s)
+
+
+def _order_key(v):
+    """numpy mirror of ``order_key`` in ``csrc/fps.cu``: a value >= +0
+    maps to its float bits plus 1, -inf (a masked row) to 0."""
+    v = np.asarray(v, np.float32)
+    return np.where(v >= 0, v.view(np.uint32) + np.uint32(1),
+                    np.uint32(0)).astype(np.uint32)
+
+
+def test_order_key_orders_as_value_then_lowest_index():
+    """The kernel's arg-max (largest key, then lowest index among equal
+    keys) is the order on (value, -index) of the running minima: +0,
+    subnormals, normals, the largest float, +inf (a valid row before its
+    first update) and -inf (a masked row), equal values included; and the
+    distances, fma(dz, dz, fma(dy, dy, dx * dx)), are never -0 (whose
+    bits would break the key)."""
+    tiny = np.finfo(np.float32).tiny
+    sub = np.float32(1.4e-45)
+    edge = np.array([-np.inf, 0.0, sub, 2 * sub, tiny - sub, tiny,
+                     np.nextafter(tiny, np.float32(1)), 1.0,
+                     np.nextafter(np.float32(1), np.float32(2)),
+                     np.finfo(np.float32).max, np.inf], np.float32)
+    keys = _order_key(edge)
+    assert (np.diff(keys.astype(np.int64)) > 0).all()
+    assert keys[0] == 0 and keys[1] == 1
+    rng = np.random.RandomState(0)
+    for _ in range(200):
+        v = rng.choice(edge, size=int(rng.randint(1, 40)))  # equal values
+        i = np.arange(len(v))
+        by_value = np.lexsort((i, -v.astype(np.float64)))
+        by_key = np.lexsort((i, -_order_key(v).astype(np.int64)))
+        np.testing.assert_array_equal(by_key, by_value)
+        k = _order_key(v)
+        top = k.max()
+        assert np.flatnonzero(k == top).min() == int(torch.argmax(T(v)))
+    zeros = torch.tensor([0.0, -0.0])
+    d = torch.cartesian_prod(zeros, zeros, zeros)
+    dist = fps.fma(d[:, 2], d[:, 2], fps.fma(d[:, 1], d[:, 1],
+                                             d[:, 0] * d[:, 0]))
+    assert not torch.signbit(dist).any()

@@ -25,6 +25,9 @@ step's gradients card against CPU within 2e-2 of each tensor's max.
 The farthest-point kernel picks the plain version's rows bit for bit.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -40,6 +43,10 @@ from dmcf_tpu_torch.kernels.cconv_klist import (_bwd_data_launch,
                                                 transposed_slots)
 from dmcf_tpu_torch.ops import cconv, coords, neighbors, windows
 from dmcf_tpu_torch.models.pbf import drop_coincident
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import fps_cases, fps_sets  # noqa: E402
 
 # two intra-op threads: the suite runs files side by side on a few cores
 torch.set_num_threads(2)
@@ -891,29 +898,25 @@ def fps_inputs(b, n, dim, lattice, holes, seed, device):
     return pos.to(device), torch.from_numpy(mask).to(device)
 
 
-@pytest.mark.parametrize("b,n,sample_max,dim,lattice,holes", [
-    (1, 2654, 1327, 2, False, 0),     # WaterRamps' scale 1
-    (1, 1327, 664, 2, True, 7),       # scale 2, lattice ties, holes
-    (2, 343, 200, 3, True, 0),        # a batch of 3D lattices
-    (3, 48, 48, 1, False, 5),         # column-sized sets
-    (1, 12000, 48, 3, False, 3),      # past the registers: a workspace
-    (1, 20000, 48, 3, False, 0),      # and past the shared-memory opt-in
-], ids=["wr_scale1", "lattice_holes", "batch_3d", "column",
-        "workspace_shared", "workspace_global"])
-def test_fps_kernel_matches_plain(cuda, b, n, sample_max, dim, lattice,
-                                  holes):
+FPS_CASES = fps_cases()
+
+
+@pytest.mark.parametrize("b,n,sample_max,sched",
+                         [c[1:] for c in FPS_CASES],
+                         ids=[c[0] for c in FPS_CASES])
+def test_fps_kernel_matches_plain(cuda, b, n, sample_max, sched):
     """The farthest-point kernel picks the plain version's rows bit for
-    bit (idx and mask), in each of its layouts (the minima in registers or
-    a workspace, the positions in shared or global memory), and counts one
-    launch a call."""
-    from dmcf_tpu_torch.kernels.fps import (farthest_point_sample,
+    bit (idx and mask) under every schedule (one warp a set, a block of
+    warps a set, the workspace with the positions in shared or global
+    memory; ``chip_smoke.fps_cases``), on unequal sets with lattice ties,
+    masked rows and counts below ``sample_max``; two launches are bitwise
+    equal, and each call counts one launch."""
+    from dmcf_tpu_torch.kernels.fps import (_launch, farthest_point_sample,
                                             farthest_point_sample_reference)
-    pos, mask = fps_inputs(b, n, dim, lattice, holes, 0, cuda)
-    count = torch.arange(b, dtype=torch.int32, device=cuda) * 3 \
-        + sample_max // 2
+    pos, mask, count = fps_sets(b, n, sample_max, cuda)
     before = farthest_point_sample.launches
-    idx, sel = farthest_point_sample(pos, mask, sample_max, count)
-    again, _ = farthest_point_sample(pos, mask, sample_max, count)
+    idx, sel = _launch(pos, mask, sample_max, count, sched)
+    again, _ = _launch(pos, mask, sample_max, count, sched)
     torch.cuda.synchronize()
     assert farthest_point_sample.launches == before + 2
     ref_idx, ref_sel = farthest_point_sample_reference(pos, mask,
@@ -921,15 +924,22 @@ def test_fps_kernel_matches_plain(cuda, b, n, sample_max, dim, lattice,
     assert torch.equal(idx, ref_idx)
     assert torch.equal(sel, ref_sel)
     assert torch.equal(idx, again)
-    one, one_sel = farthest_point_sample(pos[0], mask[0], sample_max,
-                                         count[0])
-    assert torch.equal(one, idx[0]) and torch.equal(one_sel, sel[0])
+    one, one_sel = farthest_point_sample(pos[1], mask[1], sample_max,
+                                         count[1])
+    assert torch.equal(one, idx[1]) and torch.equal(one_sel, sel[1])
 
 
 def test_fps_kernel_rejects_bad_inputs(cuda):
-    from dmcf_tpu_torch.kernels.fps import farthest_point_sample
+    from dmcf_tpu_torch.kernels.fps import (Schedule, _launch,
+                                            farthest_point_sample)
     pos, mask = fps_inputs(1, 64, 3, False, 0, 0, cuda)
     with pytest.raises(ValueError):
         farthest_point_sample(pos.double(), mask, 8, 8)
     with pytest.raises(ValueError):
         farthest_point_sample(pos, mask, 0, 8)
+    # schedules the kernel is not built for or that do not hold the set
+    for sched in (Schedule("warp", 1, 1), Schedule("warp", 2, 2),
+                  Schedule("block", 2, 5), Schedule("block", 3, 1),
+                  Schedule("block", 32, 12)):
+        with pytest.raises(RuntimeError):
+            _launch(pos, mask, 8, 8, sched)

@@ -53,7 +53,15 @@ the gate, card vs CPU, a train step), loads a checkpoint in the
 reference's TensorFlow format without TensorFlow into Liquid3d's SymNet,
 reads a dataset file through the native scene loader (no Python
 ``zstandard``), runs ``run_sample`` on it with those weights and checks
-the TensorBoard events file phase 11 wrote (phase 23), and prints one
+the TensorBoard events file phase 11 wrote (phase 23), runs the K-list
+kernels' other interpolation modes (phase 24: WaterRamps' SymNet with
+``interpolation: nearest_neighbor`` at full width, every launch of its
+first step against its plain version with both backward kernels at each
+shape, a 100-step rollout under the gate with the ASCC ratio and the
+exact-tie pairs that break it, card vs CPU and train steps; Liquid3d with
+``linear_border``, 20 steps; every mode's kernels past the span's ends and
+on ties; ``SparseConv``, ``SparseConvTranspose`` and ``PointSampling``
+card vs CPU), and prints one
 ``kernels`` JSON line (each kernel variant, its launches on each path),
 the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
 kernel's ``ms`` is the mean of calls issued back to back (CUDA events
@@ -98,7 +106,7 @@ BWD_TOL = 1e-5               # backward kernels vs plain backward, relative
 #   float atomics)
 GRAD_TOL = 1e-4              # train-step gradients, card vs CPU, relative to
 #   each tensor's max abs (fp32 through a 3-step window of 18 convs)
-TRAIN_ITERS = 20             # phase 11's run_train iterations
+TRAIN_ITERS = 10             # phase 11's run_train iterations
 # momentum drift |sum v_T - sum v_0| / sum |v_0| of a momentum rollout: the
 # velocity is a position difference over dt, so each step rounds each
 # particle's velocity by up to ~ulp(|x| ~ 0.25) / dt = 1.2e-5; once the
@@ -113,6 +121,11 @@ _START = time.time()
 
 def phase(name):
     print(f"== {name} (at {time.time() - _START:.1f} s)", flush=True)
+
+
+def part(name):
+    """A phase's part, with the time since the start."""
+    print(f" {name} (at {time.time() - _START:.1f} s)", flush=True)
 
 
 def bf16(kw):
@@ -163,7 +176,8 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def bound(idx, a, t, feats, w, ksize, qfeats, precision="highest"):
+def bound(idx, a, t, feats, w, ksize, qfeats, precision="highest",
+          interpolation="linear"):
     """Least time the card could take for one K-list conv: its inputs read
     once and its output written once over the HBM rate, or the operations
     this call's data needs over the rate of the unit the kernel does them
@@ -180,7 +194,7 @@ def bound(idx, a, t, feats, w, ksize, qfeats, precision="highest"):
     from dmcf_tpu_torch.kernels.cconv_klist import _tap_tensor, is_bf16
     half = is_bf16(precision)
     cin, cout = feats.shape[1], w.shape[1]
-    nz = _tap_tensor(t, a, ksize) != 0          # [Q, K, S]
+    nz = _tap_tensor(t, a, ksize, interpolation) != 0          # [Q, K, S]
     nnz = int(nz.sum())
     rows = int(nz.any(dim=1).sum())             # non-zero rows T[q, s, :]
     ins = [x for x in (idx, a, t, qfeats) if x is not None]
@@ -206,7 +220,7 @@ BWD_NAMES = ("dfeats", "dqfeats", "dw", "da", "dt")
 
 
 def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats,
-              precision="highest"):
+              precision="highest", interpolation="linear"):
     """Least time the card could take for one backward kernel, as
     ``bound`` for the forward: bytes over the HBM rate, or operations over
     the rate of the unit the kernel does them on.  data: reads idx, a, t,
@@ -232,15 +246,15 @@ def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats,
         return sum(x.numel() * x.element_size() for x in xs if x is not None)
 
     if which == "data":
-        hz = _tap_tensor(t, torch.ones_like(a), ksize) != 0
+        hz = _tap_tensor(t, torch.ones_like(a), ksize, interpolation) != 0
         product = 2 * int(hz.any(dim=1).sum()) * cin * cout
-        rest = 2 * int(hz.sum()) * cin \
-            + 2 * int((_tap_tensor(t, a, ksize) != 0).sum()) * cin
+        rest = 2 * int(hz.sum()) * cin + 2 * int(
+            (_tap_tensor(t, a, ksize, interpolation) != 0).sum()) * cin
         moved = nbytes((idx, a, t, qfeats, dout)) \
             + (feats.numel() + w.numel()) * half \
             + feats.numel() * 4 + nbytes((qfeats, a, t))
     else:
-        nz = _tap_tensor(t, a, ksize) != 0
+        nz = _tap_tensor(t, a, ksize, interpolation) != 0
         rest = 2 * int(nz.sum()) * cin
         product = 2 * int(nz.any(dim=1).sum()) * cin * cout
         moved = nbytes((idx, a, t, qfeats, dout)) + feats.numel() * half \
@@ -251,7 +265,8 @@ def bwd_bound(which, dout, idx, a, t, feats, w, ksize, qfeats,
                                                            "operations")
 
 
-def bwd_check(args, qfeats, seed, precision="highest"):
+def bwd_check(args, qfeats, seed, precision="highest",
+              interpolation="linear"):
     """Both backward kernels (the ``precision``'s variant) at one launch
     shape (the forward's inputs ``args``) against the plain backward, on a
     random dout: per gradient the max abs error over that gradient's max
@@ -278,7 +293,7 @@ def bwd_check(args, qfeats, seed, precision="highest"):
     dout = torch.randn((idx.shape[0], w.shape[1]), generator=g,
                        device=feats.device)
     full = (dout, idx, a, t, feats, w, ksize, qfeats)
-    kw = dict(precision=precision)
+    kw = dict(precision=precision, interpolation=interpolation)
     dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*full, **kw)
     got = (dfeats, dqfeats, cconv_klist_bwd_filter(*full, **kw), da, dt)
     again = cconv_klist_bwd_filter(*full, **kw)
@@ -310,7 +325,8 @@ def bwd_check(args, qfeats, seed, precision="highest"):
             check(err <= tol * scale,
                   f"{name}: kernel vs plain backward {err} > {tol} x {scale}")
     if half:  # da and dt as phase 7 holds T: dT's one-step flips counted
-        res = bf16_data_flips(*full[:7], (dfeats, da, dt), tol)
+        res = bf16_data_flips(*full[:7], (dfeats, da, dt), tol,
+                              interpolation)
         check(res["dT_flips"] <= max(4, 1e-3 * res["dT_elements"])
               and res["dT_err"] <= 1e-4 * res["dT_scale"],
               f"dT: {res['dT_flips']} one-step flips, other elements "
@@ -344,14 +360,14 @@ def bwd_check(args, qfeats, seed, precision="highest"):
     return rel, abs_err, full
 
 
-def bwd_times(full, precision="highest"):
+def bwd_times(full, precision="highest", interpolation="linear"):
     """(data ms, data device ms, filter ms, filter device ms, plain ms,
     data bound (ms, by), filter bound (ms, by)) at one launch shape."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
         cconv_klist_bwd_data, cconv_klist_bwd_filter,
         cconv_klist_bwd_reference)
     from dmcf_tpu_torch.profile_step import graph_ms
-    kw = dict(precision=precision)
+    kw = dict(precision=precision, interpolation=interpolation)
     return (cuda_ms(lambda: cconv_klist_bwd_data(*full, **kw), iters=20),
             graph_ms(lambda: cconv_klist_bwd_data(*full, **kw)),
             cuda_ms(lambda: cconv_klist_bwd_filter(*full, **kw), iters=20),
@@ -380,7 +396,8 @@ def card_T(args, kw):
     eye = torch.eye(n, device=w.device)
     return torch.cat([cconv_klist(idx, a, t, feats,
                                   eye[:, j:j + 32].contiguous(), ks,
-                                  precision=kw["precision"])
+                                  precision=kw["precision"],
+                                  interpolation=kw["interpolation"])
                       for j in range(0, n, 32)], dim=1)
 
 
@@ -390,7 +407,8 @@ def plain_T(args, kw):
     idx, a, t, feats, w, ks = (x.cpu() if torch.is_tensor(x) else x
                                for x in args)
     return cconv_klist_reference(idx, a, t, feats, torch.eye(w.shape[0]),
-                                 ks, precision=kw["precision"])
+                                 ks, precision=kw["precision"],
+                                 interpolation=kw["interpolation"])
 
 
 def forced_step(cpu_model, sample, forced):
@@ -404,11 +422,13 @@ def forced_step(cpu_model, sample, forced):
     from dmcf_tpu_torch.ops import cconv as ops_cconv
     calls = iter(forced)
 
-    def call(idx, a, t, feats, w, ks, qfeats=None, precision="highest"):
+    def call(idx, a, t, feats, w, ks, qfeats=None, precision="highest",
+             interpolation="linear"):
         T = next(calls)
         if T is None:
             return cconv_klist_reference(idx, a, t, feats, w, ks,
-                                         qfeats=qfeats, precision=precision)
+                                         qfeats=qfeats, precision=precision,
+                                         interpolation=interpolation)
         check(T.shape == (idx.shape[0], w.shape[0]), "forced T's shape")
         return T @ round_bf16(w)
 
@@ -557,7 +577,8 @@ def valid_phase(root, dev):
                             kw)
             kargs = kernel_args(args, kw)
             d_ms = graph_ms(lambda: cconv_klist(*kargs, **kw))
-            b_ms, b_by, _, _ = bound(*args, kw["qfeats"], kw["precision"])
+            b_ms, b_by, _, _ = bound(*args, kw["qfeats"], kw["precision"],
+                                     kw["interpolation"])
             step_device_ms += d_ms
             step_bound_ms += b_ms
             idx_, _, _, f_, w_, _ = args
@@ -778,24 +799,24 @@ def bwd_phase(root, dev, wr_shapes):
     return out
 
 
-def counts():
+def counts(mode=None):
     """Launches of each kernel variant: [forward fp32, forward bf16, data
-    fp32, data bf16, filter fp32, filter bf16]."""
+    fp32, data bf16, filter fp32, filter bf16], over every interpolation
+    mode or of one ``mode``."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
         cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
-    return [n for f in (cconv_klist, cconv_klist_bwd_data,
-                        cconv_klist_bwd_filter)
-            for n in (f.launches, f.launches_bf16)]
+    fns = (cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
+    if mode is not None:
+        return [n for f in fns for n in f.mode_launches[mode]]
+    return [n for f in fns for n in (f.launches, f.launches_bf16)]
 
 
 def zero_counts():
     """Every kernel's launch counts to 0 (``counts`` and
     ``fps_launches`` read them)."""
-    from dmcf_tpu_torch.kernels.cconv_klist import (
-        cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
+    from dmcf_tpu_torch.kernels.cconv_klist import zero_launches
     from dmcf_tpu_torch.kernels.fps import farthest_point_sample
-    for f in (cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter):
-        f.launches = f.launches_bf16 = 0
+    zero_launches()
     farthest_point_sample.launches = 0
 
 
@@ -1077,7 +1098,7 @@ COLUMN_EARLY = 11
 COLUMN40_X_TOL = 2.6e-2
 COLUMN40_V_TOL = 12.0
 COLUMN_SPLITS = ("train", "valid", "test")
-COLUMN_ITERS = 20            # phase 15's run_train iterations
+COLUMN_ITERS = 10            # phase 15's run_train iterations
 LIQUID_BLOCK = (22, 6, 22)   # phase 16's fluid block (particles an axis)
 LIQUID_STEPS = 50
 WBC_STEPS = 20
@@ -1390,7 +1411,8 @@ def plain_chunked(args, kw):
     return torch.cat([cconv_klist_reference(
         idx[s:s + qc], a[s:s + qc], t[s:s + qc], feats, w, ks,
         qfeats=None if qf is None else qf[s:s + qc],
-        precision=kw["precision"]) for s in range(0, q, qc)])
+        precision=kw["precision"], interpolation=kw["interpolation"])
+        for s in range(0, q, qc)])
 
 
 def launch_checks(log, what, max_err):
@@ -1546,7 +1568,8 @@ def gated_rollout(model, sample, steps, what, log, fps_per_step=0,
               f"{ratio:.3e} (< 1e-5)")
         check(ratio < 1e-5, f"{what} ASCC momentum ratio {ratio}")
     return {"launches": launches, "ms_per_step": ms, "peak_bytes": peak,
-            "gate": gate, "momentum_ratio": ratio}
+            "gate": gate, "momentum_ratio": ratio,
+            "end": dict(sample, pos=pos, vel=vel)}
 
 
 def dropped(counts, caps):
@@ -2708,6 +2731,443 @@ def reference_phase(root, dev, max_err, summary_dir):
             "scalar_events": len(scalars)}
 
 
+# phase 24: the interpolation modes of the K-list kernels (linear_border,
+# nearest_neighbor) on the model path, the kernel cases, and the layer
+# library
+INTERP_MODES = ("linear_border", "nearest_neighbor")
+NEAREST_STEPS = 100          # (a): the nearest_neighbor WaterRamps rollout
+BORDER_STEPS = 20            # (b): the linear_border Liquid3d rollout
+INTERP_BATCH = 2             # (a): its train steps (window 3)
+SPARSE_VOXEL = 0.05          # (d): the layers' grid, the block's spacing
+
+
+def variant(mode, which, half):
+    """A kernel variant's name in the ``kernels`` line."""
+    base = "cconv_klist" if which == "fwd" else f"cconv_klist_bwd_{which}"
+    return f"{base}_{mode}" + ("_bf16" if half else "")
+
+
+def launch_times(log, mode, rows, seed=0):
+    """Each recorded launch of ``log`` (one step of a ``mode`` model) in
+    its own variant: the forward's ms, device ms, plain ms and bound, and
+    at the same shape both backward kernels held against the plain
+    backward (``bwd_check``: the existing limits, two launches bitwise
+    equal) and timed (``bwd_times``).  Sums a step's numbers into ``rows``
+    {variant: dict}; updates each row's largest error."""
+    from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
+                                                    cconv_klist_reference)
+    from dmcf_tpu_torch.profile_step import graph_ms
+
+    def add(name, **kv):
+        row = rows.setdefault(name, {})
+        row["step_launches"] = row.get("step_launches", 0) + 1
+        for k, v in kv.items():
+            if k.endswith("err"):
+                row[k] = max(row.get(k, 0.0), v)
+            else:
+                row[k] = row.get(k, 0.0) + v
+
+    with torch.no_grad():
+        for i, (name, args, kw, out) in enumerate(log):
+            half = bf16(kw)
+            kargs = kernel_args(args, kw)
+            err = fwd_check(f"{mode} {name}", out,
+                            cconv_klist_reference(*args, **kw), kw)
+            add(variant(mode, "fwd", half),
+                step_ms=cuda_ms(lambda: cconv_klist(*kargs, **kw), iters=10),
+                step_device_ms=graph_ms(lambda: cconv_klist(*kargs, **kw)),
+                step_plain_ms=cuda_ms(
+                    lambda: cconv_klist_reference(*args, **kw), iters=5),
+                step_bound_ms=bound(*args, kw["qfeats"], kw["precision"],
+                                    mode)[0],
+                max_abs_err=err)
+            rel, abs_err, full = bwd_check(args, kw["qfeats"], seed + i,
+                                           kw["precision"], mode)
+            tm = bwd_times(full, kw["precision"], mode)
+            for which, off, names in (("data", 0, ("dfeats", "dqfeats", "da",
+                                                   "dt")),
+                                      ("filter", 2, ("dw",))):
+                add(variant(mode, which, half), step_ms=tm[off],
+                    step_device_ms=tm[off + 1], step_plain_ms=tm[4],
+                    step_bound_ms=tm[5 if which == "data" else 6][0],
+                    max_abs_err=max(abs_err.get(n, 0.0) for n in names),
+                    max_rel_err=max(rel.get(n, 0.0) for n in names))
+
+
+def only_mode(mode, what):
+    """Every launch counted since the last ``zero_counts`` was of ``mode``'s
+    kernels (no other mode's); returns the counts."""
+    got = counts()
+    check(counts(mode) == got, f"{what}: launches {got} all {mode} "
+          f"({counts(mode)})")
+    return got
+
+
+def tie_momentum(model, state):
+    """The ASCC output's momentum ratio |sum out| / sum |out| after a
+    nearest_neighbor rollout (``state``), and the pairs that break it:
+    a slot whose filter coordinate t + h lies exactly half-way between two
+    taps on an axis (t = 0 on an even axis: an offset with an exact zero
+    component, as the boundary lattice's rows have) takes the even tap by
+    round half to even, and so does its mirror pair, whose exchange then
+    does not cancel (in JAX as in the port).  The ratio must lie below
+    1e-5 once those slots are left out (the kernel run again with their
+    weight 0); the slots are counted by kind (fluid or boundary row, each
+    side).  Returns the numbers."""
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist
+    from dmcf_tpu_torch.profile_step import record_launches
+
+    _, log = record_launches(model, state)
+    _, (idx, a, t, feats, w, ks), kw, out = [
+        e for e in log if e[0] == "sym_conv0"][0]
+
+    def ratio(x):
+        return float((x.sum(0).abs() / x.abs().sum()).max())
+
+    half = torch.tensor([0.5 * (n - 1) for n in ks], device=t.device)
+    x = t + half
+    tie = ((x - torch.floor(x)) == 0.5) & (torch.tensor(ks, device=t.device)
+                                           > 1)
+    tie = tie.any(dim=-1) & (a != 0)
+    kept = cconv_klist(idx, torch.where(tie, 0.0, a), t, feats, w, ks,
+                       **kw)
+    n_fluid = state["pos"].shape[0]
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None] < n_fluid
+    cols = idx < n_fluid
+    kinds = {f"{p}-{q}": int((tie & (rows == r) & (cols == c)).sum())
+             for p, r in (("fluid", True), ("boundary", False))
+             for q, c in (("fluid", True), ("boundary", False))}
+    full, rest = ratio(out), ratio(kept)
+    print(f"  ASCC output after the rollout: |sum out| / sum |out| "
+          f"{full:.3e}; {int(tie.sum())} of {int((a != 0).sum())} slots "
+          f"sit on an exact nearest_neighbor tie (by query-neighbour row "
+          f"kind: {kinds}); without them {rest:.3e} (< 1e-5)")
+    check(rest < 1e-5, f"ASCC momentum ratio without the tie pairs {rest}")
+    return {"momentum_ratio": full, "momentum_ratio_untied": rest,
+            "tie_slots": int(tie.sum()), "tie_kinds": kinds}
+
+
+def nearest_phase(root, dev, mode_err, rows):
+    """Phase 24 (a): configs/WaterRamps.yml at full width and depth, its
+    bf16 trunk, seed-0 weights, ``interpolation: nearest_neighbor``, on
+    the bench scene: every K-list launch of the first step against its
+    plain version, each timed in its variant (a step's device time: 18
+    bf16 launches and the fp32 ASCC one) with both backward kernels held
+    against the plain backward at its shape (``launch_times``); a
+    NEAREST_STEPS-step rollout
+    under the exactness gate with the ASCC momentum ratio after it and the
+    tie pairs that break it (``tie_momentum``); at
+    "highest" one step card vs CPU and one train step (batch INTERP_BATCH,
+    window 3) card vs CPU; one train step of the bf16 trunk (its backward
+    kernels' bf16 variants).  Every launch of every run is a
+    nearest_neighbor one."""
+    import yaml
+
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.profile_step import record_launches, trace
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+    mode = "nearest_neighbor"
+    with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
+        cfg = dict(yaml.safe_load(f)["model"], interpolation=mode)
+    sample = bench_sample(*build_scene(), device=dev)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    zero_counts()
+    (_, _, aux), log = record_launches(model, sample)
+    torch.cuda.synchronize()
+    step = only_mode(mode, "nearest first step")[:2]
+    check(step == [1, 18], f"nearest first step launches {step}")
+    print(f"  first step: K-list launches (fp32, bf16) {step}, pair excess "
+          f"{ {k: int(v) for k, v in aux['pair_overflow_detail'].items()} }")
+    launch_checks(log, "nearest", mode_err[mode])
+    with torch.no_grad():
+        model(sample)                            # warm-up step
+    run = gated_rollout(model, sample, NEAREST_STEPS,
+                        "WaterRamps nearest_neighbor", log)
+    only_mode(mode, "nearest rollout")
+    run.update(tie_momentum(model, run.pop("end")))
+    with torch.no_grad():
+        report = trace(lambda: model(sample), reps=3, top=8)
+    print(f"  device time {report['device_ms_per_step']:.3f} ms a step in "
+          f"{report['kernel_launches_per_step']} kernel launches, busy "
+          f"share {report['device_busy_share']:.3f} of "
+          f"{report['profiled_ms_per_step']:.3f} ms")
+    launch_times(log, mode, rows)
+
+    exact = build_model(dict(cfg, precision="highest"), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(exact).to("cpu")
+    with torch.no_grad():
+        pg, _, ag = exact(sample)
+        pc, _, ac = cpu_model({k: v.cpu() for k, v in sample.items()})
+    want = ac["pos_correction"]
+    scale = float(want.abs().max())
+    err = float((ag["pos_correction"].cpu() - want).abs().max())
+    print(f"  one step at highest, card vs CPU: pos_correction max diff "
+          f"{err:.3e} of max {scale:.3e} (tol 1e-4 of it); positions "
+          f"{float((pg.cpu() - pc).abs().max()):.3e}")
+    check(scale > 0 and err <= 1e-4 * scale,
+          f"nearest card vs CPU pos_correction {err}")
+    train = train_step_phase(root, "WaterRamps.yml", dev, exact, sample,
+                             "nearest (highest)", batch_size=INTERP_BATCH,
+                             cpu_check=True)
+    only_mode(mode, "nearest train step (highest)")
+    train16 = train_step_phase(root, "WaterRamps.yml", dev, model, sample,
+                               "nearest (bf16 trunk)",
+                               batch_size=INTERP_BATCH)
+    only_mode(mode, "nearest train step (bf16 trunk)")
+    return dict(run, step=step, device_ms=report["device_ms_per_step"],
+                device_launches=report["kernel_launches_per_step"],
+                card_cpu_err=err / scale, train=train, train16=train16)
+
+
+def border_phase(root, dev, mode_err):
+    """Phase 24 (b): configs/Liquid3d.yml (its bf16 trunk, seed-0 weights)
+    with ``interpolation: linear_border`` on phase 16's block: every
+    K-list launch of the first step against its plain version (the 8-tap
+    3D instantiations, the 6x6x6 ASCC conv), a BORDER_STEPS-step rollout
+    under the gate with the momentum ratio, the first step against the
+    linear model's (the model maps in-radius offsets inside the span,
+    where the two modes agree), at "highest" one step card vs CPU, and
+    one train step (batch 1, the config's first window) at the bf16
+    trunk, its launches counted exactly."""
+    import yaml
+
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.profile_step import record_launches
+    from dmcf_tpu_torch.scene import bench_sample
+
+    mode = "linear_border"
+    with open(os.path.join(root, "configs", "Liquid3d.yml")) as f:
+        base = yaml.safe_load(f)["model"]
+    cfg = dict(base, interpolation=mode)
+    sample = bench_sample(*liquid_scene(), device=dev)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    zero_counts()
+    (p1, _, aux), log = record_launches(model, sample)
+    torch.cuda.synchronize()
+    step = only_mode(mode, "linear_border first step")[:2]
+    print(f"  first step: K-list launches (fp32, bf16) {step}")
+    launch_checks(log, "linear_border", mode_err[mode])
+    lin = build_model(base, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        _, _, al = lin(sample)
+    scale = float(al["pos_correction"].abs().max())
+    same = float((aux["pos_correction"] - al["pos_correction"]).abs().max())
+    print(f"  first step against the linear model's: pos_correction max "
+          f"diff {same:.3e} of max {scale:.3e}")
+    check(same <= 1e-5 * scale, f"linear_border vs linear step {same}")
+    run = gated_rollout(model, sample, BORDER_STEPS, "Liquid3d linear_border",
+                        log, momentum=True)
+    only_mode(mode, "linear_border rollout")
+    exact = build_model(dict(cfg, precision="highest"), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(exact).to("cpu")
+    with torch.no_grad():
+        _, _, ag = exact(sample)
+        _, _, ac = cpu_model({k: v.cpu() for k, v in sample.items()})
+    want = ac["pos_correction"]
+    scale = float(want.abs().max())
+    err = float((ag["pos_correction"].cpu() - want).abs().max())
+    print(f"  one step at highest, card vs CPU: pos_correction max diff "
+          f"{err:.3e} of max {scale:.3e} (tol 1e-4 of it)")
+    check(scale > 0 and err <= 1e-4 * scale,
+          f"linear_border card vs CPU pos_correction {err}")
+    train = train_step_phase(root, "Liquid3d.yml", dev, model, sample,
+                             "Liquid3d linear_border", batch_size=1)
+    only_mode(mode, "linear_border train step")
+    return dict(run, step=step, card_cpu_err=err / scale, train=train)
+
+
+def tie_times(t, ksize):
+    """``t`` with every filter coordinate moved onto a tap centre or
+    half-way between two (nearest_neighbor's exact ties: t + h a half),
+    beyond the span's ends too, drawn from a seeded generator."""
+    g = torch.Generator().manual_seed(7)
+    cols = []
+    for ax, n in enumerate(ksize):
+        half = 0.5 * (n - 1)
+        pts = torch.arange(-2 * n, 2 * n + 1, dtype=torch.float32) * 0.5
+        pts = pts - (half % 1.0)
+        pick = torch.randint(len(pts), t.shape[:2], generator=g)
+        cols.append(pts[pick])
+    return torch.stack(cols, dim=-1).to(t.device).contiguous()
+
+
+def interp_case_phase(root, dev, mode_err, rows):
+    """Phase 24 (c): the kernels of each mode at the trunk shape (the bench
+    scene's scale-0 list, Q 2688, K 40, S 64, Cin 32 -> 32) and at a 3D
+    shape (phase 16's block, [4, 4, 4], Cin 32 -> 32), with the identity
+    mapping, ``align_corners=False`` and no window, so filter coordinates
+    pass the span's ends with their weight (where linear and
+    linear_border differ: checked), and with
+    coordinates on exact nearest_neighbor ties: every mode x precision x
+    {forward, data, filter} against its plain version within the existing
+    limits, each variant's two launches bitwise equal (forward here, the
+    backward kernels in ``bwd_check``); at the trunk shape each new
+    variant timed for the ``kernels`` line."""
+    import yaml
+
+    from dmcf_tpu_torch.kernels.cconv_klist import (cconv_klist,
+                                                    cconv_klist_reference)
+    from dmcf_tpu_torch.ops import cconv, neighbors
+    from dmcf_tpu_torch.ops.sph import masked_positions
+    from dmcf_tpu_torch.profile_step import graph_ms
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+    def inputs(sample, r, k, ksize, seed):
+        pos = torch.cat([masked_positions(sample["pos"],
+                                          sample["fluid_mask"]),
+                         masked_positions(sample["box"],
+                                          sample["box_mask"])])
+        m = torch.cat([sample["fluid_mask"], sample["box_mask"]])
+        nl = neighbors.search(pos, pos, r, k, points_mask=m, queries_mask=m)
+        # no window: the slots past the span (at the ball's edge, where a
+        # window is ~0) keep their weight, so the modes differ plainly
+        idx, a, t = cconv.klist_geometry(
+            nl, 2 * r, ksize, coordinate_mapping="identity",
+            align_corners=False)
+        g = torch.Generator().manual_seed(seed)
+        s = int(np.prod(ksize))
+        feats = torch.randn((pos.shape[0], 32), generator=g).to(dev)
+        w = (torch.randn((s * 32, 32), generator=g) * 0.05).to(dev)
+        return idx, a, t, feats, w, ksize
+
+    with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
+        wr = yaml.safe_load(f)["model"]
+    with open(os.path.join(root, "configs", "Liquid3d.yml")) as f:
+        lq = yaml.safe_load(f)["model"]
+    trunk = inputs(bench_sample(*build_scene(), device=dev),
+                   float(wr["particle_radii"][0]), int(wr["neighbor_k"]),
+                   tuple(wr["kernel_size"]), 1)
+    three = inputs(bench_sample(*liquid_scene(), device=dev),
+                   float(lq["particle_radii"][0]), 64,
+                   tuple(lq["kernel_size"]), 2)
+    ties = trunk[:2] + (tie_times(trunk[2], trunk[5]),) + trunk[3:]
+    ties3 = three[:2] + (tie_times(three[2], three[5]),) + three[3:]
+    cases = {"trunk": trunk, "3d": three, "trunk ties": ties,
+             "3d ties": ties3}
+    for what, args in cases.items():
+        idx, a, t, feats, w, ks = args
+        print(f"  {what}: Q {idx.shape[0]} K {idx.shape[1]} S "
+              f"{int(np.prod(ks))} Cin 32 Cout 32, |t| up to "
+              f"{float(t.abs().max()):.3f} (h {0.5 * (max(ks) - 1):.1f})")
+        lin = cconv_klist_reference(*args, precision="highest")
+        for mode in INTERP_MODES:
+            for prec in ("highest", "default"):
+                kw = dict(qfeats=None, precision=prec, interpolation=mode)
+                kargs = kernel_args(args, kw)
+                got = cconv_klist(*kargs, **kw)
+                again = cconv_klist(*kargs, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again),
+                      f"{what} {mode} {prec}: two launches bitwise equal")
+                ref = cconv_klist_reference(*args, **kw)
+                err = fwd_check(f"{what} {mode} {prec}", got, ref, kw)
+                mode_err[mode][bf16(kw)] = max(mode_err[mode][bf16(kw)],
+                                               err)
+                if prec == "highest" and not what.endswith("ties"):
+                    apart = float((ref - lin).abs().max())
+                    check(apart > 1e-4 * float(ref.abs().max()),
+                          f"{what}: {mode} differs from linear ({apart})")
+                rel, abs_err, full = bwd_check(args[:6], None, 11, prec,
+                                               mode)
+                print(f"    {mode:16s} {'bf16' if bf16(kw) else 'fp32'}: "
+                      f"forward {err:.3e}; backward rel err " + " ".join(
+                          f"{k} {v:.2e}" for k, v in rel.items()))
+                for which, names in (("data", ("dfeats", "da", "dt")),
+                                     ("filter", ("dw",))):
+                    row = rows.setdefault(variant(mode, which, bf16(kw)),
+                                          {})
+                    row["max_abs_err"] = max(row.get("max_abs_err", 0.0), *(
+                        abs_err.get(n, 0.0) for n in names))
+                    row["max_rel_err"] = max(row.get("max_rel_err", 0.0), *(
+                        rel.get(n, 0.0) for n in names))
+                row = rows.setdefault(variant(mode, "fwd", bf16(kw)), {})
+                row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+                if what != "trunk":
+                    continue
+                b_ms, b_by, _, _ = bound(*args, None, prec, mode)
+                row.update(ms=cuda_ms(lambda: cconv_klist(*kargs, **kw)),
+                           device_ms=graph_ms(
+                               lambda: cconv_klist(*kargs, **kw)),
+                           plain_ms=cuda_ms(lambda: cconv_klist_reference(
+                               *args, **kw), iters=10),
+                           bound_ms=b_ms, bound_by=b_by)
+                tm = bwd_times(full, prec, mode)
+                for which, off, bnd in (("data", 0, tm[5]),
+                                        ("filter", 2, tm[6])):
+                    rows[variant(mode, which, bf16(kw))].update(
+                        ms=tm[off], device_ms=tm[off + 1], plain_ms=tm[4],
+                        bound_ms=bnd[0], bound_by=bnd[1])
+                print(f"    trunk {variant(mode, 'fwd', bf16(kw))}: "
+                      f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}),"
+                      f" plain {row['plain_ms']:.4f} ms, bound {b_ms:.5f} "
+                      f"({b_by}); data {tm[0]:.4f} (device {tm[1]:.4f}), "
+                      f"filter {tm[2]:.4f} (device {tm[3]:.4f}) ms")
+
+
+def layers_phase(dev):
+    """Phase 24 (d): ``SparseConv``, ``SparseConvTranspose`` (Linf
+    searches on the card, nearest_neighbor kernels) and ``PointSampling``
+    on phase 16's block snapped to a SPARSE_VOXEL grid, kernel [3, 3, 3],
+    Cin 32 -> Cout 32, neighbor_k 32, seed-0 weights: card vs CPU within
+    1e-5 of each output's max; the Linf search's lists card vs CPU
+    exactly.  Returns {layer: relative error} and the launches."""
+    from dmcf_tpu_torch.models.layers import (PointSampling, SparseConv,
+                                              SparseConvTranspose)
+    from dmcf_tpu_torch.ops.neighbors import fixed_radius_search
+    from dmcf_tpu_torch.ops.windows import get_window_func
+
+    pos, _, _ = liquid_scene()
+    grid = (np.round(pos / SPARSE_VOXEL) * SPARSE_VOXEL).astype(np.float32)
+    check(len(np.unique(np.round(grid / SPARSE_VOXEL), axis=0))
+          == len(grid), "the snapped block's points are distinct")
+    g = torch.Generator().manual_seed(0)
+    pts = torch.from_numpy(grid)
+    feats = torch.randn((len(grid), 32), generator=g)
+    coarse = pts[::2].contiguous()
+    layers = {
+        "SparseConv": (SparseConv(32, 32, (3, 3, 3), generator=g),
+                       (feats, pts, pts, SPARSE_VOXEL)),
+        "SparseConvTranspose": (
+            SparseConvTranspose(32, 32, (3, 3, 3), generator=g),
+            (feats[::2].contiguous(), coarse, pts, SPARSE_VOXEL)),
+        "PointSampling": (PointSampling(get_window_func("poly6")),
+                          (feats, pts, coarse, 4 * SPARSE_VOXEL)),
+    }
+    radius = 3 * SPARSE_VOXEL * 0.51
+    card = fixed_radius_search(pts.to(dev), pts.to(dev), radius, 32,
+                               metric="Linf")
+    host = fixed_radius_search(pts, pts, radius, 32, metric="Linf")
+    check(all(torch.equal(x.cpu(), y) for x, y in zip(
+        card[:4], host[:4])), "Linf search card vs CPU")
+    print(f"  {len(grid)} points on the {SPARSE_VOXEL} grid; Linf search "
+          f"(radius {radius:.4f}, K 32) card = CPU, neighbours a point "
+          f"{int(card.count.min())}-{int(card.count.max())}")
+    errs = {}
+    zero_counts()
+    for name, (layer, args) in layers.items():
+        on_card = copy.deepcopy(layer).to(dev)
+        with torch.no_grad():
+            got = on_card(*(x.to(dev) if torch.is_tensor(x) else x
+                            for x in args))
+            want = layer(*args)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got.cpu() - want).abs().max())
+        print(f"  {name}: output {tuple(got.shape)}, card vs CPU {err:.3e} "
+              f"of max {scale:.3e} (tol 1e-5 of it)")
+        check(scale > 0 and err <= 1e-5 * scale, f"{name} card vs CPU {err}")
+        errs[name] = err / scale
+    launches = only_mode("nearest_neighbor", "sparse convs")
+    check(launches[:2] == [2, 0], f"sparse convs' launches {launches}")
+    return errs, launches
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -2879,7 +3339,8 @@ def main(argv):
             d_ms = graph_ms(lambda: cconv_klist(*kargs, **kw))
             p_ms = cuda_ms(lambda: cconv_klist_reference(*args, **kw),
                            iters=20)
-            b_ms, b_by, _, _ = bound(*args, kw["qfeats"], kw["precision"])
+            b_ms, b_by, _, _ = bound(*args, kw["qfeats"], kw["precision"],
+                                     kw["interpolation"])
             sums = per_launch.setdefault((key, bf16(kw)), [0, 0.0, 0.0,
                                                            0.0, 0.0])
             for n_, v in enumerate((1, ms, d_ms, p_ms, b_ms)):
@@ -2984,6 +3445,22 @@ def main(argv):
           f"loader, a {REF_STEPS}-step run_sample, phase 11's events file")
     reference = reference_phase(root, dev, max_err, train["summary_dir"])
     train.pop("tmp").cleanup()
+
+    phase(f"24 interpolation modes: (a) WaterRamps nearest_neighbor at "
+          f"full width ({NEAREST_STEPS}-step rollout, card vs CPU, train "
+          f"steps), (b) Liquid3d linear_border ({BORDER_STEPS} steps), (c) "
+          f"the kernels of each mode past the span and on ties, (d) "
+          f"SparseConv, SparseConvTranspose and PointSampling")
+    mode_err = {m: {False: 0.0, True: 0.0} for m in INTERP_MODES}
+    mode_rows = {}
+    part("(a) WaterRamps, interpolation nearest_neighbor")
+    nearest = nearest_phase(root, dev, mode_err, mode_rows)
+    part("(b) Liquid3d, interpolation linear_border")
+    border = border_phase(root, dev, mode_err)
+    part("(c) the kernels of each mode")
+    interp_case_phase(root, dev, mode_err, mode_rows)
+    part("(d) the layer library")
+    sparse_err, sparse_launches = layers_phase(dev)
 
     pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
         "(pallas_continuous_conv)"
@@ -3098,6 +3575,49 @@ def main(argv):
         "us_per_iteration": {k: v["us_per_iteration"]
                              for k, v in column["splits"].items()},
     })
+    paths = {  # each mode's runs: (forward launches, train launches)
+        "nearest_neighbor": {
+            "rollout": nearest["launches"][:2],
+            "layers": sparse_launches[:2],
+            "train_highest": nearest["train"]["launches"][:6],
+            "train_bf16": nearest["train16"]["launches"][:6]},
+        "linear_border": {
+            "rollout": border["launches"][:2],
+            "train_bf16": border["train"]["launches"][:6]}}
+    for mode in INTERP_MODES:
+        for which, off in (("fwd", 0), ("data", 2), ("filter", 4)):
+            for half in (False, True):
+                name = variant(mode, which, half)
+                row = mode_rows[name]
+                per_path = {f"{k}_launches": v[off + int(half)]
+                            for k, v in paths[mode].items()
+                            if len(v) > off + int(half)}
+                n = sum(per_path.values())
+                check(n > 0, f"{name}: launched on a phase-24 path")
+                err = row.get("max_abs_err", 0.0)
+                if which == "fwd":
+                    err = max(err, mode_err[mode][half])
+                kernels.append(dict({
+                    "name": name,
+                    "route": "cuda",
+                    "source": "dmcf_tpu_torch/csrc/"
+                              + ("cconv_klist.cu" if which == "fwd"
+                                 else "cconv_klist_bwd.cu"),
+                    "replaces": pallas if which == "fwd" else vjp,
+                    "launches": n,
+                    "max_abs_err": err,
+                    "ms": row["ms"],
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": None,
+                    "device_ms": row["device_ms"],
+                    "interpolation": mode,
+                    "deterministic": True,
+                }, **per_path, **{k: row[k] for k in (
+                    "max_rel_err", "step_launches", "step_ms",
+                    "step_device_ms", "step_plain_ms", "step_bound_ms")
+                    if k in row}))
     fps_a = path_a["fps"][max(path_a["fps"])]   # scale 1, the larger
     kernels.append({
         "name": "fps",
@@ -3167,6 +3687,29 @@ def main(argv):
           f"{reference['momentum_ratio']:.3e}; phase 11's events file "
           f"{reference['events']} records, {reference['scalar_events']} "
           f"scalars")
+    print(f"interpolation modes ({smi}): nearest_neighbor WaterRamps "
+          f"{nearest['ms_per_step']:.3f} ms/step ({NEAREST_STEPS} steps, "
+          f"device {nearest['device_ms']:.3f} ms in "
+          f"{nearest['device_launches']} launches, momentum ratio "
+          f"{nearest['momentum_ratio']:.3e}, {nearest['tie_slots']} tie "
+          f"slots, without them {nearest['momentum_ratio_untied']:.3e}), "
+          f"card vs CPU "
+          f"{nearest['card_cpu_err']:.2e}, train steps "
+          f"{nearest['train']['seconds']:.3f} s (highest, grads within "
+          f"{nearest['train']['grad_rel_err']:.2e}) and "
+          f"{nearest['train16']['seconds']:.3f} s (bf16 trunk); "
+          f"linear_border Liquid3d {border['ms_per_step']:.3f} ms/step "
+          f"({BORDER_STEPS} steps, momentum ratio "
+          f"{border['momentum_ratio']:.3e}), card vs CPU "
+          f"{border['card_cpu_err']:.2e}; layers card vs CPU " + ", ".join(
+              f"{k} {v:.2e}" for k, v in sparse_err.items()))
+    for name, row in sorted(mode_rows.items()):
+        if "step_device_ms" in row:
+            print(f"  {name}: {row['step_launches']} launches a step, "
+                  f"device {row['step_device_ms']:.4f} ms a step (plain "
+                  f"{row['step_plain_ms']:.4f}, bound "
+                  f"{row['step_bound_ms']:.5f}); trunk shape "
+                  f"{row['device_ms']:.4f} ms")
     print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "
           f"fp32 {1e3 * dt32 / FP32_STEPS:.3f} ms/step ({FP32_STEPS} "
           f"steps)")

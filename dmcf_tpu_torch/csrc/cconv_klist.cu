@@ -65,6 +65,14 @@
 // mma.sync.m16n8k16 bf16 x bf16 -> fp32 over 16-deep k-steps (one MMA where
 // 3xTF32 takes three, at twice the TF32 rate), each k-step's result joining
 // the fp32 sum with an IEEE add; the output is fp32.
+//
+// Interpolation (template parameter kMode, klist_taps.cuh): the hats above
+// are "linear", JAX's default.  "linear_border" drops the clamp (a slot
+// outside the span keeps the hats that reach into it, or none), and
+// "nearest_neighbor" gives each axis one tap of weight 1 at
+// clamp(round(t + h), 0, n - 1), a round-to-nearest add then round half to
+// even, as jnp.round(t + h): a slot has one tap, so the walk's tap lists
+// are one entry deep (kTaps 1).  Both variants take every mode.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,7 +106,7 @@ struct Params : klist::KListIn {
   int LD;                    // T row stride (floats)
   int NT, NG, KS;            // n-tiles of 8, warps along n, warps along k
   int MW;                    // tap-row mask words
-  int taps;                  // most non-zero taps a slot can have (4 or 8)
+  int taps;                  // most non-zero taps a slot can have (1, 4, 8)
 };
 
 struct SharedLayout {
@@ -373,7 +381,7 @@ __device__ void contract_fma(const Params& p, const SharedLayout& sh,
   }
 }
 
-template <bool kSym, int kTaps, bool kBF16>
+template <bool kSym, int kMode, int kTaps, bool kBF16>
 __global__ void __launch_bounds__(kThreads)
 cconv_klist_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -402,8 +410,8 @@ cconv_klist_kernel(const Params p) {
       T4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int i = tid; i < p.MW; i += kThreads) sh.tmask[i] = 0u;
     __syncthreads();
-    build_T<kTaps, kBF16>(p, sh.T, p.LD, sh.taps, sh.tmask, q0, s0, nr,
-                          clo, cw);
+    build_T<kMode, kTaps, kBF16>(p, sh.T, p.LD, sh.taps, sh.tmask, q0, s0,
+                                 nr, clo, cw);
     __syncthreads();
     if (kSym)
       contract_fma(p, sh, nr, cw, base);
@@ -458,7 +466,7 @@ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 // Chunking and tiling of one launch (shared by the launcher and the
 // shared-memory report).
 Params plan(int Q, int K, int N, int Cin, int Cout, int kz, int ky,
-            int kx, bool bf16) {
+            int kx, bool bf16, int interp) {
   Params p{};
   p.Q = Q;
   p.K = K;
@@ -486,14 +494,14 @@ Params plan(int Q, int K, int N, int Cin, int Cout, int kz, int ky,
   p.NG = (p.NT + kNTW - 1) / kNTW;
   p.KS = kWarps / p.NG;
   p.MW = (p.RC + 31) / 32;
-  p.taps = kz == 1 || ky == 1 || kx == 1 ? 4 : 8;
+  p.taps = klist::max_taps(interp, kz, ky, kx);
   return p;
 }
 
-template <bool kSym, int kTaps, bool kBF16>
+template <bool kSym, int kMode, int kTaps, bool kBF16>
 int launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p, kSym);
-  auto kernel = cconv_klist_kernel<kSym, kTaps, kBF16>;
+  auto kernel = cconv_klist_kernel<kSym, kMode, kTaps, kBF16>;
   // set on every launch: the attribute is per device, and the call is cheap
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -503,13 +511,28 @@ int launch(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation of the mode and the plan's tap count.
+template <bool kSym, bool kBF16>
+int launch_mode(const Params& p, int interp, cudaStream_t stream) {
+  using klist::kLinear;
+  using klist::kLinearBorder;
+  using klist::kNearest;
+  if (interp == kNearest) return launch<kSym, kNearest, 1, kBF16>(p, stream);
+  if (interp == kLinearBorder)
+    return p.taps == 4 ? launch<kSym, kLinearBorder, 4, kBF16>(p, stream)
+                       : launch<kSym, kLinearBorder, 8, kBF16>(p, stream);
+  return p.taps == 4 ? launch<kSym, kLinear, 4, kBF16>(p, stream)
+                     : launch<kSym, kLinear, 8, kBF16>(p, stream);
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes.  Shapes: idx/a [Q,K], t [Q,K,3] (tz,ty,tx),
 // feats [N,Cin], qfeats [Q,Cin] or null (the symmetric conv), w
 // [kz*ky*kx*Cin, Cout], out [Q,Cout]; all contiguous, idx int32 (clamped
 // into [0, N) here), the rest fp32 but, with bf16 != 0 (the bf16 variant,
-// qfeats null), feats and w bf16.  Requires kz*ky*kx <= 1024,
+// qfeats null), feats and w bf16; interp the interpolation (0 linear, 1
+// linear_border, 2 nearest_neighbor).  Requires kz*ky*kx <= 1024,
 // kz*ky*kx*Cin <= 8192, 1 <= Cout <= 256, K >= 1 and N >= 1.  Returns the
 // CUDA error code of the launch (0 on success).
 extern "C" int cconv_klist_launch(const int* idx, const float* a,
@@ -517,14 +540,15 @@ extern "C" int cconv_klist_launch(const int* idx, const float* a,
                                   const float* qfeats, const void* w,
                                   float* out, int Q, int K, int N, int Cin,
                                   int Cout, int kz, int ky, int kx, int bf16,
-                                  void* stream) {
+                                  int interp, void* stream) {
   const int S = kz * ky * kx;
   if (Q <= 0) return 0;
   if (K <= 0 || N <= 0 || Cin <= 0 || Cout <= 0 || Cout > 256 || kz <= 0 ||
       ky <= 0 || kx <= 0 || S > 1024 || S * Cin > 8192 ||
-      (bf16 && qfeats != nullptr))
+      (bf16 && qfeats != nullptr) || interp < klist::kLinear ||
+      interp > klist::kNearest)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p = plan(Q, K, N, Cin, Cout, kz, ky, kx, bf16 != 0);
+  Params p = plan(Q, K, N, Cin, Cout, kz, ky, kx, bf16 != 0, interp);
   p.idx = idx;
   p.a = a;
   p.t = t;
@@ -534,21 +558,19 @@ extern "C" int cconv_klist_launch(const int* idx, const float* a,
   if (bf16) {
     p.feats_h = static_cast<const uint16_t*>(feats);
     p.w_h = static_cast<const uint16_t*>(w);
-    return p.taps == 4 ? launch<false, 4, true>(p, st)
-                       : launch<false, 8, true>(p, st);
+    return launch_mode<false, true>(p, interp, st);
   }
   p.feats = static_cast<const float*>(feats);
   p.w = static_cast<const float*>(w);
-  if (qfeats != nullptr)
-    return p.taps == 4 ? launch<true, 4, false>(p, st)
-                       : launch<true, 8, false>(p, st);
-  return p.taps == 4 ? launch<false, 4, false>(p, st)
-                     : launch<false, 8, false>(p, st);
+  if (qfeats != nullptr) return launch_mode<true, false>(p, interp, st);
+  return launch_mode<false, false>(p, interp, st);
 }
 
-// Dynamic shared memory (bytes) one block of the launch above takes.
+// Dynamic shared memory (bytes) one block of the launch above takes (the
+// linear hats'; a nearest launch's tap lists are a quarter or an eighth).
 extern "C" int cconv_klist_smem_bytes(int Cin, int Cout, int kz, int ky,
                                       int kx, int symmetric, int bf16) {
-  const Params p = plan(1, 1, 1, Cin, Cout, kz, ky, kx, bf16 != 0);
+  const Params p = plan(1, 1, 1, Cin, Cout, kz, ky, kx, bf16 != 0,
+                        klist::kLinear);
   return static_cast<int>(smem_bytes(p, symmetric != 0));
 }

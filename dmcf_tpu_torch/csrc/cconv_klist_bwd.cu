@@ -110,6 +110,15 @@
 //   part's error below 2^-22 relative.
 // No TMA or wgmma (a later PR).
 //
+// Interpolation (klist_taps.cuh): both kernels take the forward's three
+// modes.  The filter kernel builds T by the forward's walk, its mode a
+// template parameter.  The data kernels recompute each slot's taps with
+// their derivatives (axis_taps below; the mode a parameter of the launch):
+// linear_border takes the hats' sign rule of linear without its clamp (so
+// no gate on t inside the span); nearest_neighbor has one tap of weight 1
+// an axis and derivative 0, as PyTorch's (and JAX's) gradient of round
+// and == is, so dt is 0 and da comes from the one tap.
+//
 // The bf16 variant (template flag kBF16; feats and W arrive as bf16, no
 // symmetric form) is the derivative of the bf16 forward, rounded where
 // JAX's VJP of its fast_bf16 contraction rounds (dmcf_tpu/ops/cconv.py
@@ -181,6 +190,7 @@ struct Params {
   int MBC;     // dT: 16-row blocks of W a chunk
   int wpair;   // W's pairs loadable whole (Cout even, aligned)
   int vec4;    // feats, qfeats and dT rows loadable 4 channels at once
+  int interp;  // the interpolation mode (klist::Interp)
 };
 
 // The filter kernel's parameters: chunking of T's columns, the output
@@ -194,33 +204,43 @@ struct FParams : klist::KListIn {
   int NB;          // blocks of 8 outputs
   int tiles, TPG, G;  // 16-query tiles, tiles a group, groups
   int MW;          // tap-row mask words
-  int taps;        // most non-zero taps a slot can have (4 or 8)
+  int taps;        // most non-zero taps a slot can have (1, 4 or 8)
 };
 
-// The <= 2 non-zero hats of one axis (taps i0, i0 + 1; cnt in range) with
-// their derivatives in t.  i0 and the weights are the forward's (exact
-// floor by a round-down add, the twin's expression).
+// The <= 2 non-zero taps of one axis (i0, i0 + 1; cnt in range) of the
+// mode ``interp`` with their derivatives in t.  i0 and the weights are
+// the forward's (klist::axis_taps: the exact floor by a round-down add,
+// the twin's expression); the derivative is the hats' sign rule, gated on
+// t inside the span for linear (the clamp's derivative), 0 for nearest.
 struct Axis {
   int i0, cnt;
   float w[2], d[2];
 };
 
-__device__ __forceinline__ Axis axis_taps(float t, int n) {
+__device__ __forceinline__ Axis axis_taps(float t, int n, int interp) {
   const float half = 0.5f * (n - 1);
-  const float tc = fminf(fmaxf(t, -half), half);
-  const bool inside = t >= -half && t <= half;
+  klist::Axis k;
+  if (interp == klist::kNearest)
+    k = klist::axis_taps<klist::kNearest>(t, n);
+  else if (interp == klist::kLinearBorder)
+    k = klist::axis_taps<klist::kLinearBorder>(t, n);
+  else
+    k = klist::axis_taps<klist::kLinear>(t, n);
+  const float tc = interp == klist::kLinear ? fminf(fmaxf(t, -half), half)
+                                            : t;
+  const bool moves = interp == klist::kLinearBorder
+      || (interp == klist::kLinear && t >= -half && t <= half);
   Axis r;
-  r.i0 = min(static_cast<int>(floorf(__fadd_rd(tc, half))), n - 1);
-  r.cnt = r.i0 + 1 < n ? 2 : 1;
+  r.i0 = k.i0;
+  r.cnt = k.cnt;
+  r.w[0] = k.w0;
+  r.w[1] = k.w1;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    r.w[j] = 0.0f;
     r.d[j] = 0.0f;
-    if (j < r.cnt) {
+    if (j < r.cnt && moves) {
       const float u = tc - (static_cast<float>(r.i0 + j) - half);
-      const float v = 1.0f - fabsf(u);
-      r.w[j] = fmaxf(v, 0.0f);
-      if (inside && v > 0.0f)
+      if (1.0f - fabsf(u) > 0.0f)
         r.d[j] = u > 0.0f ? -1.0f : (u < 0.0f ? 1.0f : 0.0f);
     }
   }
@@ -244,9 +264,9 @@ __device__ __forceinline__ bool tap_on(const Taps& tp, int i) {
 
 __device__ __forceinline__ Taps slot_taps(const Params& p, float tz, float ty,
                                           float tx) {
-  const Axis z = axis_taps(tz, p.kz);
-  const Axis y = axis_taps(ty, p.ky);
-  const Axis x = axis_taps(tx, p.kx);
+  const Axis z = axis_taps(tz, p.kz, p.interp);
+  const Axis y = axis_taps(ty, p.ky, p.interp);
+  const Axis x = axis_taps(tx, p.kx, p.interp);
   Taps tp;
   tp.on = 0u;
 #pragma unroll
@@ -827,7 +847,7 @@ cconv_klist_bwd_dfeats_kernel(const Params p) {
 // note).  Shared memory: T [kFQ][LD], dout [kFQ][LDO], the warps' output
 // blocks [kFWarps * kFP] (first column, first output), the tap lists
 // [kFWarps][32][kTaps], the tile's touched-row mask [MW].
-template <int kTaps, bool kBF16>
+template <int kMode, int kTaps, bool kBF16>
 __global__ void __launch_bounds__(kFThreads, 1)
 cconv_klist_bwd_filter_kernel(const FParams p) {
   extern __shared__ float4 smem4[];
@@ -877,8 +897,8 @@ cconv_klist_bwd_filter_kernel(const FParams p) {
           ? p.dout[static_cast<size_t>(q) * p.Cout + o] : 0.0f;
     }
     __syncthreads();
-    klist::build_T<kTaps, kBF16>(p, T, p.LD, taps, tmask, q0, s0, nr, clo,
-                                 cw);
+    klist::build_T<kMode, kTaps, kBF16>(p, T, p.LD, taps, tmask, q0, s0,
+                                        nr, clo, cw);
     __syncthreads();
     // a tile that touched no tap row of the chunk adds 0: skip it
     bool on = false;
@@ -1056,7 +1076,7 @@ size_t data_work_bytes(const Params& p, int bf16) {
 }
 
 bool filter_plan(FParams& p, int Q, int K, int N, int Cin, int Cout, int kz,
-                 int ky, int kx) {
+                 int ky, int kx, int interp) {
   if (!plan(p, Q, K, N, Cin, Cout, kz, ky, kx)) return false;
   p.NB = (Cout + 7) / 8;
   // a chunk's (16 x 8) output blocks fit the warps' accumulators
@@ -1079,7 +1099,7 @@ bool filter_plan(FParams& p, int Q, int K, int N, int Cin, int Cout, int kz,
   p.LD = round_up(p.RC * p.CW, 32) + 8;  // + 8: conflict-free fragments
   p.LDO = round_up(Cout, 32) + 8;
   p.MW = (p.RC + 31) / 32;
-  p.taps = kz == 1 || ky == 1 || kx == 1 ? 4 : 8;
+  p.taps = klist::max_taps(interp, kz, ky, kx);
   const size_t dw_floats = static_cast<size_t>(p.S) * Cin * Cout;
   int groups = std::min(p.tiles,
                         std::max(1, (kFBlocks + p.nchunks - 1) / p.nchunks));
@@ -1102,12 +1122,40 @@ int launch(Kernel kernel, dim3 blocks, int threads, size_t smem, const P& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The filter kernel of the mode and the plan's tap count.
+template <bool kBF16>
+int launch_filter(const FParams& p, int interp, dim3 grid, size_t smem,
+                  cudaStream_t st) {
+  using klist::kLinear;
+  using klist::kLinearBorder;
+  using klist::kNearest;
+  if (interp == kNearest)
+    return launch(cconv_klist_bwd_filter_kernel<kNearest, 1, kBF16>, grid,
+                  kFThreads, smem, p, st);
+  if (interp == kLinearBorder)
+    return p.taps == 4
+        ? launch(cconv_klist_bwd_filter_kernel<kLinearBorder, 4, kBF16>,
+                 grid, kFThreads, smem, p, st)
+        : launch(cconv_klist_bwd_filter_kernel<kLinearBorder, 8, kBF16>,
+                 grid, kFThreads, smem, p, st);
+  return p.taps == 4
+      ? launch(cconv_klist_bwd_filter_kernel<kLinear, 4, kBF16>, grid,
+               kFThreads, smem, p, st)
+      : launch(cconv_klist_bwd_filter_kernel<kLinear, 8, kBF16>, grid,
+               kFThreads, smem, p, st);
+}
+
+bool valid_interp(int interp) {
+  return interp >= klist::kLinear && interp <= klist::kNearest;
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Shapes as the forward's
 // (cconv_klist_launch) plus dout [Q, Cout]; all contiguous, idx int32, the
 // rest fp32 but, with bf16 != 0 (the bf16 variant, qfeats null), feats and
-// w bf16.  Requires kz*ky*kx <= 1024, kz*ky*kx*Cin <= 8192,
+// w bf16; interp the interpolation (0 linear, 1 linear_border, 2
+// nearest_neighbor).  Requires kz*ky*kx <= 1024, kz*ky*kx*Cin <= 8192,
 // 1 <= Cout <= 256, K, N >= 1.  Each returns the CUDA error code of its
 // launches (0 on success).
 //
@@ -1138,10 +1186,11 @@ extern "C" int cconv_klist_bwd_data_launch(
     const float* qfeats, const void* w, const float* dout, int* order,
     int* offsets, void* work, float* dfeats, float* dqfeats, float* da,
     float* dt, int Q, int K, int N, int Cin, int Cout, int kz, int ky,
-    int kx, int bf16, void* stream) {
+    int kx, int bf16, int interp, void* stream) {
   Params p{};
-  if (!data_plan(p, Q, K, N, Cin, Cout, kz, ky, kx))
+  if (!data_plan(p, Q, K, N, Cin, Cout, kz, ky, kx) || !valid_interp(interp))
     return static_cast<int>(cudaErrorInvalidValue);
+  p.interp = interp;
   if ((qfeats == nullptr) != (dqfeats == nullptr) ||
       (bf16 && qfeats != nullptr) || order == nullptr ||
       offsets == nullptr || work == nullptr)
@@ -1215,7 +1264,8 @@ extern "C" long long cconv_klist_bwd_filter_workspace(int Q, int K, int N,
                                                       int kz, int ky,
                                                       int kx) {
   FParams p{};
-  if (!filter_plan(p, Q, K, N, Cin, Cout, kz, ky, kx)) return -1;
+  if (!filter_plan(p, Q, K, N, Cin, Cout, kz, ky, kx, klist::kLinear))
+    return -1;
   if (Q <= 0 || p.G == 1) return 0;
   return static_cast<long long>(p.G) * p.S * Cin * Cout;
 }
@@ -1227,11 +1277,12 @@ extern "C" int cconv_klist_bwd_filter_launch(
     const int* idx, const float* a, const float* t, const void* feats,
     const float* qfeats, const float* dout, float* dw, float* work, int Q,
     int K, int N, int Cin, int Cout, int kz, int ky, int kx, int bf16,
-    void* stream) {
+    int interp, void* stream) {
   if (Q <= 0) return 0;
   FParams p{};
-  if (!filter_plan(p, Q, K, N, Cin, Cout, kz, ky, kx) || (bf16 && qfeats) ||
-      (p.G > 1 && work == nullptr))
+  if (!valid_interp(interp) ||
+      !filter_plan(p, Q, K, N, Cin, Cout, kz, ky, kx, interp) ||
+      (bf16 && qfeats) || (p.G > 1 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   p.idx = idx;
   p.a = a;
@@ -1246,19 +1297,8 @@ extern "C" int cconv_klist_bwd_filter_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(p.G, p.nchunks);
   const size_t smem = filter_smem(p);
-  int err;
-  if (bf16)
-    err = p.taps == 4
-        ? launch(cconv_klist_bwd_filter_kernel<4, true>, grid, kFThreads,
-                 smem, p, st)
-        : launch(cconv_klist_bwd_filter_kernel<8, true>, grid, kFThreads,
-                 smem, p, st);
-  else
-    err = p.taps == 4
-        ? launch(cconv_klist_bwd_filter_kernel<4, false>, grid, kFThreads,
-                 smem, p, st)
-        : launch(cconv_klist_bwd_filter_kernel<8, false>, grid, kFThreads,
-                 smem, p, st);
+  const int err = bf16 ? launch_filter<true>(p, interp, grid, smem, st)
+                       : launch_filter<false>(p, interp, grid, smem, st);
   if (err != 0 || p.G == 1) return err;
   const size_t n = static_cast<size_t>(p.S) * Cin * Cout;
   const int blocks = static_cast<int>(

@@ -44,22 +44,52 @@ __device__ __forceinline__ float hat(float tc, float half, int i) {
   return fmaxf(1.0f - fabsf(tc - (static_cast<float>(i) - half)), 0.0f);
 }
 
-// The <= 2 non-zero hats of one axis: taps i0 and i0 + 1 (cnt of them in
-// range).  __fadd_rd makes floor() the exact floor of tc + half, so no
-// non-zero hat lies outside the pair (a round-to-nearest add can round
-// tc + half up to the next integer and miss a 2^-24 hat below it).
+// Interpolation modes, the C entry points' int: the hats of
+// ops/coords.axis_interp_weights.
+//   kLinear        relu(1 - |clamp(t, -h, h) - p|): <= 2 taps an axis
+//   kLinearBorder  relu(1 - |t - p|), t unclamped: <= 2 taps, none for a
+//                  t more than one tap outside the span
+//   kNearest       weight 1 at clamp(round_half_even(t + h), 0, n - 1)
+enum Interp { kLinear = 0, kLinearBorder = 1, kNearest = 2 };
+
+// Most non-zero taps a slot can have: 1 for nearest, else 2 an axis whose
+// size is not 1 (4 when an axis of the kernel has size 1, else 8).
+inline int max_taps(int interp, int kz, int ky, int kx) {
+  if (interp == kNearest) return 1;
+  return kz == 1 || ky == 1 || kx == 1 ? 4 : 8;
+}
+
+// The non-zero taps of one axis: taps i0 .. i0 + cnt - 1 (cnt <= 2, 0 for
+// a linear_border slot wholly outside the span; i0 >= 0).  For the hats,
+// __fadd_rd makes floor() the exact floor of tc + half, so no non-zero hat
+// lies outside the pair (a round-to-nearest add can round tc + half up to
+// the next integer and miss a 2^-24 hat below it).  Nearest takes JAX's
+// round(t + half): a round-to-nearest add, then round half to even.
 struct Axis {
   int i0, cnt;
   float w0, w1;
 };
 
+template <int kMode>
 __device__ __forceinline__ Axis axis_taps(float t, int n) {
   const float half = 0.5f * (n - 1);
-  const float tc = fminf(fmaxf(t, -half), half);
   Axis r;
-  r.i0 = min(static_cast<int>(floorf(__fadd_rd(tc, half))), n - 1);
-  r.cnt = r.i0 + 1 < n ? 2 : 1;
-  r.w0 = hat(tc, half, r.i0);
+  if (kMode == kNearest) {
+    r.i0 = static_cast<int>(fminf(fmaxf(rintf(__fadd_rn(t, half)), 0.0f),
+                                  static_cast<float>(n - 1)));
+    r.cnt = 1;
+    r.w0 = 1.0f;
+    r.w1 = 0.0f;
+    return r;
+  }
+  const float tc = kMode == kLinear ? fminf(fmaxf(t, -half), half) : t;
+  const float f = floorf(__fadd_rd(tc, half));
+  // taps f and f + 1, those in [0, n): none unless -1 <= f <= n - 1 (nor
+  // for a NaN t); linear's f always lies in [0, n - 1]
+  const bool any = f >= -1.0f && f <= n - 1.0f;
+  r.i0 = any ? max(static_cast<int>(f), 0) : 0;
+  r.cnt = any ? min(static_cast<int>(f) + 1, n - 1) - r.i0 + 1 : 0;
+  r.w0 = r.cnt > 0 ? hat(tc, half, r.i0) : 0.0f;
   r.w1 = r.cnt == 2 ? hat(tc, half, r.i0 + 1) : 0.0f;
   return r;
 }
@@ -84,16 +114,16 @@ __device__ __forceinline__ Slots load_group(const KListIn& p, int q, int k) {
 
 // This lane's slot -> its non-zero taps inside the chunk's tap rows
 // [s0, s0 + nr): (row relative to s0, weight bits) in tp.  Returns the
-// count, <= kTaps (kTaps = 4 when an axis of the kernel has size 1).  The
+// count, <= kTaps (max_taps of the mode kMode and the kernel's shape).  The
 // bf16 variant rounds each weight to bf16 (a weight that rounds to 0 is
 // dropped: it adds nothing).
-template <int kTaps, bool kBF16>
+template <int kMode, int kTaps, bool kBF16>
 __device__ __forceinline__ int slot_taps(const KListIn& p, const Slots& sl,
                                          int s0, int nr, int2* tp) {
   if (sl.a == 0.0f) return 0;
-  const Axis z = axis_taps(sl.tz, p.kz);
-  const Axis y = axis_taps(sl.ty, p.ky);
-  const Axis x = axis_taps(sl.tx, p.kx);
+  const Axis z = axis_taps<kMode>(sl.tz, p.kz);
+  const Axis y = axis_taps<kMode>(sl.ty, p.ky);
+  const Axis x = axis_taps<kMode>(sl.tx, p.kx);
   int n = 0;
 #pragma unroll
   for (int jz = 0; jz < 2; ++jz)
@@ -121,7 +151,7 @@ __device__ __forceinline__ int slot_taps(const KListIn& p, const Slots& sl,
 // CPL (the channels' power of two, at most 32) and r = j0 modulo 32 / CPL:
 // every element has one writer, so the slots need no barrier between them
 // and are summed in a fixed order.
-template <int kTaps, bool kBF16>
+template <int kMode, int kTaps, bool kBF16>
 __device__ void build_T(const KListIn& p, float* T, int ld, int2* taps,
                         unsigned* tmask, int q0, int s0, int nr, int clo,
                         int cw) {
@@ -141,8 +171,8 @@ __device__ void build_T(const KListIn& p, float* T, int ld, int2* taps,
     Slots nxt{0, 0.0f, 0.0f, 0.0f, 0.0f};
     if (k0 + 32 < p.K)  // the next group's slots load under this one
       nxt = load_group(p, q, k0 + 32 + lane);
-    const int ntap = slot_taps<kTaps, kBF16>(p, cur, s0, nr,
-                                             tp + lane * kTaps);
+    const int ntap = slot_taps<kMode, kTaps, kBF16>(p, cur, s0, nr,
+                                                    tp + lane * kTaps);
     // the group's tap rows into the tile's mask: one OR-reduction and one
     // atomic per mask word, not one atomic per tap
     int wlo = kMaxWords, whi = -1;

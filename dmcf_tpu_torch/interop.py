@@ -7,7 +7,9 @@ farthest-point pyramid —, ``sym_conv0.kernel`` — the half kernel, or the
 radial stack of a circular kernel; ``adv_conv0`` and ``adv_dense0`` of
 the pre-advection branch; ``scale`` of the equivariant output; CConv
 ``conv{i}.kernel`` and ``dense{i}.Dense_0.kernel``; PointNet
-``dense{i}.Dense_0.kernel``), and create a parameter exactly where flax
+``dense{i}.Dense_0.kernel``; the layer library's ``SparseConv`` and
+``SparseConvTranspose`` ``kernel`` [*kernel_size, Cin, Cout] and
+``bias``, ``PointSampling`` none), and create a parameter exactly where flax
 does (not for a module flax declares and never calls, such as the
 reference's ``rot``, ``adv_conv1`` and ``adv_dense1``), so the bridge is
 a path flattening and the state dict loads strictly.  The tree

@@ -18,8 +18,12 @@ Port of the TPU kernel ``dmcf_tpu/experimental/pallas_cconv.py``
          flattened
   qfeats [Q, Cin] fp32 or None; given, the symmetric (ASCC) self term
          ``(sum_k A[k]) f_q`` is added to T
-  precision "highest" (fp32 throughout) or None / "default" (the bf16
-         variant, below)
+  precision None / "default" (the bf16 variant, below) or any other name
+         JAX's ``continuous_conv`` takes (fp32 throughout, TF32 off)
+  interpolation "linear" (the clamped hats), "linear_border" (the hats
+         unclamped: zero outside the span) or "nearest_neighbor" (one tap
+         an axis, weight 1, at clamp(round(t + h), 0, n - 1), half to even);
+         ``ops/coords.axis_interp_weights``, the kernels' template mode
   returns out [Q, Cout] fp32
 
 The bf16 variant is the JAX package's ``fast_bf16`` contraction
@@ -47,7 +51,9 @@ atomics, so two launches give the same bits.
 
 The hats' derivative is PyTorch autograd's on the twin's
 ``relu(1 - |clamp(t, -h, h) - p|)``: clamp' = 1 on [-h, h] (bounds
-included), |u|' = sign(u) (0 at 0), relu'(v) = 1 for v > 0 (0 at 0).  The
+included), |u|' = sign(u) (0 at 0), relu'(v) = 1 for v > 0 (0 at 0);
+linear_border has no clamp, nearest_neighbor's taps have derivative 0 in t
+(the gradient of round and ==, in PyTorch as in JAX).  The
 backward kernels and ``cconv_klist_bwd_reference`` follow it.  JAX takes
 |u|'(0) = 1 and a clip's gradient 1/2 at a bound, so on a 2D config (z
 axis of size 1, t_z clamped to [0, 0]) the gradient in t_z differs; t_z is
@@ -67,14 +73,33 @@ from ..ops.coords import axis_interp_weights
 from .build import load_library
 
 
-def _tap_tensor(t, a, kernel_size):
+INTERPOLATIONS = ("linear", "linear_border", "nearest_neighbor")
+
+# JAX's precision names (``jax.lax.Precision``'s strings and its members'
+# names): only None and "default" select the bf16 contraction, as JAX's
+# ``fast_bf16`` (``dmcf_tpu/ops/cconv.py:241``); every other one runs fp32
+_FP32_PRECISIONS = frozenset((
+    "highest", "float32", "high", "bfloat16_3x", "tensorfloat32",
+    "bfloat16", "fastest", "DEFAULT", "HIGH", "HIGHEST"))
+
+
+def interp_code(interpolation):
+    """The kernels' int for an interpolation mode; raises on another."""
+    try:
+        return INTERPOLATIONS.index(interpolation)
+    except ValueError:
+        raise NotImplementedError(
+            f"unknown interpolation: {interpolation}") from None
+
+
+def _tap_tensor(t, a, kernel_size, interpolation="linear"):
     """Dense tap tensor A [Q, K, S] = ((wz * wy) * wx) * a, in the
     reference's product order."""
     kz, ky, kx = kernel_size
     q, k = a.shape
-    wz = axis_interp_weights(t[..., 0], kz, "linear")
-    wy = axis_interp_weights(t[..., 1], ky, "linear")
-    wx = axis_interp_weights(t[..., 2], kx, "linear")
+    wz = axis_interp_weights(t[..., 0], kz, interpolation)
+    wy = axis_interp_weights(t[..., 1], ky, interpolation)
+    wx = axis_interp_weights(t[..., 2], kx, interpolation)
     wzy = (wz[..., :, None] * wy[..., None, :]).reshape(q, k, kz * ky)
     A = (wzy[..., :, None] * wx[..., None, :]).reshape(q, k, kz * ky * kx)
     return A * a[..., None]
@@ -82,14 +107,19 @@ def _tap_tensor(t, a, kernel_size):
 
 def is_bf16(precision):
     """Whether ``precision`` selects the bf16 contraction (JAX's
-    ``fast_bf16``: None or "default"); raises on a value the port does not
-    know."""
-    if precision in (None, "default"):
+    ``fast_bf16``: None or "default"); any other name JAX's matmuls take
+    (one or a pair; a ``jax.lax.Precision`` by its name) runs fp32; raises
+    on a value JAX does not take."""
+    if precision is None or precision == "default":
         return True
-    if precision == "highest":
+    names = tuple(precision) if isinstance(precision, (tuple, list)) \
+        else (precision,)
+    if 1 <= len(names) <= 2 and all(
+            n is None or str(n) in _FP32_PRECISIONS | {"default"}
+            for n in names):
         return False
-    raise ValueError(f"precision must be None, 'default' or 'highest', "
-                     f"got {precision!r}")
+    raise ValueError(f"unknown precision {precision!r}: None, 'default' or "
+                     f"one of {sorted(_FP32_PRECISIONS)}")
 
 
 def round_bf16(x):
@@ -98,7 +128,7 @@ def round_bf16(x):
 
 
 def cconv_klist_reference(idx, a, t, feats, w, kernel_size, qfeats=None,
-                          precision="highest"):
+                          precision="highest", interpolation="linear"):
     """Plain PyTorch twin of the kernel (same contract).  Under autograd
     its casts round the cotangents as the bf16 kernels do."""
     q, k = idx.shape
@@ -108,7 +138,7 @@ def cconv_klist_reference(idx, a, t, feats, w, kernel_size, qfeats=None,
     if bf16 and qfeats is not None:
         raise NotImplementedError(
             "the symmetric K-list conv has no bf16 variant")
-    A = _tap_tensor(t, a, kernel_size)
+    A = _tap_tensor(t, a, kernel_size, interpolation)
     if bf16:
         A, feats, w = round_bf16(A), round_bf16(feats), round_bf16(w)
     # JAX clamps out-of-range gathers and the reference's obs_conv relies on
@@ -145,7 +175,8 @@ def _one_step(got, want):
     return flip
 
 
-def bwd_data_from_dT(dT, idx, a, t, feats, kernel_size):
+def bwd_data_from_dT(dT, idx, a, t, feats, kernel_size,
+                     interpolation="linear"):
     """The bf16 plain backward's data gradients (dfeats, da, dt) with the
     gradient of T, dT [Q, S, Cin], given: the twin's T (rounded to bf16,
     as ``cconv_klist_reference`` rounds it) differentiated by autograd with
@@ -154,14 +185,19 @@ def bwd_data_from_dT(dT, idx, a, t, feats, kernel_size):
     else the kernel's bf16 roundings moved."""
     leaves = [x.detach().float().requires_grad_(True) for x in (a, t, feats)]
     with torch.enable_grad():
-        A = round_bf16(_tap_tensor(leaves[1], leaves[0], kernel_size))
+        A = round_bf16(_tap_tensor(leaves[1], leaves[0], kernel_size,
+                                   interpolation))
         f = round_bf16(leaves[2])[idx.long().clamp(0, feats.shape[0] - 1)]
         T = round_bf16(torch.einsum("qks,qkc->qsc", A, f))
-        da, dt, dfeats = torch.autograd.grad(T, leaves, dT)
+        da, dt, dfeats = torch.autograd.grad(T, leaves, dT,
+                                             allow_unused=True)
+    if dt is None:  # nearest_neighbor: no tap moves with t
+        dt = torch.zeros_like(leaves[1])
     return dfeats, da, dt
 
 
-def bf16_data_flips(dout, idx, a, t, feats, w, kernel_size, got, tol):
+def bf16_data_flips(dout, idx, a, t, feats, w, kernel_size, got, tol,
+                    interpolation="linear"):
     """Holds the bf16 data kernel's (dfeats, da, dt) ``got`` on CUDA
     tensors the way the bf16 forward's T is held: the tensor cores sum dT
     in another order than the plain backward's fp32 product, so an element
@@ -186,13 +222,13 @@ def bf16_data_flips(dout, idx, a, t, feats, w, kernel_size, got, tol):
     work = torch.empty(data_workspace_bytes(*shape), dtype=torch.uint8,
                        device=dout.device)
     again = _bwd_data_launch(dout, idx, a, t, f16, w16, kernel_size, None,
-                             work=work)
+                             interpolation, work=work)
     if not all(torch.equal(x.to(y.dtype), y) for x, y in zip(
             (again[0], again[2], again[3]), got)):
         raise AssertionError("the data kernel's relaunch differs")
     # the kernel forms dT only on tap rows a slot of the query's tile
     # touches, and reads it only on those of the query's own slots
-    hz = _tap_tensor(t, torch.ones_like(a), kernel_size) != 0
+    hz = _tap_tensor(t, torch.ones_like(a), kernel_size, interpolation) != 0
     rows = hz.any(dim=1)
     dT = work[:2 * q * s_total * cin].view(torch.bfloat16).float().reshape(
         q, s_total, cin)
@@ -203,13 +239,14 @@ def bf16_data_flips(dout, idx, a, t, feats, w, kernel_size, got, tol):
     n = int(rows.sum()) * cin
     dT_err, flips = rounding_flips(dT, plain)
     f_dfeats, f_da, f_dt = bwd_data_from_dT(dT, idx, a, t, feats,
-                                            kernel_size)
+                                            kernel_size, interpolation)
     forced = {"dfeats": rounding_flips(got[0], f_dfeats)}
     for name, x, y in (("da", got[1], f_da), ("dt", got[2], f_dt)):
         scale = float(y.abs().max())
         forced[name] = float((x - y).abs().max()) / scale if scale else 0.0
     _, _, _, r_da, r_dt = cconv_klist_bwd_reference(
-        dout, idx, a, t, f16, w16, kernel_size, precision="default")
+        dout, idx, a, t, f16, w16, kernel_size, precision="default",
+        interpolation=interpolation)
     flipped = _one_step(dT, plain.to(torch.bfloat16)).any(dim=2)  # [Q, S]
     explained = (hz & flipped[:, None, :]).any(dim=2)             # [Q, K]
     beyond, unexplained = {}, {}
@@ -237,7 +274,8 @@ def _check(name, x, dtype, shape, device):
 
 
 def cconv_klist_bwd_reference(dout, idx, a, t, feats, w, kernel_size,
-                              qfeats=None, precision="highest"):
+                              qfeats=None, precision="highest",
+                              interpolation="linear"):
     """Plain PyTorch backward of the K-list conv: the vector-Jacobian
     product of ``cconv_klist_reference`` with ``dout`` [Q, Cout], by
     autograd of the dense taps (and of the twin's casts, in the bf16
@@ -248,7 +286,8 @@ def cconv_klist_bwd_reference(dout, idx, a, t, feats, w, kernel_size,
     qf = None if qfeats is None else qfeats.detach().requires_grad_(True)
     with torch.enable_grad():
         out = cconv_klist_reference(idx, *leaves, kernel_size, qfeats=qf,
-                                    precision=precision)
+                                    precision=precision,
+                                    interpolation=interpolation)
         grads = torch.autograd.grad(
             out, leaves + ([] if qf is None else [qf]), dout,
             allow_unused=True)
@@ -264,7 +303,7 @@ def _launcher():
     set once."""
     fn = load_library("cconv_klist").cconv_klist_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     return fn
 
@@ -276,14 +315,14 @@ def _bwd_launchers():
     lib = load_library("cconv_klist_bwd")
     data = lib.cconv_klist_bwd_data_launch
     data.restype = ctypes.c_int
-    data.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 \
+    data.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     data_work = lib.cconv_klist_bwd_data_workspace
     data_work.restype = ctypes.c_longlong
     data_work.argtypes = [ctypes.c_int] * 9
     filt = lib.cconv_klist_bwd_filter_launch
     filt.restype = ctypes.c_int
-    filt.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
+    filt.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     work = lib.cconv_klist_bwd_filter_workspace
     work.restype = ctypes.c_longlong
@@ -373,11 +412,19 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _count(fn, bf16):
+def _count(fn, bf16, interpolation):
     if bf16:
         fn.launches_bf16 += 1
     else:
         fn.launches += 1
+    fn.mode_launches[interpolation][int(bool(bf16))] += 1
+
+
+def zero_launches():
+    """Every K-list kernel's launch counts to 0."""
+    for fn in (cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter):
+        fn.launches = fn.launches_bf16 = 0
+        fn.mode_launches = {m: [0, 0] for m in INTERPOLATIONS}
 
 
 def _variant(feats, w, precision):
@@ -387,20 +434,23 @@ def _variant(feats, w, precision):
     return feats, w
 
 
-def _launch(idx, a, t, feats, w, kernel_size, qfeats):
+def _launch(idx, a, t, feats, w, kernel_size, qfeats,
+            interpolation="linear"):
     shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats)
+    mode = interp_code(interpolation)
     q, cout = shape[0], shape[4]
     out = torch.empty((q, cout), dtype=torch.float32, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     _raise_on(_launcher()(idx.data_ptr(), a.data_ptr(), t.data_ptr(),
                           feats.data_ptr(), _ptr(qfeats), w.data_ptr(),
-                          out.data_ptr(), *shape, stream), "cconv_klist")
-    _count(cconv_klist, shape[-1])
+                          out.data_ptr(), *shape, mode, stream),
+              "cconv_klist")
+    _count(cconv_klist, shape[-1], interpolation)
     return out
 
 
 def _bwd_data_launch(dout, idx, a, t, feats, w, kernel_size, qfeats,
-                     work=None):
+                     interpolation="linear", work=None):
     """One data launch on CUDA tensors of the variant's dtypes: (dfeats
     fp32, dqfeats or None, da, dt, order, offsets), the last two the
     transposed list the launch built: ``transposed_slots``'s, but for
@@ -408,6 +458,7 @@ def _bwd_data_launch(dout, idx, a, t, feats, w, kernel_size, qfeats,
     ``work`` of ``data_workspace_bytes`` uint8 given, it holds dT [Q,
     S*Cin] (fp32, or bf16) in its first bytes afterwards."""
     shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout)
+    mode = interp_code(interpolation)
     q, k, n, cin = shape[:4]
     dev = feats.device
     if work is None:
@@ -424,16 +475,17 @@ def _bwd_data_launch(dout, idx, a, t, feats, w, kernel_size, qfeats,
         idx.data_ptr(), a.data_ptr(), t.data_ptr(), feats.data_ptr(),
         _ptr(qfeats), w.data_ptr(), dout.data_ptr(), order.data_ptr(),
         offsets.data_ptr(), work.data_ptr(), dfeats.data_ptr(),
-        _ptr(dqfeats), da.data_ptr(), dt.data_ptr(), *shape, stream),
+        _ptr(dqfeats), da.data_ptr(), dt.data_ptr(), *shape, mode, stream),
         "cconv_klist_bwd_data")
-    _count(cconv_klist_bwd_data, shape[-1])
+    _count(cconv_klist_bwd_data, shape[-1], interpolation)
     cconv_klist_bwd_data.workspace_peak = max(
         cconv_klist_bwd_data.workspace_peak, work.numel())
     return dfeats, dqfeats, da, dt, order, offsets
 
 
 def cconv_klist_bwd_data(dout, idx, a, t, feats, w, kernel_size,
-                         qfeats=None, precision="highest"):
+                         qfeats=None, precision="highest",
+                         interpolation="linear"):
     """Gradients of the K-list conv in its data inputs: (dfeats, dqfeats or
     None, da, dt).  CUDA tensors launch the data kernels of
     ``csrc/cconv_klist_bwd.cu``: dT on the tensor cores into a workspace
@@ -445,16 +497,18 @@ def cconv_klist_bwd_data(dout, idx, a, t, feats, w, kernel_size,
     kernels it runs.  CPU tensors take ``cconv_klist_bwd_reference``."""
     if not feats.is_cuda:
         dfeats, dqfeats, _, da, dt = cconv_klist_bwd_reference(
-            dout, idx, a, t, feats, w, kernel_size, qfeats, precision)
+            dout, idx, a, t, feats, w, kernel_size, qfeats, precision,
+            interpolation)
         return dfeats, dqfeats, da, dt
     feats, w = _variant(feats, w, precision)
     dfeats, dqfeats, da, dt, _, _ = _bwd_data_launch(
-        dout, idx, a, t, feats, w, kernel_size, qfeats)
+        dout, idx, a, t, feats, w, kernel_size, qfeats, interpolation)
     return dfeats.to(feats.dtype), dqfeats, da, dt
 
 
 def cconv_klist_bwd_filter(dout, idx, a, t, feats, w, kernel_size,
-                           qfeats=None, precision="highest"):
+                           qfeats=None, precision="highest",
+                           interpolation="linear"):
     """Gradient of the K-list conv in its filter ``w``: dw [S*Cin, Cout].
     CUDA tensors launch ``cconv_klist_bwd_filter_kernel`` (deterministic:
     per-group partials over query tiles, summed in a fixed order by a
@@ -464,9 +518,11 @@ def cconv_klist_bwd_filter(dout, idx, a, t, feats, w, kernel_size,
     counts as one launch, whether it ran one kernel or two."""
     if not feats.is_cuda:
         return cconv_klist_bwd_reference(dout, idx, a, t, feats, w,
-                                         kernel_size, qfeats, precision)[2]
+                                         kernel_size, qfeats, precision,
+                                         interpolation)[2]
     feats, w = _variant(feats, w, precision)
     shape = _shapes(idx, a, t, feats, w, kernel_size, qfeats, dout)
+    mode = interp_code(interpolation)
     dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     nwork = _filter_workspace(*shape[:-1])
     work = torch.empty(nwork, dtype=torch.float32, device=w.device) \
@@ -475,23 +531,27 @@ def cconv_klist_bwd_filter(dout, idx, a, t, feats, w, kernel_size,
     _raise_on(_bwd_launchers()[1](
         idx.data_ptr(), a.data_ptr(), t.data_ptr(), feats.data_ptr(),
         _ptr(qfeats), dout.data_ptr(), dw.data_ptr(), _ptr(work), *shape,
-        stream), "cconv_klist_bwd_filter")
-    _count(cconv_klist_bwd_filter, shape[-1])
+        mode, stream), "cconv_klist_bwd_filter")
+    _count(cconv_klist_bwd_filter, shape[-1], interpolation)
     return dw.to(w.dtype)
 
 
 class _KListConv(torch.autograd.Function):
     """The K-list conv on CUDA tensors: forward kernel, backward kernels,
-    of the variant ``precision`` selects (feats and w arrive in its dtype).
-    ``idx`` and ``kernel_size`` get no gradient; the data kernel runs when
-    feats, qfeats, a or t needs one, the filter kernel when w does."""
+    of the variant ``precision`` selects (feats and w arrive in its dtype)
+    and the ``interpolation`` mode.  ``idx`` and ``kernel_size`` get no
+    gradient; the data kernel runs when feats, qfeats, a or t needs one,
+    the filter kernel when w does."""
 
     @staticmethod
-    def forward(ctx, idx, a, t, feats, w, kernel_size, qfeats, precision):
+    def forward(ctx, idx, a, t, feats, w, kernel_size, qfeats, precision,
+                interpolation):
         ctx.kernel_size = kernel_size
         ctx.precision = precision
+        ctx.interpolation = interpolation
         ctx.save_for_backward(idx, a, t, feats, w, qfeats)
-        return _launch(idx, a, t, feats, w, kernel_size, qfeats)
+        return _launch(idx, a, t, feats, w, kernel_size, qfeats,
+                       interpolation)
 
     @staticmethod
     def backward(ctx, dout):
@@ -499,7 +559,7 @@ class _KListConv(torch.autograd.Function):
         need = ctx.needs_input_grad
         dout = dout.contiguous()
         args = (dout, idx, a, t, feats, w, ctx.kernel_size, qfeats,
-                ctx.precision)
+                ctx.precision, ctx.interpolation)
         da = dt = dfeats = dqfeats = dw = None
         if need[1] or need[2] or need[3] or need[6]:
             dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*args)
@@ -507,28 +567,28 @@ class _KListConv(torch.autograd.Function):
             dw = cconv_klist_bwd_filter(*args)
         return (None, da if need[1] else None, dt if need[2] else None,
                 dfeats if need[3] else None, dw, None,
-                dqfeats if need[6] else None, None)
+                dqfeats if need[6] else None, None, None)
 
 
 def cconv_klist(idx, a, t, feats, w, kernel_size, qfeats=None,
-                precision="highest"):
+                precision="highest", interpolation="linear"):
     """K-list continuous conv (see module docstring).  CUDA tensors go
     through the hand-written kernels of the variant ``precision`` selects
-    (forward, and backward under autograd); CPU tensors take the plain
-    twin."""
+    and of the ``interpolation`` mode (forward, and backward under
+    autograd); CPU tensors take the plain twin."""
     if not feats.is_cuda:
         return cconv_klist_reference(idx, a, t, feats, w, kernel_size,
-                                     qfeats, precision)
+                                     qfeats, precision, interpolation)
     feats, w = _variant(feats, w, precision)
     return _KListConv.apply(idx, a, t, feats, w, kernel_size, qfeats,
-                            precision)
+                            precision, interpolation)
 
 
 # launches of each CUDA kernel, per variant: ``launches`` the fp32 one,
-# ``launches_bf16`` the bf16 one (plain-version calls are not counted)
-cconv_klist.launches = cconv_klist.launches_bf16 = 0
-cconv_klist_bwd_data.launches = cconv_klist_bwd_data.launches_bf16 = 0
+# ``launches_bf16`` the bf16 one, over every mode; ``mode_launches[mode]``
+# [fp32, bf16] of one interpolation mode (plain-version calls are not
+# counted)
+zero_launches()
 # the largest dT workspace a data launch allocated, bytes (set it to 0 to
 # measure a span)
 cconv_klist_bwd_data.workspace_peak = 0
-cconv_klist_bwd_filter.launches = cconv_klist_bwd_filter.launches_bf16 = 0

@@ -4,7 +4,8 @@ Parameter names and shapes match the flax modules, so a flax param tree
 loads by module path (``interop.params_from_flax``): a conv holds
 ``kernel`` [kz, ky, kx, Cin, Cout] (the half kernel along ``sym_axis`` when
 symmetric, the radial stack [ceil(max(ks) / 2), Cin, Cout] when circular)
-and ``bias`` [Cout]; a ``Dense`` holds ``Dense_0.kernel``
+and ``bias`` [Cout], as do ``SparseConv`` and ``SparseConvTranspose``;
+``PointSampling`` holds none; a ``Dense`` holds ``Dense_0.kernel``
 [in, out] and ``Dense_0.bias`` [out].
 """
 
@@ -12,13 +13,15 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops.cconv import (build_circular_kernel, build_symmetric_kernel,
                          continuous_conv, continuous_conv_dense,
-                         continuous_conv_dense_lazy)
-from ..ops.neighbors import DensePair, LazyDensePair, NeighborList
+                         continuous_conv_dense_lazy, point_sampling)
+from ..ops.neighbors import (DensePair, LazyDensePair, NeighborList,
+                             fixed_radius_search, invert_neighbors_list)
 
 
 def _uniform(shape, scale, generator, device):
@@ -48,7 +51,9 @@ class ContinuousConv(nn.Module):
     and the chunk outputs are summed in fp32 in chunk order.  At the
     default precision each chunk rounds its T to bf16 on its own, so the
     chunked conv is not bit for bit the unchunked one, in either package.
-    Not ported in this slice (raise): ``inp_importance``.
+    ``inp_importance`` [N] scales each source's slots (the K-list conv's
+    per-slot weight; on a DensePair the pair field's); the lazy dense path
+    raises for it, as the reference asserts.
     """
 
     def __init__(self, in_channels: int, filters: int,
@@ -112,13 +117,17 @@ class ContinuousConv(nn.Module):
 
     def forward(self, inp_features, inp_positions, out_positions, extents,
                 neighbors, query_features=None, n_chunk: int = 0,
-                cached_taps: bool = False):
+                cached_taps: bool = False, inp_importance=None):
         """``cached_taps``: the K-list conv computes what the reference's
         conv over a model-cached tap tensor does (``ops.cconv``)."""
         kernel = self.full_kernel()
         if isinstance(neighbors, (DensePair, LazyDensePair)) and (
                 self.symmetric_conv or self.normalize):
             raise ValueError("dense conv path covers plain trunk convs only")
+        if isinstance(neighbors, LazyDensePair) and \
+                inp_importance is not None:
+            raise ValueError("lazy dense path folds importance into "
+                             "features")
         if isinstance(neighbors, LazyDensePair):
             lp = neighbors
             out = continuous_conv_dense_lazy(
@@ -134,6 +143,8 @@ class ContinuousConv(nn.Module):
                 a = a * torch.where(neighbors.valid,
                                     self.window_function(neighbors.qnorm),
                                     0.0)
+            if inp_importance is not None:
+                a = a * inp_importance[None, :].to(a.dtype)
             out = continuous_conv_dense(
                 kernel, neighbors.rel, a, inp_features,
                 coordinate_mapping=self.coordinate_mapping,
@@ -157,6 +168,7 @@ class ContinuousConv(nn.Module):
                     interpolation=self.interpolation,
                     align_corners=self.align_corners,
                     normalize=self.normalize, symmetric=self.symmetric_conv,
+                    inp_importance=inp_importance,
                     query_features=query_features,
                     precision=self.precision, cached_taps=cached_taps)
                 out = y if out is None else out + y
@@ -167,6 +179,117 @@ class ContinuousConv(nn.Module):
         if self.bias is not None:
             out = out + self.bias
         return out
+
+
+class _SparseBase(nn.Module):
+    """The voxel-grid convs' parameters and filter-coordinate offset: a
+    kernel [*kernel_size, Cin, Cout] drawn as ``ContinuousConv``'s, a zero
+    bias; ``offset`` (x/y/z, in voxels) defaults to -1/2 on an even kernel,
+    0 on an odd one."""
+
+    def __init__(self, in_channels: int, filters: int,
+                 kernel_size: Sequence[int], *,
+                 activation: Optional[Callable] = None,
+                 use_bias: bool = True, normalize: bool = False,
+                 offset: Optional[Sequence[float]] = None,
+                 neighbor_k: int = 32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.kernel_size = tuple(int(k) for k in kernel_size)
+        self.activation = activation
+        self.normalize = normalize
+        self.offset = offset
+        self.neighbor_k = int(neighbor_k)
+        self.kernel = nn.Parameter(_uniform(
+            (*self.kernel_size, in_channels, filters), 0.05, generator,
+            device))
+        self.bias = (nn.Parameter(torch.zeros(filters, device=device))
+                     if use_bias else None)
+
+    def _shift(self, voxel_size, like):
+        """offset * voxel_size, formed in float32 as the reference's
+        numpy product."""
+        if self.offset is not None:
+            off = np.asarray(self.offset, np.float32)
+        else:
+            off = np.full(3, -0.5 if self.kernel_size[0] % 2 == 0 else 0.0,
+                          np.float32)
+        return torch.as_tensor(np.asarray(off * voxel_size, np.float32),
+                               device=like.device)
+
+    def _conv(self, out_positions, inp_positions, inp_features, nl,
+              voxel_size, importance):
+        out = continuous_conv(
+            self.kernel, out_positions, inp_positions, inp_features, nl,
+            voxel_size * self.kernel_size[-1],
+            coordinate_mapping="identity",
+            interpolation="nearest_neighbor", align_corners=False,
+            normalize=self.normalize, inp_importance=importance)
+        if self.bias is not None:
+            out = out + self.bias
+        return self.activation(out) if self.activation is not None else out
+
+
+class SparseConv(_SparseBase):
+    """Voxel-grid sparse convolution (the reference's SparseConv): points
+    on a regular grid, an Linf search of radius ``kernel_size * voxel_size
+    * 0.51`` about the output points shifted by the offset, the identity
+    coordinate mapping, nearest-neighbour taps, ``align_corners=False``;
+    on CUDA the K-list kernels' nearest_neighbor mode."""
+
+    def forward(self, inp_features, inp_positions, out_positions,
+                voxel_size, inp_mask=None, out_mask=None,
+                inp_importance=None):
+        q_pos = out_positions - self._shift(voxel_size, out_positions)
+        radius = self.kernel_size[-1] * voxel_size * 0.51
+        nl = fixed_radius_search(inp_positions, q_pos, radius,
+                                 self.neighbor_k, points_mask=inp_mask,
+                                 queries_mask=out_mask, metric="Linf")
+        return self._conv(q_pos, inp_positions, inp_features, nl,
+                          voxel_size, inp_importance)
+
+
+class SparseConvTranspose(_SparseBase):
+    """Transposed voxel-grid sparse convolution (the reference's): the
+    shifted input points search the output points (Linf), and the list is
+    inverted (``invert_neighbors_list``) into the output points' lists of
+    input points; then the conv as ``SparseConv``'s."""
+
+    def forward(self, inp_features, inp_positions, out_positions,
+                voxel_size, inp_mask=None, out_mask=None,
+                out_importance=None):
+        i_pos = inp_positions - self._shift(voxel_size, inp_positions)
+        radius = self.kernel_size[-1] * voxel_size * 0.51
+        nl_inp = fixed_radius_search(out_positions, i_pos, radius,
+                                     self.neighbor_k, points_mask=out_mask,
+                                     queries_mask=inp_mask, metric="Linf")
+        nl = invert_neighbors_list(nl_inp, out_positions.shape[0],
+                                   self.neighbor_k)
+        return self._conv(out_positions, i_pos, inp_features, nl,
+                          voxel_size, out_importance)
+
+
+class PointSampling(nn.Module):
+    """Windowed scatter or average between point sets (the reference's
+    PointSampling, a layer with no parameters): an L2 search of radius
+    ``extents / 2``, then ``ops.cconv.point_sampling``."""
+
+    def __init__(self, window_function: Optional[Callable] = None,
+                 normalize: bool = True, neighbor_k: int = 32):
+        super().__init__()
+        self.window_function = window_function
+        self.normalize = normalize
+        self.neighbor_k = int(neighbor_k)
+
+    def forward(self, inp_features, inp_positions, out_positions, extents,
+                inp_mask=None, out_mask=None):
+        nl = fixed_radius_search(inp_positions, out_positions,
+                                 float(extents) / 2.0, self.neighbor_k,
+                                 points_mask=inp_mask,
+                                 queries_mask=out_mask)
+        return point_sampling(inp_features, nl, extents,
+                              window_fn=self.window_function,
+                              normalize=self.normalize)
 
 
 def _k_slice(nl: NeighborList, start, stop) -> NeighborList:

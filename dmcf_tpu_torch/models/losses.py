@@ -1,6 +1,7 @@
 """Training and validation losses (port of dmcf_tpu/models/losses.py:
 ``mse``, ``weighted_mse``, ``vel``, ``weighted_vel``, ``momentum``,
-``density_loss`` and the ``get_loss`` factory).
+``density_loss``, ``hist`` and the ``get_loss`` factory, which also
+gives ``chamfer``, ``pipelines.metrics.chamfer_loss``).
 
 Masked: padded particles contribute zero and means are taken over valid
 particles only.
@@ -88,9 +89,27 @@ def density_loss(gt, pred, gt_mask, pred_mask, gt_in=None, pred_in=None,
     return fac * _masked_mean(err, pred_mask)
 
 
+def hist_loss(target, pred, mask=None, fac=1.0, bin_size=25, **kw):
+    """KL divergence of the histograms of two vector distributions
+    (``pipelines.metrics.compare_dist``).  Eval-only, as the reference's:
+    a host-side numpy histogram with data-dependent shapes, so a tensor
+    that requires grad (a training step's) raises."""
+    from ..pipelines.metrics import compare_dist, to_host
+
+    if any(getattr(x, "requires_grad", False) for x in (target, pred)):
+        raise RuntimeError(
+            "hist loss is eval-only (host-side numpy histogram); use it "
+            "outside jit, e.g. in run_valid")
+    target, pred = to_host(target), to_host(pred)
+    if mask is not None:
+        m = to_host(mask).astype(bool)
+        target, pred = target[m], pred[m]
+    return fac * compare_dist(target, pred, bin_size=bin_size)
+
+
 def get_loss(typ, fac=1.0, **kwargs):
     """Loss factory keyed by the config's ``typ``.  ``chamfer`` and
-    ``hist`` (eval-only in the JAX package) are not ported."""
+    ``hist`` are host-side and eval-only, as in the JAX package."""
     if typ == "mse":
         return partial(mse_loss, fac=fac, **kwargs)
     if typ == "weighted_mse":
@@ -104,9 +123,12 @@ def get_loss(typ, fac=1.0, **kwargs):
     if typ == "dense":
         win = get_window_func(kwargs.pop("win", None))
         return partial(density_loss, fac=fac, win=win, **kwargs)
+    if typ == "chamfer":
+        from ..pipelines.metrics import chamfer_loss
+        return partial(chamfer_loss, fac=fac, **kwargs)
     if typ == "emd":
         from ..ops.emd import emd_loss
         return partial(emd_loss, **kwargs)
-    if typ in ("chamfer", "hist"):
-        raise NotImplementedError(f"loss {typ!r} is not ported yet")
+    if typ == "hist":
+        return partial(hist_loss, fac=fac, **kwargs)
     raise NotImplementedError(f"unknown loss: {typ}")

@@ -20,10 +20,14 @@ same with the pair field rebuilt a source chunk at a time) are plain
 PyTorch.
 
 ``precision`` is the JAX package's: "highest" computes fp32 throughout
-(the default here, as in JAX's ``continuous_conv``); None or "default"
-is JAX's bf16 contraction (``kernels/cconv_klist.py`` states it), for the
-dense conv too, whose tap-field and filter products stay plain matrix
-products of bf16-rounded operands with fp32 sums and outputs.
+(the default here, as in JAX's ``continuous_conv``; so does every other
+name JAX takes but "default"); None or "default" is JAX's bf16
+contraction (``kernels/cconv_klist.py`` states it), for the dense conv
+too, whose tap-field and filter products stay plain matrix products of
+bf16-rounded operands with fp32 sums and outputs.  ``interpolation``
+("linear", "linear_border", "nearest_neighbor") reaches the kernels as
+their mode.  ``extents`` is the scalar filter diameter or one a query
+([Q]); ``inp_importance`` [N] scales each slot's weight by its source's.
 """
 
 from __future__ import annotations
@@ -71,20 +75,16 @@ def point_sampling(inp_features, neighbors: NeighborList, extents, *,
                    window_fn=None, normalize=True):
     """Windowed average (or sum) of the neighbours' features: the
     reference's PointSampling, an identity-kernel continuous conv.
-    ``extents`` is the scalar filter diameter.  A row with no weight is 0,
+    ``extents`` is the filter diameter, scalar or [Q].  A row with no
+    weight is 0,
     as in the reference, whose division by that zero weight inside the
     ``where`` makes the gradient NaN (0 times an infinite or NaN partial)
     for every input that reaches it: the port divides by 1 there, so its
     values are the reference's and its gradients finite (ROADMAP §3)."""
     a = neighbors.mask.to(inp_features.dtype)
     if window_fn is not None:
-        ext = torch.as_tensor(extents, dtype=inp_features.dtype,
-                              device=inp_features.device)
-        if ext.ndim != 0:
-            raise NotImplementedError("per-query extents are not ported "
-                                      "yet")
-        radius = 0.5 * ext
-        a = a * window_fn(neighbors.dist / (radius * radius)).to(a.dtype)
+        _, r_sq = _radius_terms(extents, a)
+        a = a * window_fn(neighbors.dist / r_sq).to(a.dtype)
     f = inp_features[neighbors.idx.long()]
     out = torch.einsum("qk,qkc->qc", a, f)
     if normalize:
@@ -96,25 +96,28 @@ def point_sampling(inp_features, neighbors: NeighborList, extents, *,
 
 def _radius_terms(extents, like):
     """(1/radius, radius^2) in the working dtype, as the reference forms
-    them (radius = extents / 2)."""
+    them (radius = extents / 2); for per-query extents [Q], shaped [Q, 1,
+    1] and [Q, 1] to scale the slots' offsets and distances."""
     ext = torch.as_tensor(extents, dtype=like.dtype, device=like.device)
-    if ext.ndim != 0:
-        raise NotImplementedError("per-query extents are not ported yet")
     radius = 0.5 * ext
-    return 1.0 / radius, radius * radius
+    if ext.ndim == 0:
+        return 1.0 / radius, radius * radius
+    return (1.0 / radius)[:, None, None], (radius * radius)[:, None]
 
 
 def klist_geometry(neighbors: NeighborList, extents, filter_size, *,
                    out_positions=None, inp_positions=None,
                    window_fn=None,
                    coordinate_mapping="ball_to_cube_volume_preserving",
-                   align_corners=True, bf16_window=False):
+                   align_corners=True, offset=None, inp_importance=None,
+                   bf16_window=False):
     """Per-slot inputs of the K-list contraction: (idx, a, t).
 
     idx [Q, K] int32 as the list holds them (the contraction clamps
-    out-of-range entries); a [Q, K] = mask * window(d^2/r^2), the window
-    rounded to bf16 first with ``bf16_window``; t [Q, K, 3] centred filter
-    coordinates (tz, ty, tx).
+    out-of-range entries); a [Q, K] = mask * window(d^2/r^2) *
+    inp_importance[idx], the window rounded to bf16 first with
+    ``bf16_window``; t [Q, K, 3] centred filter coordinates (tz, ty, tx),
+    shifted by ``offset`` (x/y/z).
     """
     idx, mask = neighbors.idx, neighbors.mask
     rel_scale, r_sq = _radius_terms(extents, neighbors.dist)
@@ -126,36 +129,35 @@ def klist_geometry(neighbors: NeighborList, extents, filter_size, *,
                                                  - 1)]
         rel = (nbr_pos - out_positions[:, None, :]) * rel_scale
     tz, ty, tx = compute_centered_filter_coordinates(
-        rel, filter_size, coordinate_mapping, align_corners)
+        rel, filter_size, coordinate_mapping, align_corners, offset)
     t = torch.stack([tz, ty, tx], dim=-1)
     a = mask.to(neighbors.dist.dtype)
     if window_fn is not None:
         win = window_fn(neighbors.dist / r_sq)
         a = a * (round_bf16(win) if bf16_window else win)
+    if inp_importance is not None:
+        # clamped, as JAX's gather is
+        a = a * inp_importance[idx.long().clamp(
+            0, inp_importance.shape[0] - 1)].to(a.dtype)
     return idx.to(torch.int32).contiguous(), a.contiguous(), t.contiguous()
 
 
 def _continuous_conv(contract, kernel, out_positions, inp_positions,
                      inp_features, neighbors, extents, *, window_fn,
                      coordinate_mapping, interpolation, align_corners,
-                     normalize, inp_importance, symmetric, query_features,
-                     precision, cached_taps):
+                     normalize, offset, inp_importance, symmetric,
+                     query_features, precision, cached_taps):
     if symmetric and is_bf16(precision):
         raise NotImplementedError(
             "a symmetric conv at bf16 precision is not ported (JAX's "
             "depends on the platform; the model's ASCC convs run "
             "'highest')")
-    if interpolation != "linear":
-        raise NotImplementedError(
-            f"interpolation {interpolation!r} is not ported yet (the "
-            "K-list kernel computes the clamped 'linear' hats)")
-    if inp_importance is not None:
-        raise NotImplementedError("inp_importance is not ported yet")
     kz, ky, kx, cin, cout = kernel.shape
     idx, a, t = klist_geometry(
         neighbors, extents, (kz, ky, kx), out_positions=out_positions,
         inp_positions=inp_positions, window_fn=window_fn,
         coordinate_mapping=coordinate_mapping, align_corners=align_corners,
+        offset=offset, inp_importance=inp_importance,
         bf16_window=cached_taps and is_bf16(precision))
     qf = None
     if symmetric:
@@ -164,9 +166,10 @@ def _continuous_conv(contract, kernel, out_positions, inp_positions,
         qf = query_features.contiguous()
     out = contract(idx, a, t, inp_features.contiguous(),
                    kernel.reshape(kz * ky * kx * cin, cout).contiguous(),
-                   (kz, ky, kx), qfeats=qf, precision=precision)
+                   (kz, ky, kx), qfeats=qf, precision=precision,
+                   interpolation=interpolation)
     if normalize:
-        if window_fn is not None:
+        if window_fn is not None or inp_importance is not None:
             denom = a.sum(dim=1)
         else:
             denom = neighbors.mask.sum(dim=1).to(out.dtype)
@@ -178,14 +181,17 @@ def continuous_conv(kernel, out_positions, inp_positions, inp_features,
                     neighbors: NeighborList, extents, *, window_fn=None,
                     coordinate_mapping="ball_to_cube_volume_preserving",
                     interpolation="linear", align_corners=True,
-                    normalize=False, inp_importance=None, symmetric=False,
-                    query_features=None, precision="highest",
-                    cached_taps=False):
+                    normalize=False, offset=None, inp_importance=None,
+                    symmetric=False, query_features=None,
+                    precision="highest", cached_taps=False):
     """K-list continuous conv at ``out_positions`` -> [Q, Cout].
 
     kernel [kz, ky, kx, Cin, Cout] (already expanded for symmetric
     variants); inp_features [N, Cin]; ``neighbors`` a padded NeighborList of
-    input points per output point; ``extents`` the scalar filter diameter.
+    input points per output point; ``extents`` the filter diameter, scalar
+    or [Q]; ``offset`` [3] (x/y/z) shifts the filter coordinates;
+    ``inp_importance`` [N] scales each slot by its source's importance
+    (``normalize`` then divides by the weights' sum, as with a window).
     ``symmetric`` adds the antisymmetric self term and needs
     ``query_features`` [Q, Cin] (fp32 only).  CUDA tensors run the
     hand-written kernels of the ``precision``'s variant, forward and
@@ -199,7 +205,7 @@ def continuous_conv(kernel, out_positions, inp_positions, inp_features,
         cconv_klist, kernel, out_positions, inp_positions, inp_features,
         neighbors, extents, window_fn=window_fn,
         coordinate_mapping=coordinate_mapping, interpolation=interpolation,
-        align_corners=align_corners, normalize=normalize,
+        align_corners=align_corners, normalize=normalize, offset=offset,
         inp_importance=inp_importance, symmetric=symmetric,
         query_features=query_features, precision=precision,
         cached_taps=cached_taps)
@@ -211,15 +217,16 @@ def continuous_conv_reference(kernel, out_positions, inp_positions,
                               coordinate_mapping=
                               "ball_to_cube_volume_preserving",
                               interpolation="linear", align_corners=True,
-                              normalize=False, inp_importance=None,
-                              symmetric=False, query_features=None,
-                              precision="highest", cached_taps=False):
+                              normalize=False, offset=None,
+                              inp_importance=None, symmetric=False,
+                              query_features=None, precision="highest",
+                              cached_taps=False):
     """Plain PyTorch twin of :func:`continuous_conv` on any device."""
     return _continuous_conv(
         cconv_klist_reference, kernel, out_positions, inp_positions,
         inp_features, neighbors, extents, window_fn=window_fn,
         coordinate_mapping=coordinate_mapping, interpolation=interpolation,
-        align_corners=align_corners, normalize=normalize,
+        align_corners=align_corners, normalize=normalize, offset=offset,
         inp_importance=inp_importance, symmetric=symmetric,
         query_features=query_features, precision=precision,
         cached_taps=cached_taps)

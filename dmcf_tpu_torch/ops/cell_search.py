@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from .neighbors import NeighborList, recompute_dist, select_k_valid, sq_norm
+from .neighbors import (NeighborList, metric_dist, radius_threshold,
+                        recompute_dist, select_k_valid, sq_norm)
 
 _G = 1024  # virtual grid cells per axis (scene must fit G-2 per axis)
 _INVALID_ID = 2 ** 30
@@ -52,12 +53,10 @@ def cell_fixed_radius_search(points, queries, radius, k, points_mask=None,
     position, ``count`` the true count seen, ``cell_overflow`` the rows its
     block's windows dropped (plus 2^20 where the scene's span does not fit
     the grid)."""
-    if metric != "L2":
-        raise NotImplementedError(f"metric {metric!r} is not ported yet")
     n, q = points.shape[0], queries.shape[0]
     dev, dt = points.device, points.dtype
     r = torch.tensor(float(radius), dtype=dt, device=dev)
-    thresh = r * r
+    thresh = radius_threshold(radius, metric, points)
     pm = (torch.ones((n,), dtype=torch.bool, device=dev)
           if points_mask is None else points_mask.to(torch.bool))
     qm = (torch.ones((q,), dtype=torch.bool, device=dev)
@@ -132,7 +131,7 @@ def cell_fixed_radius_search(points, queries, radius, k, points_mask=None,
         bc = lo_c.shape[0]
         rows = (lo_c[:, :, None] + jw).long()            # [bc, 9, W]
         cand = spts_pad[rows].reshape(bc, 1, 9 * w, 3)
-        dist = sq_norm(qblk[:, :, None, :] - cand)        # [bc, bq, 9W]
+        dist = metric_dist(qblk[:, :, None, :] - cand, metric)  # [bc,bq,9W]
         in_win = jw[None, None, :] < cnt_c[:, :, None]
         # a later offset's window may re-cover rows of an earlier one: a
         # row is a duplicate iff it lies below the running max of the
@@ -168,7 +167,7 @@ def cell_fixed_radius_search(points, queries, radius, k, points_mask=None,
 
     idx = torch.where(mask_k,
                       order[idx_sorted.clamp(0, max(n - 1, 0)).long()], 0)
-    dist_k = recompute_dist(points, queries, idx, mask_k)
+    dist_k = recompute_dist(points, queries, idx, mask_k, metric)
 
     hard = torch.where(span_bad, 1 << 20, 0).to(torch.int32)
     cell_over = torch.where(qm, win_over[iperm // block_q] + hard, 0)

@@ -87,20 +87,41 @@ def apply_coordinate_mapping(x, y, z, mapping):
     raise NotImplementedError(f"unknown coordinate_mapping: {mapping}")
 
 
-def compute_centered_filter_coordinates(rel, filter_size, mapping,
-                                        align_corners):
-    """Unit-ball offsets ``rel`` [..., 3] (x/y/z) -> centered continuous
-    filter coordinates (tz, ty, tx), each [...].  ``t = u * scale`` with no
-    additive shift, so the mirror holds bitwise."""
+def compute_filter_coordinates(rel, filter_size, mapping, align_corners,
+                               offset=None):
+    """Unit-ball offsets -> continuous coordinates in each filter axis's
+    index space (cz, cy, cx): the centred ones shifted by (size - 1) / 2.
+    ``offset`` (x/y/z) is added to the centred coordinates first."""
+    tz, ty, tx = compute_centered_filter_coordinates(rel, filter_size,
+                                                     mapping, align_corners,
+                                                     offset)
     sz, sy, sx = filter_size
-    x, y, z = apply_coordinate_mapping(rel[..., 0], rel[..., 1],
-                                       rel[..., 2], mapping)
+    return (tz + 0.5 * (sz - 1), ty + 0.5 * (sy - 1), tx + 0.5 * (sx - 1))
+
+
+def compute_centered_filter_coordinates(rel, filter_size, mapping,
+                                        align_corners, offset=None):
+    """Unit-ball offsets ``rel`` [..., 3] (x/y/z), or the tuple of its
+    three planes, -> centered continuous filter coordinates (tz, ty, tx),
+    each [...].  ``t = u * scale`` with no additive shift, so the mirror
+    holds bitwise; an ``offset`` [3] (x/y/z) is added after the scale."""
+    sz, sy, sx = filter_size
+    if isinstance(rel, (tuple, list)):
+        x, y, z = rel
+    else:
+        x, y, z = rel[..., 0], rel[..., 1], rel[..., 2]
+    x, y, z = apply_coordinate_mapping(x, y, z, mapping)
 
     def to_centered(u, size):
         scale = 0.5 * (size - 1) if align_corners else 0.5 * size
         return u * scale
 
-    return to_centered(z, sz), to_centered(y, sy), to_centered(x, sx)
+    tx, ty, tz = to_centered(x, sx), to_centered(y, sy), to_centered(z, sz)
+    if offset is not None:
+        tx = tx + offset[0]
+        ty = ty + offset[1]
+        tz = tz + offset[2]
+    return tz, ty, tx
 
 
 def axis_interp_weights(t, size, interpolation):

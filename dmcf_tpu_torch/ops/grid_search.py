@@ -20,7 +20,8 @@ from itertools import product
 
 import torch
 
-from .neighbors import NeighborList, recompute_dist, select_k_valid, sq_norm
+from .neighbors import (NeighborList, metric_dist, radius_threshold,
+                        recompute_dist, select_k_valid)
 
 _KEY_MAX = 2 ** 31 - 1
 _M32 = 0xFFFFFFFF
@@ -81,12 +82,9 @@ def grid_fixed_radius_search(points, queries, radius, k, points_mask=None,
                              query_chunk: int = 8192) -> NeighborList:
     """Fixed-radius search by hashed cells (module docstring); queries in
     chunks of ``query_chunk`` (results do not depend on it)."""
-    if metric != "L2":
-        raise NotImplementedError(f"metric {metric!r} is not ported yet")
     n, q = points.shape[0], queries.shape[0]
     dev = points.device
-    r = torch.tensor(float(radius), dtype=points.dtype, device=dev)
-    thresh = r * r
+    thresh = radius_threshold(radius, metric, points)
     pm = (torch.ones((n,), dtype=torch.bool, device=dev)
           if points_mask is None else points_mask.to(torch.bool))
     qm = (torch.ones((q,), dtype=torch.bool, device=dev)
@@ -120,7 +118,7 @@ def grid_fixed_radius_search(points, queries, radius, k, points_mask=None,
         cand_cells = sorted_cells[flat].reshape(c, n_off, cell_cap, 3)
         exact = (cand_cells == probe_cells[:, :, None, :]).all(dim=-1)
         valid = (in_range & exact).reshape(c, -1) & sorted_mask[flat]
-        dist = sq_norm(qs[:, None, :] - sorted_points[flat])
+        dist = metric_dist(qs[:, None, :] - sorted_points[flat], metric)
         valid &= dist <= thresh
         if ignore_query_point:
             valid &= dist > 0
@@ -128,7 +126,7 @@ def grid_fixed_radius_search(points, queries, radius, k, points_mask=None,
         sel, mask_k, _, count = select_k_valid(valid, None, k)
         idx = torch.where(
             mask_k, order[torch.gather(flat, 1, sel.long())], 0)
-        dist_k = recompute_dist(points, qs, idx, mask_k)
+        dist_k = recompute_dist(points, qs, idx, mask_k, metric)
         return (idx.to(torch.int32), mask_k, dist_k, count,
                 cell_over.sum(dim=1).to(torch.int32))
 

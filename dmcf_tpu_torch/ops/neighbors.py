@@ -11,7 +11,10 @@ running top-K of the nearest, ties to the lower index as
 ``jax.lax.top_k`` breaks them; it returns no ``disp``.  ``count`` is the
 true in-radius count before capping.  ``search`` dispatches to the
 cell-list (``cell_search``) and hash-probe grid (``grid_search``) searches
-as the reference does.
+as the reference does.  Every search takes the reference's three metrics:
+"L2" (squared distances against r^2, the dense path by the expansion form),
+"L1" and "Linf" (direct differences against r).  ``radius_search`` takes a
+radius a query.
 """
 
 from __future__ import annotations
@@ -83,18 +86,45 @@ def sq_norm(d):
         + d[..., 2] * d[..., 2]
 
 
+METRICS = ("L2", "L1", "Linf")
+
+
+def metric_dist(d, metric):
+    """The distance of differences ``d`` [..., 3] a search compares:
+    squared for "L2", |x| + |y| + |z| for "L1", the largest |coordinate|
+    for "Linf" (each reduced left to right, as XLA reduces it)."""
+    if metric == "L2":
+        return sq_norm(d)
+    a = d.abs()
+    if metric == "L1":
+        return a[..., 0] + a[..., 1] + a[..., 2]
+    if metric == "Linf":
+        return torch.maximum(torch.maximum(a[..., 0], a[..., 1]), a[..., 2])
+    raise NotImplementedError(f"unknown metric: {metric}")
+
+
+def radius_threshold(radius, metric, like):
+    """The bound a metric's distance is held to, in ``like``'s dtype: r^2
+    (rounded in that dtype, as the reference does) for L2, else r."""
+    if metric not in METRICS:
+        raise NotImplementedError(f"unknown metric: {metric}")
+    r = torch.tensor(float(radius), dtype=like.dtype, device=like.device)
+    return r * r if metric == "L2" else r
+
+
 _GATHER_SLOTS = 1 << 24  # slots of one [Q, K, 3] gather in recompute_dist
 
 
-def recompute_dist(points, queries, idx, mask):
-    """Exact squared distance of each selected neighbour from gathered
-    positions (the reference's ``_recompute_dist``), 0 on invalid slots.
-    The [Q, K, 3] gather runs over slices of K of at most _GATHER_SLOTS
-    slots (values do not depend on it)."""
+def recompute_dist(points, queries, idx, mask, metric="L2"):
+    """Exact distance of each selected neighbour from gathered positions
+    (the reference's ``_recompute_dist``: squared for L2), 0 on invalid
+    slots.  The [Q, K, 3] gather runs over slices of K of at most
+    _GATHER_SLOTS slots (values do not depend on it)."""
     q, k = idx.shape
     kc = max(_GATHER_SLOTS // max(q, 1), 8)
-    parts = [sq_norm(points[idx[:, s:s + kc].long()]
-                     - queries[:, None, :]) for s in range(0, k, kc)]
+    parts = [metric_dist(points[idx[:, s:s + kc].long()]
+                         - queries[:, None, :], metric)
+             for s in range(0, k, kc)]
     dist = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return torch.where(mask, dist, 0.0)
 
@@ -124,25 +154,26 @@ def fixed_radius_search(points, queries, radius, k, points_mask=None,
                         ignore_query_point: bool = False, chunk: int = 4096,
                         fast_path_max: int = 8192) -> NeighborList:
     """All points within ``radius`` of each query, capped at K per query
-    (squared-L2 comparison and distances).  N <= ``fast_path_max``: the
-    dense single-shot path (the first K by index, exact-coincidence
-    ``ignore_query_point``); beyond it the chunked running top-K over
-    chunks of ``chunk`` points (the K nearest, ``ignore_query_point`` as
-    d > 0, no ``disp``)."""
+    (``metric_dist`` against ``radius_threshold``: squared for L2).  N <=
+    ``fast_path_max``: the dense single-shot path (the first K by index,
+    exact-coincidence ``ignore_query_point``); beyond it the chunked
+    running top-K over chunks of ``chunk`` points (the K nearest,
+    ``ignore_query_point`` as d > 0, no ``disp``)."""
     n = points.shape[0]
-    if metric != "L2":
-        raise NotImplementedError(f"metric {metric!r} is not ported yet")
-    r = torch.tensor(float(radius), dtype=points.dtype, device=points.device)
-    thresh = r * r  # squared in the working dtype, as the reference does
+    thresh = radius_threshold(radius, metric, points)
     if n > fast_path_max:
         return _chunked_search(points, queries, thresh, k, points_mask,
-                               queries_mask, ignore_query_point, chunk)
+                               queries_mask, ignore_query_point, chunk,
+                               metric)
     pm = (torch.ones((n,), dtype=torch.bool, device=points.device)
           if points_mask is None else points_mask.to(torch.bool))
-    qn = (queries * queries).sum(dim=-1)
-    pn = (points * points).sum(dim=-1)
-    cross = queries @ points.T
-    d = torch.clamp(qn[:, None] + pn[None, :] - 2.0 * cross, min=0.0)
+    if metric == "L2":
+        qn = (queries * queries).sum(dim=-1)
+        pn = (points * points).sum(dim=-1)
+        cross = queries @ points.T
+        d = torch.clamp(qn[:, None] + pn[None, :] - 2.0 * cross, min=0.0)
+    else:
+        d = metric_dist(queries[:, None, :] - points[None, :, :], metric)
     valid = (d <= thresh) & pm[None, :]
     if ignore_query_point:
         same = (queries[:, None, :] == points[None, :, :]).all(dim=-1)
@@ -151,14 +182,15 @@ def fixed_radius_search(points, queries, radius, k, points_mask=None,
         valid &= queries_mask.to(torch.bool)[:, None]
     idx, mask, _, count = select_k_valid(valid, None, k)
     d3 = points[idx.long()] - queries[:, None, :]
-    dist = torch.where(mask, (d3 * d3).sum(dim=-1), 0.0)
+    dist = torch.where(mask, (d3 * d3).sum(dim=-1) if metric == "L2"
+                       else metric_dist(d3, metric), 0.0)
     disp = torch.where(mask[..., None], d3, 0.0)
     return NeighborList(idx=idx, mask=mask, dist=dist, count=count,
                         disp=disp)
 
 
 def _chunked_search(points, queries, thresh, k, points_mask, queries_mask,
-                    ignore_query_point, chunk):
+                    ignore_query_point, chunk, metric="L2"):
     """The reference's chunked scan: per chunk of points the [Q, C]
     direct-difference distances fold into a running top-K.  A stable sort
     of the concatenated (kept, new) distances keeps the lower position on
@@ -180,7 +212,7 @@ def _chunked_search(points, queries, thresh, k, points_mask, queries_mask,
             pad = chunk - pts.shape[0]
             pts = torch.cat([pts, pts.new_zeros((pad, 3))])
             mask_c = torch.cat([mask_c, mask_c.new_zeros((pad,))])
-        d = sq_norm(queries[:, None, :] - pts[None, :, :])  # [Q, C]
+        d = metric_dist(queries[:, None, :] - pts[None, :, :], metric)
         valid = (d <= thresh) & mask_c[None, :]
         if ignore_query_point:
             valid &= d > 0
@@ -244,6 +276,42 @@ def search(points, queries, radius, k, *, method="auto", points_mask=None,
                                points_mask=points_mask,
                                queries_mask=queries_mask, metric=metric,
                                ignore_query_point=ignore_query_point)
+
+
+def radius_search(points, queries, radii, k, points_mask=None,
+                  queries_mask=None, metric: str = "L2",
+                  ignore_query_point: bool = False,
+                  normalize_distances: bool = True) -> NeighborList:
+    """Per-query-radius search (the reference's ``radius_search``, Open3D's
+    ``RadiusSearch``): brute force over all points, each query ``radii``
+    [Q] its own radius (squared for L2, ``radius_threshold``); the K
+    nearest by distance, ties to the lower index (``lax.top_k``'s rule, a
+    stable sort), no ``disp``.  With ``normalize_distances`` the distances
+    are divided by the query's threshold."""
+    d = metric_dist(queries[:, None, :] - points[None, :, :], metric)
+    radii = torch.as_tensor(radii, dtype=points.dtype, device=points.device)
+    thresh = radii * radii if metric == "L2" else radii
+    valid = d <= thresh[:, None]
+    if points_mask is not None:
+        valid &= points_mask.to(torch.bool)[None, :]
+    if queries_mask is not None:
+        valid &= queries_mask.to(torch.bool)[:, None]
+    if ignore_query_point:
+        valid &= d > 0
+    count = valid.sum(dim=1, dtype=torch.int32)
+    if normalize_distances:
+        d = d / torch.clamp(thresh[:, None], min=1e-20)
+    d_m = torch.where(valid, d, torch.inf)
+    if d_m.shape[1] < k:  # top_k of fewer than K columns pads with inf
+        d_m = torch.cat([d_m, d_m.new_full((d_m.shape[0],
+                                            k - d_m.shape[1]), torch.inf)],
+                        dim=1)
+    best, idx = torch.sort(d_m, dim=1, stable=True)
+    best, idx = best[:, :k], idx[:, :k]
+    mask = torch.isfinite(best)
+    return NeighborList(idx=torch.where(mask, idx, 0).to(torch.int32),
+                        mask=mask, dist=torch.where(mask, best, 0.0),
+                        count=count)
 
 
 def invert_neighbors_list(nl: NeighborList, num_points: int,

@@ -1,8 +1,8 @@
 """Sentinel padding, the position pyramid (voxel grids or farthest-point
 sampling), SPH number density and pressure, nearest-neighbour distances,
-quaternion helpers and the equivariant displacement field (port of
-dmcf_tpu/ops/sph.py; ``grid_pos_bnds`` and ``prob_sample`` are not
-ported).
+inverse-CDF sampling (``prob_sample``), the rounded voxel grid of the
+losses (``grid_pos_bnds``), quaternion helpers and the equivariant
+displacement field (port of dmcf_tpu/ops/sph.py).
 
 Padded entries sit at far, spread-out sentinel positions so they never
 enter any neighborhood; all functions take and return padded tensors plus
@@ -148,6 +148,48 @@ def grid_pos(pos, mask, voxel_size, out_max, centralize=False, pad=0,
         gp = out_cells.to(dtype) * vsd + vsd / 2.0
     gp = masked_positions(gp, out_mask)
     return gp, out_mask, count
+
+
+def prob_sample(weights, uniforms):
+    """Inverse-CDF categorical sampling (the reference's ProbSample): for
+    each uniform u in [0, 1), the first index whose normalised running sum
+    of ``weights`` [N] is at least u (a left-side search, as
+    ``jnp.searchsorted``), int32."""
+    cdf = torch.cumsum(weights, dim=-1)
+    cdf = cdf / cdf[..., -1:]
+    return torch.searchsorted(cdf, uniforms.contiguous(),
+                              side="left").to(torch.int32)
+
+
+def grid_pos_bnds(pos, mask, voxel_size, out_max, centralize=False):
+    """Occupied-voxel centers by plain rounding (no hysteresis or padding
+    stamp), padded to ``out_max``; with ``centralize`` the cells are
+    counted over the valid points' bounds, ``round(extent / voxel)`` cells
+    an axis.  Returns (positions [out_max, 3], mask [out_max], count)."""
+    voxel_size = np.asarray(voxel_size, np.float32)
+    vs = torch.as_tensor(np.maximum(voxel_size, np.float32(1e-5)),
+                         device=pos.device)
+    dtype = pos.dtype
+    m = mask.to(torch.bool)[:, None]
+    if centralize:
+        minpos = torch.where(m, pos, torch.inf).amin(dim=0)
+        maxpos = torch.clamp(torch.where(m, pos, -torch.inf).amax(dim=0)
+                             - minpos, min=1e-7)
+        r = torch.round(maxpos / vs)
+        cells = _to_int32_saturating(torch.round((pos - minpos) / maxpos
+                                                 * r))
+    else:
+        cells = _to_int32_saturating(torch.round(pos / vs))
+
+    out_cells, out_mask, count = _dedup_cells(cells, mask.to(torch.bool),
+                                              out_max)
+
+    vsd = torch.as_tensor(voxel_size, dtype=dtype, device=pos.device)
+    if centralize:
+        gp = out_cells.to(dtype) / torch.clamp(r, min=1e-7) * maxpos + minpos
+    else:
+        gp = out_cells.to(dtype) * vsd + vsd / 2.0
+    return masked_positions(gp, out_mask), out_mask, count
 
 
 def compute_pressure(dens, rest_dens=3.5, stiffness=20.0):

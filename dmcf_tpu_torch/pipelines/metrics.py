@@ -1,11 +1,18 @@
-"""Host-side evaluation metrics in numpy and scipy (the port's copy of the
-functions of dmcf_tpu/pipelines/metrics.py that the valid suite runs)."""
+"""Host-side evaluation metrics in numpy and scipy (the port's copy of
+dmcf_tpu/pipelines/metrics.py)."""
 
 from __future__ import annotations
 
 import numpy as np
-from scipy.spatial import cKDTree
+from scipy.optimize import linear_sum_assignment
+from scipy.spatial import cKDTree, distance_matrix
 from scipy.stats import entropy
+
+
+def to_host(x):
+    """A tensor or an array as a numpy array."""
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else \
+        np.asarray(x)
 
 
 def distance(x, y):
@@ -13,11 +20,32 @@ def distance(x, y):
     return np.linalg.norm(x - y, axis=-1)
 
 
+def optimal_assignment_distance(x, y):
+    """The distances of the pairs of the assignment of x's points to y's
+    that minimises their sum."""
+    dist = distance_matrix(x, y)
+    rows, cols = linear_sum_assignment(dist)
+    return dist[rows, cols]
+
+
 def chamfer_distance(pred, gt):
     """For each gt point, distance to the nearest pred point."""
     tree = cKDTree(pred)
     d, _ = tree.query(gt)
     return d
+
+
+def chamfer_loss(target, pred, mask=None, fac=1.0, mode=0, **kw):
+    """The mean chamfer distance of the valid points as a loss (mode 0:
+    target to prediction, else the other way), on the host: a float, no
+    gradient."""
+    t, p = to_host(target), to_host(pred)
+    if mask is not None:
+        m = to_host(mask).astype(bool)
+        t, p = t[m], p[m]
+    if mode > 0:
+        t, p = p, t
+    return fac * float(np.mean(chamfer_distance(p, t)))
 
 
 def compare_dist(x, y, bin_size=25):
@@ -46,6 +74,18 @@ def compare_dist(x, y, bin_size=25):
     np.add.at(bins_x, to_idx(x), 1)
     np.add.at(bins_y, to_idx(y), 1)
     return entropy(bins_x.reshape(-1), bins_y.reshape(-1))
+
+
+def compute_stats(x):
+    return {
+        "mean": np.mean(x),
+        "mse": np.mean(x**2),
+        "var": np.var(x),
+        "min": np.min(x),
+        "max": np.max(x),
+        "median": np.median(x),
+        "num_particles": x.shape[0],
+    }
 
 
 def merge_dicts(dicts, op, start_val=0):

@@ -40,6 +40,7 @@ def narrow_model():
 def pyramids(block=None):
     """(jax_counts, port_counts, caps) of the smoke's Liquid3d scene (or a
     ``block`` of another shape), one entry a scale."""
+    import jax
     import jax.numpy as jnp
     import torch
 
@@ -62,8 +63,9 @@ def pyramids(block=None):
     kw = dict(voxel_size=vox, centralize=m.centralize, pad=m.sample_pad,
               hyst=m.sample_hyst)
     port = get_dilated_pos(pos, mask, list(m.strides), caps, **kw)[2]
-    jx = jax_dilated(jnp.asarray(pos.numpy()), jnp.asarray(mask.numpy()),
-                     list(m.strides), caps, **kw)[2]
+    jx = jax.jit(lambda p, q: jax_dilated(p, q, list(m.strides), caps,
+                                          **kw)[2])(
+        jnp.asarray(pos.numpy()), jnp.asarray(mask.numpy()))
     return ([int(c) for c in jx], [int(c) for c in port], caps)
 
 

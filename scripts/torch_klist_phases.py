@@ -39,8 +39,9 @@ from dmcf_tpu_torch.scene import bench_sample, build_scene
 
 CUTS = {
     "full": [],
-    "no_T": [("build_T<kTaps, kBF16>(p, sh.T, p.LD, sh.taps, sh.tmask, q0, "
-              "s0, nr,\n                          clo, cw);", "")],
+    "no_T": [("build_T<kMode, kTaps, kBF16>(p, sh.T, p.LD, sh.taps, "
+              "sh.tmask, q0, s0,\n                                 nr, clo, "
+              "cw);", "")],
     "no_product": [("contract_fma(p, sh, nr, cw, base);", "(void)0;"),
                    ("contract_mma_bf16(p, sh, nr, cw, base, acc);",
                     "(void)0;"),
@@ -73,7 +74,7 @@ def build_variants():
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
         fn = ctypes.CDLL(str(so)).cconv_klist_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fns[name] = fn
     return fns
@@ -106,7 +107,7 @@ def main():
                 fn(idx.data_ptr(), a.data_ptr(), t.data_ptr(),
                    feats.data_ptr(), None if qf is None else qf.data_ptr(),
                    w.data_ptr(), out.data_ptr(), q, k, n, cin, cout, *ksize,
-                   int(half), torch.cuda.current_stream().cuda_stream)
+                   int(half), 0, torch.cuda.current_stream().cuda_stream)
             ms = graph_ms(call)
             totals[name] += ms
             row.append(f"{name} {ms:.4f}")

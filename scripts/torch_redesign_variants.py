@@ -76,8 +76,9 @@ FILTER = {
     "no_product": [("    if (!on) {\n", "    if (true) {\n")],
     "mma_asm": [("  asm volatile(\n      \"mma.sync.aligned.m16n8k8",
                  "  asm(\n      \"mma.sync.aligned.m16n8k8")],
-    "no_T": [("    klist::build_T<kTaps, kBF16>(p, T, p.LD, taps, tmask, q0, "
-              "s0, nr, clo,\n                                 cw);", "")],
+    "no_T": [("    klist::build_T<kMode, kTaps, kBF16>(p, T, p.LD, taps, "
+              "tmask, q0, s0,\n                                        nr, "
+              "clo, cw);", "")],
 }
 
 DATA = {"as_is": []}
@@ -204,7 +205,7 @@ def filter_variants(root, dev):
         lib = build_variant("cconv_klist_bwd.cu", name, subs)
         fn = lib.cconv_klist_bwd_filter_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         ws = lib.cconv_klist_bwd_filter_workspace
         ws.restype = ctypes.c_longlong
@@ -231,7 +232,7 @@ def filter_variants(root, dev):
                     err = fn(idx.data_ptr(), a.data_ptr(), t.data_ptr(),
                              fe.data_ptr(), None, dout.data_ptr(),
                              dw.data_ptr(), work.data_ptr(), q, k, n, cin,
-                             cout, *ks, half,
+                             cout, *ks, half, 0,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"filter {name}: error {err}")
@@ -286,7 +287,7 @@ def data_variants(root, dev):
         fn = build_variant("cconv_klist_bwd.cu", f"data_{name}",
                            subs).cconv_klist_bwd_data_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         libs[name] = fn
     out = {}
@@ -316,7 +317,8 @@ def data_variants(root, dev):
                              outs[1].data_ptr(), work.data_ptr(),
                              outs[2].data_ptr(), None, outs[3].data_ptr(),
                              outs[4].data_ptr(), q, k, n, cin, cout, *ks,
-                             half, torch.cuda.current_stream().cuda_stream)
+                             half, 0,
+                             torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"data {name}: error {err}")
                 row[name] = graph_ms(call)

@@ -211,7 +211,7 @@ def assert_same_frames(got, want, exact=False):
 
 @pytest.mark.parametrize("kw", [
     dict(data_cnt=3, timesteps=4, max_pts=12, offset=10.0),
-    dict(data_cnt=3, timesteps=3, max_pts=6, rnd=0.1, offset=10.0),
+    dict(data_cnt=2, timesteps=3, max_pts=6, rnd=0.1, offset=10.0),
     dict(data_cnt=2, timesteps=3, pts_cnt=[1, 5], width=5, side_walls=True,
          offset=10.0),
 ], ids=["sorted_counts", "random_counts_and_jitter", "wide_with_walls"])

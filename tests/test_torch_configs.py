@@ -352,7 +352,7 @@ def test_k_chunk_layer_sums_its_chunks():
 
 
 def test_bench_reports_the_pyramid_fit(capsys):
-    assert bench.main(["--device", "cpu", "--steps", "5", "--n_fluid",
+    assert bench.main(["--device", "cpu", "--steps", "1", "--n_fluid",
                        "256"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     d = line["detail"]

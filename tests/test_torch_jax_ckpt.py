@@ -99,8 +99,9 @@ def convert(tmp_path, jmodel, params, opt_state):
 
 def test_params_and_adam_state_carry_across(tmp_path):
     jmodel, params, opt = jax_state()
+    update = jax.jit(opt.update)  # one compile, not one an op and a leaf
     state = opt.init(params)
-    updates, state = opt.update(grads_like(params, 1), state, params)
+    updates, state = update(grads_like(params, 1), state, params)
     params = optax.apply_updates(params, updates)
     resume, pp, path = convert(tmp_path, jmodel, params, state)
     assert os.path.basename(path) == "ckpt_%05d.pt" % (3 * FREQ)
@@ -122,12 +123,12 @@ def test_params_and_adam_state_carry_across(tmp_path):
 
     # optax's second update: count 1, the schedule's second value
     g2 = grads_like(params, 2)
-    updates, _ = opt.update(g2, state, params)
+    updates, _ = update(g2, state, params)
     with jax.enable_x64(True):
         wide = jax.tree.map(lambda a: jnp.asarray(
             np.asarray(a, np.float64 if a.dtype == np.float32 else a.dtype)),
             (g2, state, params))
-        updates64, _ = opt.update(*wide)
+        updates64, _ = jax.jit(opt.update)(*wide)
         updates64 = jax.tree.map(np.asarray, updates64)
     assert pp.optimizer.param_groups[0]["lr"] == OPT["lr_values"][1]
     g2 = params_from_flax(g2)

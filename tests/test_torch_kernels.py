@@ -23,6 +23,11 @@ backward fed the kernel's dT, and beyond it against the plain backward
 itself only where dT flips were counted (``check_bf16_grads``); a train
 step's gradients card against CPU within 2e-2 of each tensor's max.
 The farthest-point kernel picks the plain version's rows bit for bit.
+The interpolation modes linear_border and nearest_neighbor (every
+variant, forward and backward) are held as linear is, at the same
+tolerances, on lists whose filter coordinates pass the span's ends
+(``align_corners=False``) and on the hats' edge points (exact ties of
+nearest_neighbor among them).
 """
 
 import os
@@ -101,7 +106,9 @@ def edge_inputs(q, k, cin, cout, ksize, symmetric, seed):
 
 def klist_inputs(q, k, cin, cout, ksize, window, symmetric, seed, device,
                  geometry="search"):
-    """Contract inputs from a real neighbor search over a 2D/3D cloud, or
+    """Contract inputs from a real neighbor search over a 2D/3D cloud (with
+    ``geometry="outside"`` mapped by the identity, ``align_corners=False``:
+    the filter coordinates reach past the span's ends), or
     (``geometry="edges"``) on the hats' edge points."""
     if geometry == "edges":
         xs, qf = edge_inputs(q, k, cin, cout, ksize, symmetric, seed)
@@ -117,8 +124,10 @@ def klist_inputs(q, k, cin, cout, ksize, window, symmetric, seed, device,
         if symmetric:
             nl = drop_coincident(nl)
         feats = torch.randn((q, cin), generator=g)
+        outside = dict(coordinate_mapping="identity", align_corners=False)
         idx, a, t = cconv.klist_geometry(
-            nl, 2 * radius, ksize, window_fn=windows.get_window_func(window))
+            nl, 2 * radius, ksize, window_fn=windows.get_window_func(window),
+            **(outside if geometry == "outside" else {}))
         w = torch.randn((int(np.prod(ksize)) * cin, cout),
                         generator=g) * w_scale(cin)
         xs, qf = [idx, a, t, feats, w], (feats if symmetric else None)
@@ -387,7 +396,7 @@ def test_bwd_kernels_match_reference(cuda, q, n, k, cin, cout, ksize,
         assert err <= 1e-5 * scale, (name, err, scale)
 
 
-def check_bf16_grads(got, ref, inputs, tol=2e-3):
+def check_bf16_grads(got, ref, inputs, tol=2e-3, interpolation="linear"):
     """The bf16 backward's gradients against the plain backward's: dfeats
     and dw (rounded to bf16 last) apart from one-step rounding flips (~1e-4
     of the elements on the card; at most max(4, 1e-3 of them)).  da and
@@ -413,7 +422,8 @@ def check_bf16_grads(got, ref, inputs, tol=2e-3):
             assert err <= tol * float(want.abs().max()), (name, err)
     if got[0] is None:
         return
-    res = bf16_data_flips(*inputs, (got[0], got[3], got[4]), tol)
+    res = bf16_data_flips(*inputs, (got[0], got[3], got[4]), tol,
+                          interpolation)
     assert res["dT_flips"] <= max(4, 1e-3 * res["dT_elements"]), res
     assert res["dT_err"] <= 1e-4 * res["dT_scale"], res
     err, flips = res["forced"]["dfeats"]
@@ -943,3 +953,121 @@ def test_fps_kernel_rejects_bad_inputs(cuda):
                   Schedule("block", 32, 12)):
         with pytest.raises(RuntimeError):
             _launch(pos, mask, 8, 8, sched)
+
+
+MODES = ("linear_border", "nearest_neighbor")
+MODE_CASES = [  # q, k, cin, cout, ksize, window, symmetric, geometry
+    (2688, 40, 32, 32, (1, 8, 8), "poly6", False, "outside"),  # trunk
+    (2688, 40, 32, 2, (1, 8, 8), "peak", True, "outside"),     # ASCC
+    (2688, 40, 4, 8, (1, 8, 8), "poly6", False, "search"),
+    (300, 96, 32, 3, (6, 6, 6), "peak", True, "outside"),
+    (200, 40, 32, 32, (1, 8, 8), None, False, "edges"),
+    (200, 40, 32, 2, (1, 8, 8), None, True, "edges"),
+    (100, 24, 8, 5, (4, 4, 4), None, False, "edges"),
+    (100, 24, 4, 3, (6, 6, 6), None, True, "edges"),
+    (257, 40, 64, 32, (1, 8, 8), "poly6", False, "outside"),  # row chunks
+    (130, 40, 8192, 4, (1, 1, 1), "poly6", False, "outside"),  # channels
+    (257, 40, 8, 8, (4, 4, 4), "poly6", True, "outside"),
+]
+
+
+@pytest.mark.parametrize("q,k,cin,cout,ksize,window,symmetric,geometry",
+                         MODE_CASES)
+@pytest.mark.parametrize("mode", MODES)
+def test_mode_kernels_match_twin(cuda, mode, q, k, cin, cout, ksize,
+                                 window, symmetric, geometry):
+    """The forward of a mode, fp32 (or symmetric) and bf16, against its
+    plain twin; two launches bitwise equal, each counted under its mode."""
+    (idx, a, t, feats, w), qf = klist_inputs(q, k, cin, cout, ksize, window,
+                                             symmetric, 3, cuda, geometry)
+    precisions = ["highest"] + ([] if symmetric else ["default"])
+    for prec in precisions:
+        half = prec == "default"
+        before = list(cconv_klist.mode_launches[mode])
+        kw = dict(qfeats=qf, precision=prec, interpolation=mode)
+        got = cconv_klist(idx, a, t, feats, w, ksize, **kw)
+        again = cconv_klist(idx, a, t, feats, w, ksize, **kw)
+        torch.cuda.synchronize()
+        before[int(half)] += 2
+        assert cconv_klist.mode_launches[mode] == before
+        assert torch.equal(got, again)
+        ref = cconv_klist_reference(idx, a, t, feats, w, ksize, **kw)
+        assert torch.isfinite(got).all()
+        err = float((got - ref).abs().max())
+        assert err <= (1e-4 * float(ref.abs().max()) if half else 2e-5), \
+            (prec, err)
+        lin = cconv_klist_reference(idx, a, t, feats, w, ksize, qfeats=qf,
+                                    precision=prec)
+        if geometry != "search" and ksize != (1, 1, 1):
+            assert float((lin - ref).abs().max()) > 1e-4 * float(
+                ref.abs().max())  # the case tells the modes apart
+
+
+@pytest.mark.parametrize("q,n,k,cin,cout,ksize,symmetric,geometry", [
+    (2688, 2688, 40, 32, 32, (1, 8, 8), False, "outside"),  # trunk
+    (2688, 2688, 40, 32, 2, (1, 8, 8), True, "outside"),    # ASCC
+    (200, 200, 40, 32, 32, (1, 8, 8), False, "edges"),
+    (200, 200, 40, 8, 3, (4, 4, 4), True, "edges"),
+    (300, 300, 96, 32, 3, (6, 6, 6), True, "outside"),
+    (257, 257, 40, 128, 256, (1, 8, 8), False, "outside"),
+    (130, 130, 40, 8192, 3, (1, 1, 1), True, "outside"),
+])
+@pytest.mark.parametrize("mode", MODES)
+def test_mode_bwd_kernels_match_reference(cuda, mode, q, n, k, cin, cout,
+                                          ksize, symmetric, geometry):
+    """Both backward kernels of a mode, each variant, against the plain
+    backward of that mode; nearest_neighbor's dt is exactly 0."""
+    (idx, a, t, feats, w), qf = klist_inputs(
+        q, k, cin, cout, ksize, "poly6", symmetric, 7, cuda, geometry)
+    dout = torch.randn((q, cout), device=cuda)
+    for prec in ["highest"] + ([] if symmetric else ["default"]):
+        half = prec == "default"
+        fns = (cconv_klist_bwd_data, cconv_klist_bwd_filter)
+        before = [list(f.mode_launches[mode]) for f in fns]
+        args = (dout, idx, a, t, feats, w, ksize, qf)
+        kw = dict(precision=prec, interpolation=mode)
+        dfeats, dqfeats, da, dt = cconv_klist_bwd_data(*args, **kw)
+        dw = cconv_klist_bwd_filter(*args, **kw)
+        again = cconv_klist_bwd_data(*args, **kw)
+        dw2 = cconv_klist_bwd_filter(*args, **kw)
+        torch.cuda.synchronize()
+        for b in before:
+            b[int(half)] += 2
+        assert [f.mode_launches[mode] for f in fns] == before
+        assert torch.equal(dw, dw2)
+        for x, y in zip((dfeats, da, dt), (again[0], again[2], again[3])):
+            assert torch.equal(x, y)
+        ref = cconv_klist_bwd_reference(*args, **kw)
+        if mode == "nearest_neighbor":
+            assert float(dt.abs().max()) == 0.0
+        if half:
+            check_bf16_grads((dfeats, dqfeats, dw, da, dt), ref, args[:7],
+                             interpolation=mode)
+            continue
+        for name, got, want in zip(("dfeats", "dqfeats", "dw", "da", "dt"),
+                                   (dfeats, dqfeats, dw, da, dt), ref):
+            if want is None:
+                assert got is None, name
+                continue
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_mode_autograd_runs_the_kernels(cuda, mode):
+    """Under autograd a conv of a mode launches that mode's forward, data
+    and filter kernels once each; a mode the kernels do not take raises
+    on the card, before any launch."""
+    (idx, a, t, feats, w), _ = klist_inputs(512, 24, 8, 4, (1, 8, 8),
+                                            "poly6", False, 5, cuda,
+                                            "outside")
+    leaves = [x.clone().requires_grad_(True) for x in (a, t, feats, w)]
+    fns = (cconv_klist, cconv_klist_bwd_data, cconv_klist_bwd_filter)
+    counts = [list(f.mode_launches[mode]) for f in fns]
+    out = cconv_klist(idx, *leaves, (1, 8, 8), interpolation=mode)
+    out.backward(torch.randn_like(out))
+    assert [f.mode_launches[mode] for f in fns] == \
+        [[c[0] + 1, c[1]] for c in counts]
+    with pytest.raises(NotImplementedError):
+        cconv_klist(idx, a, t, feats, w, (1, 8, 8), interpolation="cubic")

@@ -404,9 +404,10 @@ def _vjp_both(pts, feats, kern, nl, symmetric, win, ext=0.15):
             kernel, p, p, f, n, ext, window_fn=jwin.get_window_func(win),
             symmetric=symmetric, query_features=q if symmetric else None)
 
-    _, vjp = jax.vjp(jconv, *(jnp.asarray(x) for x in (kern, feats, qf,
-                                                       pts)))
-    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    # one compiled VJP: eager, every primitive of the backward compiles
+    want = [np.asarray(g) for g in jax.jit(
+        lambda *xs: jax.vjp(jconv, *xs)[1](jnp.asarray(dout)))(
+            *(jnp.asarray(x) for x in (kern, feats, qf, pts)))]
     leaves = [T(x.copy()).requires_grad_(True) for x in (kern, feats, qf,
                                                          pts)]
     k_, f_, q_, p_ = leaves

@@ -76,16 +76,18 @@ def test_emd_matches_jax(n_true, m_true, N, M):
     n = np.array([n_true, N], np.int32)
     m = np.array([m_true, M], np.int32)
     got = emd.emd_loss(T(x), T(y), n=T(n), m=T(m)).numpy()
-    want = np.asarray(jemd.emd_loss(J(x), J(y), n=J(n), m=J(m)))
+    # JAX's references compiled whole (eager, every iteration dispatches)
+    want = np.asarray(jax.jit(jemd.emd_loss)(J(x), J(y), n=J(n), m=J(m)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
     match = emd.approx_match(T(x), T(y), T(n), T(m)).numpy()
-    jmatch = np.asarray(jemd.approx_match(J(x), J(y), J(n), J(m)))
+    jmatch = np.asarray(jax.jit(jemd.approx_match)(J(x), J(y), J(n), J(m)))
     np.testing.assert_allclose(match, jmatch, atol=1e-5)
     # padded rows take no mass on either side
     assert not match[0, m_true:, :].any() and not match[0, :, n_true:].any()
     np.testing.assert_allclose(
         emd.approx_vel(T(x), T(y), T(n), T(m)).numpy(),
-        np.asarray(jemd.approx_vel(J(x), J(y), J(n), J(m))), atol=1e-5)
+        np.asarray(jax.jit(jemd.approx_vel)(J(x), J(y), J(n), J(m))),
+        atol=1e-5)
 
 
 @pytest.mark.parametrize("win", [None, "poly6", "cubic"])
@@ -96,9 +98,9 @@ def test_compute_density_matches_jax(win):
     got = sph.compute_density(T(out_pos), T(in_pos), 0.08,
                               get_window_func(win), out_mask=T(om),
                               in_mask=T(im), k=24).numpy()
-    want = np.asarray(jsph.compute_density(
-        J(out_pos), J(in_pos), 0.08, jwindow(win), out_mask=J(om),
-        in_mask=J(im), k=24))
+    want = np.asarray(jax.jit(lambda o, i, om_, im_: jsph.compute_density(
+        o, i, 0.08, jwindow(win), out_mask=om_, in_mask=im_, k=24))(
+            J(out_pos), J(in_pos), J(om), J(im)))
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
@@ -118,16 +120,18 @@ def test_density_loss_matches_jax(use_max):
         gt_in=T(np.concatenate([pred, box])),
         pred_in=T(np.concatenate([gt, box])), gt_in_mask=T(allm),
         pred_in_mask=T(allm), win=get_window_func("poly6"), **args)
-    want = jdensity_loss(
-        J(gt), J(pred), J(mask), J(mask),
-        gt_in=J(np.concatenate([pred, box])),
-        pred_in=J(np.concatenate([gt, box])), gt_in_mask=J(allm),
-        pred_in_mask=J(allm), win=jwindow("poly6"), **args)
+    want = jax.jit(lambda *x: jdensity_loss(
+        *x[:4], gt_in=x[4], pred_in=x[5], gt_in_mask=x[6],
+        pred_in_mask=x[6], win=jwindow("poly6"), **args))(
+            J(gt), J(pred), J(mask), J(mask),
+            J(np.concatenate([pred, box])), J(np.concatenate([gt, box])),
+            J(allm))
     assert float(want) > 0
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     # own in-sets, no window (the identity)
     plain = density_loss(T(gt), T(pred), T(mask), T(mask), **args)
-    jplain = jdensity_loss(J(gt), J(pred), J(mask), J(mask), **args)
+    jplain = jax.jit(lambda *x: jdensity_loss(*x, **args))(
+        J(gt), J(pred), J(mask), J(mask))
     np.testing.assert_allclose(float(plain), float(jplain), rtol=1e-5,
                                atol=1e-7)
 

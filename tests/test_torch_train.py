@@ -338,9 +338,10 @@ def test_grad_accum_equals_full_batch(slice_setup):
 
 def test_run_pipeline_train_writes_metrics_and_resumes(tmp_path,
                                                         monkeypatch):
-    """``run_pipeline --split train`` on the CPU: two steps, the scalars
-    in metrics.jsonl, a checkpoint with the optimizer's state; a second
-    run resumes from it (epoch 1, the optimizer's step count going on)."""
+    """``run_pipeline --split train`` on the CPU: two steps of one item,
+    the scalars in metrics.jsonl, a checkpoint with the optimizer's state;
+    a second run resumes from it (epoch 1, the optimizer's step count going
+    on)."""
     monkeypatch.chdir(tmp_path)
     args = ["--cfg_file", MOMENTUM, "--split", "train", "--device", "cpu",
             "--main_log_dir", "logs", "--output_dir", "out",
@@ -352,7 +353,8 @@ def test_run_pipeline_train_writes_metrics_and_resumes(tmp_path,
             "1", "--dataset.test.timesteps", "2",
             "--pipeline.data_generator.valid.time_end", "3",
             "--pipeline.data_generator.scale", "[0.9,0.9,0.0]",
-            "--pipeline.run_test_every_epoch", "false"]
+            "--pipeline.run_test_every_epoch", "false",
+            "--pipeline.batch_size", "1"]
     first = run_pipeline.main(args + ["--pipeline.max_epoch", "0"])
     assert [e["step"] for e in first] == [0, 1]
     assert all(np.isfinite(e["loss"]) for e in first)

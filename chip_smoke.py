@@ -61,8 +61,21 @@ shape, a 100-step rollout under the gate with the ASCC ratio and the
 exact-tie pairs that break it, card vs CPU and train steps; Liquid3d with
 ``linear_border``, 20 steps; every mode's kernels past the span's ends and
 on ties; ``SparseConv``, ``SparseConvTranspose`` and ``PointSampling``
-card vs CPU), and prints one
-``kernels`` JSON line (each kernel variant, its launches on each path),
+card vs CPU), runs the multi-rank paths of ``dmcf_tpu_torch/parallel``
+over ``torch.distributed``, one spawned process a rank (phase 25: (a) an
+NCCL world of one rank, the momentum train step data-parallel with its
+parameters bit for bit the one-process step's and a one-slab halo step
+against the plain step; (b) two gloo ranks sharing the card, their halo
+exchange through pinned host buffers: ``configs/Liquid3d.yml`` at full
+width on 13,200 fluid in its full open box, no crop, the halo code's
+parked rows kept out of the cell tables of the grid and cell searches,
+the halo rollout at "highest" against one process with the voxel-count
+witness, a timed halo rollout of the config as shipped (bf16 trunk, the
+cell search, its K budgets and pyramid caps) with its overflows beside
+one process's, every K-list launch of each rank's first steps against
+its plain version, and the data-parallel train step with one item a rank
+against one process; no scale-out is measured on one card), and prints
+one ``kernels`` JSON line (each kernel variant, its launches on each path),
 the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
 kernel's ``ms`` is the mean of calls issued back to back (CUDA events
 around the loop), its ``device_ms`` the device time of one call by
@@ -1415,21 +1428,23 @@ def plain_chunked(args, kw):
         for s in range(0, q, qc)])
 
 
-def launch_checks(log, what, max_err):
+def launch_checks(log, what, max_err, show=True):
     """Every logged K-list launch against its plain version (fwd_check;
-    chunked over queries, ``plain_chunked``); prints each launch's shape.
-    Updates max_err {bf16: err}."""
+    chunked over queries, ``plain_chunked``); with ``show`` prints each
+    launch's shape.  Updates max_err {bf16: err}."""
     with torch.no_grad():
         for name, args, kw, out in log:
             err = fwd_check(f"{what} {name}", out, plain_chunked(args, kw),
                             kw)
             max_err[bf16(kw)] = max(max_err[bf16(kw)], err)
             idx_, _, _, f_, w_, ks_ = args
-            print(f"    {name:12s} Q {idx_.shape[0]:4d} K {idx_.shape[1]:4d}"
-                  f" N {f_.shape[0]:4d} Cin {f_.shape[1]:2d} Cout "
-                  f"{w_.shape[1]:2d} S {int(np.prod(ks_)):3d} "
-                  f"{'bf16' if bf16(kw) else 'fp32'} sym "
-                  f"{kw['qfeats'] is not None:d}: max_abs_err {err:.3e}")
+            if show:
+                print(f"    {name:12s} Q {idx_.shape[0]:4d} K "
+                      f"{idx_.shape[1]:4d} N {f_.shape[0]:4d} Cin "
+                      f"{f_.shape[1]:2d} Cout {w_.shape[1]:2d} S "
+                      f"{int(np.prod(ks_)):3d} "
+                      f"{'bf16' if bf16(kw) else 'fp32'} sym "
+                      f"{kw['qfeats'] is not None:d}: max_abs_err {err:.3e}")
 
 
 def train_step_phase(root, cfg_path, dev, model, sample, what,
@@ -3168,6 +3183,516 @@ def layers_phase(dev):
     return errs, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the multi-rank paths (``dmcf_tpu_torch/parallel``): data-parallel
+# training and the slab-decomposed halo step over torch.distributed, one
+# process a rank (``parallel.dist.spawn``; the rank bodies below)
+
+MULTI_BLOCK = (100, 6, 22)   # 13,200 fluid in its full open box
+MULTI_EXACT_STEPS = 3        # the halo rollout at "highest" vs one process
+MULTI_STEPS = 20             # the timed bf16-trunk halo rollout
+MULTI_CHUNK = 10
+MULTI_TOL = 5e-5             # JAX's halo-rollout tolerance
+DP_GRAD_TOL = 1e-5           # DP gradients vs one process (fp32), of each
+#                              gradient's max
+# The exactness check at "highest" runs Liquid3d's channels and radii
+# with the overrides an exact single-process reference needs: the brute
+# search (the cell search's window budget drops candidates on this
+# scene, as on the canyon's: ROADMAP §3); pyramid caps with room (at the
+# config's the scene's scale 1 drops 63 % of its voxels, and a slab would
+# keep other voxels than the whole scene); and so pair (1, 2)'s K budget
+# raised 1248 -> 1792 (its uncut scale 1 gives it 1,599 neighbours here:
+# the budgets were sized on the canyon's contact set, where scale 1 is
+# sparse).  The timed bf16-trunk rollout and its launch checks run the
+# config as shipped: ``search_method: auto`` (the cell search at this
+# size), its K budgets and its pyramid caps, as ``run_sample --spatial
+# halo -c configs/Liquid3d.yml`` does.
+MULTI_EXACT_OVERRIDES = {"search_method": "brute",
+                         "scale_size_factor": [1.0, 1.5, 0.4],
+                         "neighbor_k_pairs": [[96, 448, 2048],
+                                              [448, 448, 2240],
+                                              [384, 384, 384]]}
+MULTI_HALO_ROOM = 1.5        # halo_cap over the largest zone's rows
+
+
+def momentum_batch(cfg):
+    """Phase 11's first seeded batch (loader seed 0, data scaled by 0.9),
+    numpy."""
+    from dmcf_tpu_torch.data import DatasetGroup, get_dataloader
+
+    pcfg = cfg["pipeline"]
+    group = DatasetGroup(split="train", cache_dir=None, **cfg["dataset"])
+    dg = dict(pcfg["data_generator"], scale=[0.9, 0.9, 0.0])
+    split = {k: v for k, v in dg.items() if k not in ("train", "valid",
+                                                      "test")}
+    loader = get_dataloader(group.train, batch_size=int(pcfg["batch_size"]),
+                            window=int(pcfg["windows"][0]), **split,
+                            **dict(dg["train"], seed=0))
+    try:
+        return next(loader)
+    finally:
+        loader.close()
+
+
+def first_frame(batch, grav):
+    """Item 0's first frame of a batch as a model sample (numpy), gravity
+    rows ``grav`` where the batch has none."""
+    s = {k: np.asarray(batch[k][0][0]) for k in ("pos", "vel")}
+    for k in ("box", "box_normals", "fluid_mask", "box_mask"):
+        s[k] = np.asarray(batch[k][0])
+    g = batch.get("grav")
+    s["grav"] = (np.asarray(g[0][0]) if g is not None else np.tile(
+        np.float32([0.0, grav, 0.0]), (len(s["pos"]), 1)))
+    return s
+
+
+def _card_model(cfg, state, dev):
+    from dmcf_tpu_torch.models import build_model
+
+    model = build_model(dict(cfg), device=dev)
+    model.load_state_dict(state)
+    return model
+
+
+def _momentum_step(model, cfg, group=None):
+    from dmcf_tpu_torch.models.losses import get_loss
+    from dmcf_tpu_torch.pipelines.simulator import (make_optimizer,
+                                                    make_train_step)
+
+    loss = {k: get_loss(**v) for k, v in cfg["model"]["loss"].items()}
+    return make_train_step(model, loss, *make_optimizer(
+        model, cfg["pipeline"]["optimizer"]),
+        window=int(cfg["pipeline"]["windows"][0]), group=group)
+
+
+def _on(batch, dev, group=None):
+    from dmcf_tpu_torch.parallel import shard_batch
+
+    if group is not None:
+        batch = shard_batch(batch, group)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if v is not None}
+
+
+def nccl_rank(group, cfg, state, batch):
+    """Phase 25 (a), the one rank of an NCCL world: phase 11's momentum
+    train step (the config's bf16 trunk) on one process and data-parallel
+    (the collectives over NCCL), each from the same weights; and a
+    one-slab halo step of the model at "highest" against its plain
+    step."""
+    from dmcf_tpu_torch.parallel import halo_model as hm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = group.device
+    t0 = time.time()
+    window = int(cfg["pipeline"]["windows"][0])
+    time_w = np.ones(window, np.float32)
+    models = [_card_model(cfg["model"], state, dev) for _ in range(2)]
+    lvecs = []
+    for m, g in zip(models, (None, group)):
+        zero_counts()
+        lvec, _, _ = _momentum_step(m, cfg, g)(_on(batch, dev, g), time_w)
+        torch.cuda.synchronize()
+        lvecs.append(lvec.cpu())
+    dp_counts = counts()                # the DP step's launches
+    t_train = time.time() - t0
+    same = all(torch.equal(a, b) for a, b in zip(
+        models[0].parameters(), models[1].parameters()))
+
+    exact = _card_model(dict(cfg["model"], precision="highest"), state, dev)
+    sample = first_frame(batch, float(exact.grav))
+    width = 1.5 * hm.receptive_field(exact)
+    parts = hm.partition_model_sample(sample, 1, width)
+    step = hm.make_halo_model_step(exact, group, halo_width=width,
+                                   halo_cap=16, axis=parts["axis"])
+    zero_counts()
+    with torch.no_grad():
+        p, _, aux = step(hm.shard_model_parts(parts, 0, dev))
+        halo_counts = counts()
+        zero_counts()
+        p1, _, _ = exact({k: torch.as_tensor(v, device=dev)
+                          for k, v in sample.items()})
+        plain_counts = counts()
+    fm = sample["fluid_mask"].astype(bool)
+    got = hm.gather_owned(parts, p, len(fm))
+    return {"transport": group.transport, "same": same,
+            "lvec": [v.tolist() for v in lvecs], "dp_counts": dp_counts,
+            "halo_counts": halo_counts, "plain_counts": plain_counts,
+            "halo_err": float(np.abs(got[fm] - p1.cpu().numpy()[fm]).max()),
+            "halo_overflow": int(aux["halo_overflow"]),
+            "n_fluid": int(fm.sum()), "train_s": t_train,
+            "rank_s": time.time() - t0}
+
+
+def gloo_rank(group, runs, state, sample, width, halo_cap, mcfg, mstate,
+              mbatch):
+    """Phase 25 (b), one of two gloo ranks on one card.  For each of
+    ``runs`` ((name, model config, steps): Liquid3d at "highest" with
+    MULTI_EXACT_OVERRIDES, then as shipped at its bf16 trunk): the halo
+    step once with every K-list launch held against its plain version,
+    then a ``halo_rollout_host`` of ``steps`` steps (chunk MULTI_CHUNK)
+    timed between barriers; then the momentum train step at "highest"
+    with one item a rank."""
+    from dmcf_tpu_torch.parallel import halo_model as hm
+    from dmcf_tpu_torch.profile_step import launch_log
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = group.device
+    t_rank = time.time()
+    out = {"transport": group.transport, "part_s": {}}
+    max_err = {False: 0.0, True: 0.0}
+    gparts = hm.partition_model_sample(sample, group.world_size, width,
+                                       bcap_round=1024)
+    mine = hm.shard_model_parts(gparts, group.rank, dev)
+    fm = sample["fluid_mask"].astype(bool)
+    for name, cfg, steps in runs:
+        model = _card_model(cfg, state, dev)
+        step = hm.make_halo_model_step(model, group, halo_width=width,
+                                       halo_cap=halo_cap, axis=gparts["axis"])
+        t0 = time.time()
+        with launch_log(model) as log, torch.no_grad():
+            _, _, aux = step(mine)
+        torch.cuda.synchronize()
+        out["part_s"][f"{name} first step"] = time.time() - t0
+        t0 = time.time()
+        launch_checks(log, f"rank {group.rank} {name}", max_err, show=False)
+        out["part_s"][f"{name} launch checks"] = time.time() - t0
+        out[f"{name}_checked"] = [sum(not bf16(kw) for _, _, kw, _ in log),
+                                  sum(bf16(kw) for _, _, kw, _ in log)]
+        out[f"{name}_scale_counts"] = aux["scale_counts"].tolist()
+        del log
+        torch.cuda.synchronize()
+        group.barrier()
+        zero_counts()                   # this rank's path starts here
+        t0 = time.time()
+        frames, report = hm.halo_rollout_host(
+            model, group, sample, steps, chunk=MULTI_CHUNK,
+            halo_width=width, halo_cap=halo_cap)
+        torch.cuda.synchronize()
+        group.barrier()
+        out[f"{name}_seconds"] = time.time() - t0
+        out[f"{name}_counts"] = counts()  # and ends here
+        out[f"{name}_report"] = report
+        out[f"{name}_has_frames"] = frames is not None  # rank 0 alone
+        if frames is not None:
+            out[f"{name}_finite"] = bool(np.isfinite(frames[:, fm]).all())
+            if name == "exact":
+                out["exact_frames"] = frames
+        del model, step
+        torch.cuda.empty_cache()
+    out["max_err"] = max_err
+
+    model = _card_model(dict(mcfg["model"], precision="highest"), mstate, dev)
+    window = int(mcfg["pipeline"]["windows"][0])
+    zero_counts()
+    lvec, _, _ = _momentum_step(model, mcfg, group)(
+        _on(mbatch, dev, group), np.ones(window, np.float32))
+    torch.cuda.synchronize()
+    out["dp_counts"] = counts()
+    out["part_s"]["rank"] = time.time() - t_rank
+    out["dp_lvec"] = lvec.tolist()
+    out["dp_grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    return out
+
+
+def parked_rows_check(pos, dev, radius=0.1, k=96, cell_cap=32, occ_cap=64):
+    """The halo code's parked rows (pad rows from 1e9, unused send slots
+    from 2e9, unmatched receive slots from 3e9 and 6e9; masked) beside
+    ``pos`` in each cell-based search on the card, the hash-probe grid
+    search and the sorted-window cell search that ``search_method: auto``
+    picks at this size (``ops.neighbors.search``): they enter no cell
+    table and use up no query's ``cell_cap`` or window (``occ_cap``), so
+    the lists equal a search of ``pos`` alone and the CPU's (the cell
+    coordinates saturate alike).  Returns the number of parked rows."""
+    from dmcf_tpu_torch.ops.neighbors import search
+    from dmcf_tpu_torch.parallel import halo
+
+    slot = np.arange(16)[:, None]
+    parked = np.concatenate([halo.PAD_FAR + slot * 7.0,
+                             halo.HALO_FAR + slot, halo.RECV_FAR + slot,
+                             2 * halo.RECV_FAR + slot])
+    parked = np.repeat(parked, 3, 1).astype(np.float32)
+    n = len(pos)
+    full = torch.from_numpy(np.concatenate([pos, parked]))
+    fmask = torch.arange(len(full)) < n
+    for method in ("grid", "cell"):
+        kw = dict(method=method, cell_cap=cell_cap, occ_cap=occ_cap)
+        got = {d: search(full.to(d), full.to(d), radius, k,
+                         points_mask=fmask.to(d), queries_mask=fmask.to(d),
+                         **kw) for d in (dev, "cpu")}
+        ref = search(full[:n].to(dev), full[:n].to(dev), radius, k, **kw)
+        card = got[dev]
+        for name in ("idx", "mask", "count", "cell_overflow"):
+            a, b = getattr(card, name), getattr(ref, name)
+            check(torch.equal(a[:n], b),
+                  f"parked rows, {method} search: {name} as without them")
+            check(torch.equal(a.cpu(), getattr(got["cpu"], name)),
+                  f"parked rows, {method} search: {name} card = CPU")
+        check(int(card.count[n:].max()) == 0
+              and int(card.cell_overflow[n:].max()) == 0,
+              f"parked rows, {method} search: they find nothing and "
+              "overflow nothing")
+    return len(parked)
+
+
+def multi_rank_phase(root, dev, max_err, smi):
+    """Phase 25: (a) an NCCL world of one rank, spawned: phase 11's
+    momentum train step data-parallel, its parameters bit for bit those of
+    the step on one process, and a one-slab halo step within 2e-5 of the
+    plain step; (b) two gloo ranks on this card (``exchange`` through
+    pinned host buffers): ``configs/Liquid3d.yml`` at full width on
+    ``liquid_scene(MULTI_BLOCK)`` with its full boundary, no crop, the
+    halo code's parked rows beside its fluid in the grid and cell searches
+    (``parked_rows_check``), the halo rollout at "highest"
+    (MULTI_EXACT_OVERRIDES) within MULTI_TOL of the rollout on one process
+    with no halo, pair or voxel overflow and the voxel-count witness, the
+    config as shipped at its bf16 trunk (the cell search, its K budgets
+    and pyramid caps) timed over MULTI_STEPS steps with no halo overflow
+    and its search and voxel overflows beside one process's, every K-list
+    launch of each rank's first step of both against its plain version,
+    and the momentum train step with one item a rank against the step on
+    one process.  Two ranks share one card: no scale-out is measured.
+    Returns the launches of each path (summed over the ranks) and the
+    figures."""
+    import yaml
+
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.models.layers import ContinuousConv
+    from dmcf_tpu_torch.parallel import halo_model as hm
+    from dmcf_tpu_torch.parallel.dist import spawn
+    from dmcf_tpu_torch.parallel.halo import min_slab_width
+    from dmcf_tpu_torch.rollout import rollout
+    from dmcf_tpu_torch.scene import bench_sample
+
+    t_phase = time.time()
+    mcfg = momentum_cfg(root)
+    batch = momentum_batch(mcfg)
+    mmodel = build_model(mcfg["model"], device=dev,
+                         generator=torch.Generator().manual_seed(42))
+    mstate = {k: v.cpu() for k, v in mmodel.state_dict().items()}
+    convs = sum(isinstance(m, ContinuousConv) for m in mmodel.modules())
+    n_bf16 = sum(isinstance(m, ContinuousConv) and m.precision != "highest"
+                 for m in mmodel.modules())
+    items, window = int(mcfg["pipeline"]["batch_size"]), \
+        int(mcfg["pipeline"]["windows"][0])
+
+    part("(a) NCCL, world size 1, spawned")
+    t0 = time.time()
+    (a,) = spawn(nccl_rank, 1, backend="nccl", devices=["cuda:0"],
+                 args=(mcfg, mstate, batch))
+    want = expected_train_launches(items, window, convs, n_bf16)
+    print(f"  ({smi}) {a['transport']}: momentum DP train step (batch "
+          f"{items}, window {window}) parameters bitwise the one-process "
+          f"step's: {a['same']}; loss vectors {a['lvec']}; DP launches "
+          f"{a['dp_counts']} (want {want}); one-slab halo step vs plain "
+          f"{a['halo_err']:.3e} on {a['n_fluid']} fluid, launches "
+          f"{a['halo_counts'][:2]}; {time.time() - t0:.1f} s (the rank "
+          f"{a['rank_s']:.1f} s, its two train steps {a['train_s']:.1f})")
+    check(a["transport"] == "nccl", "(a) runs on NCCL")
+    check(a["same"], "(a) DP parameters bitwise the one-process step's")
+    check(a["dp_counts"] == want, f"(a) DP launches {a['dp_counts']}")
+    check(a["halo_err"] <= 2e-5 and a["halo_overflow"] == 0,
+          f"(a) one-slab halo step {a['halo_err']}")
+    check(a["halo_counts"] == a["plain_counts"],
+          f"(a) halo step launches {a['halo_counts']}, plain "
+          f"{a['plain_counts']}")
+
+    part("(b) gloo, 2 ranks on cuda:0")
+    with open(os.path.join(root, "configs", "Liquid3d.yml")) as f:
+        cfg = dict(yaml.safe_load(f)["model"])          # as shipped
+    xcfg = dict(cfg, precision="highest", **MULTI_EXACT_OVERRIDES)
+    pos, box, nrm = liquid_scene(MULTI_BLOCK)
+    tsample = bench_sample(pos, box, nrm, device=dev)
+    sample = {k: v.cpu().numpy() for k, v in tsample.items()}
+    exact = build_model(xcfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    state = {k: v.cpu() for k, v in exact.state_dict().items()}
+    rf = hm.receptive_field(exact)
+    width = 1.5 * rf
+    gparts = hm.partition_model_sample(sample, 2, width, bcap_round=1024)
+    zones = hm.zone_rows(gparts, width)
+    # a rank's exchange buffer: MULTI_HALO_ROOM x the largest zone (JAX's
+    # default doubles it: with two ranks each has one neighbour, so half
+    # of its halo slots stay empty anyway)
+    halo_cap = int(-(-int(MULTI_HALO_ROOM * zones.max()) // 16) * 16)
+    # the exact ranks' pyramid caps: the one process's in rows (a rank's
+    # rows, owned + halo slots + its boundary slice, are more; the voxels
+    # they stamp are fewer)
+    rows_1 = tsample["pos"].shape[0] + tsample["box"].shape[0]
+    rows_rank = gparts["cap"] + 2 * halo_cap + gparts["box"].shape[1]
+    xcfg_rank = dict(xcfg, scale_size_factor=[
+        f * rows_1 / rows_rank for f in xcfg["scale_size_factor"]])
+    owned = gparts["mask"].sum(1)
+    recv = [int(zones[1, 0]), int(zones[0, 1])]     # rank 0 <- 1, 1 <- 0
+    ax = gparts["axis"]
+    extent = [float(np.ptp(gparts["pos"][d][gparts["mask"][d], ax]))
+              for d in range(2)]
+    n_parked = parked_rows_check(pos, dev)
+    print(f"  {n_parked} parked rows beside the {len(pos)} fluid in the grid "
+          f"and cell searches: no cell table entry, no cell_cap or window "
+          f"used, card = CPU")
+    print(f"  scene: {len(pos)} fluid (block {MULTI_BLOCK}) + {len(box)} "
+          f"boundary, no crop; rf {rf:.3f}, halo width {width:.3f}, "
+          f"halo_cap {halo_cap}, min slab width "
+          f"{min_slab_width(gparts['bounds'])} (the two end slabs are "
+          f"open), slabs' fluid extent along axis {ax}: {extent}; owned "
+          f"rows {owned.tolist()}, halo rows received {recv}, boundary "
+          f"rows a rank {gparts['box_mask'].sum(1).tolist()} of "
+          f"{gparts['box'].shape[1]}; rows a rank {rows_rank} (one process "
+          f"{rows_1})")
+    check(min(extent) >= width, f"each slab {extent} at least the halo "
+          f"width {width}")
+
+    # one process: the reference frames, each run's first-step launches,
+    # and the shipped config's rollout timed beside the ranks'
+    n = tsample["pos"].shape[0]
+    frames = (torch.empty((MULTI_EXACT_STEPS + 1, n, 3), device=dev),
+              torch.empty((MULTI_EXACT_STEPS + 1, n, 3), device=dev))
+    zero_counts()
+    with torch.no_grad():
+        _, _, aux1 = exact(tsample)
+    step_counts = counts()[:2]
+    _, _, gate1 = rollout(exact, tsample, MULTI_EXACT_STEPS, frames=frames)
+    want_frames = frames[0][1:].cpu().numpy()
+    shipped = build_model(cfg, device=dev)
+    shipped.load_state_dict(state)
+    zero_counts()
+    with torch.no_grad():
+        shipped(tsample)
+    bf_counts = counts()[:2]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, _, gate16 = rollout(shipped, tsample, MULTI_STEPS)
+    torch.cuda.synchronize()
+    ms1 = 1e3 * (time.time() - t0) / MULTI_STEPS
+    print(f"  one process: {MULTI_EXACT_STEPS}-step rollout at highest "
+          f"(exactness overrides), gate {gate1}; a step's launches (fp32, "
+          f"bf16) {step_counts} there, {bf_counts} as shipped; ({smi}) "
+          f"the shipped config's rollout {ms1:.1f} ms/step over "
+          f"{MULTI_STEPS} steps, gate {gate16}")
+    check(gate1["exact"] and gate1["scales_fit"],
+          f"the one-process rollout is exact with its scales fitting {gate1}")
+    mref = build_model(dict(mcfg["model"], precision="highest"), device=dev)
+    mref.load_state_dict(mstate)
+    lref, _, _ = _momentum_step(mref, mcfg)(_on(batch, dev),
+                                            np.ones(window, np.float32))
+    del exact, shipped
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    runs = [("exact", xcfg_rank, MULTI_EXACT_STEPS),
+            ("shipped", cfg, MULTI_STEPS)]
+    ranks = spawn(gloo_rank, 2, backend="gloo",
+                  devices=["cuda:0", "cuda:0"],
+                  args=(runs, state, sample, width, halo_cap, mcfg, mstate,
+                        batch))
+    spawn_s = time.time() - t0
+    fm = sample["fluid_mask"].astype(bool)
+    r0 = ranks[0]
+    err = float(np.abs(r0["exact_frames"][:, fm] - want_frames[:, fm]).max())
+    rep, rep16 = r0["exact_report"], r0["shipped_report"]
+    for name in ("exact", "shipped"):
+        check(r0[f"{name}_finite"], f"(b) finite {name} rollout")
+        check([r[f"{name}_has_frames"] for r in ranks] == [True, False],
+              f"(b) the {name} frames gather on rank 0 alone")
+    for r in ranks:
+        check(r["transport"] == "gloo via pinned host memory",
+              f"(b) transport {r['transport']}")
+        for name in ("exact", "shipped"):
+            check(r[f"{name}_report"] == r0[f"{name}_report"],
+                  f"(b) every rank's {name} report alike")
+        for half in (False, True):
+            max_err[half] = max(max_err[half], r["max_err"][half])
+    print("  rank seconds: " + "; ".join(
+        f"rank {i} " + ", ".join(f"{k} {v:.1f}"
+                                 for k, v in r["part_s"].items())
+        for i, r in enumerate(ranks)))
+    counts_sh = np.asarray(r0["exact_scale_counts"])     # [D, n_scales]
+    counts_1 = aux1["scale_counts"].cpu().numpy()
+    witness = all(counts_sh[:, s].sum() >= counts_1[s]
+                  and (counts_sh[:, s] <= counts_1[s]).all()
+                  for s in range(1, len(counts_1)))
+    paths = {
+        "halo_exact": [sum(r["exact_counts"][i] for r in ranks)
+                       for i in range(6)],
+        "halo_rollout": [sum(r["shipped_counts"][i] for r in ranks)
+                         for i in range(6)],
+        "dp_train_gloo": [sum(r["dp_counts"][i] for r in ranks)
+                          for i in range(6)],
+        "dp_train_nccl": a["dp_counts"]}
+    want_exact = [2 * MULTI_EXACT_STEPS * c for c in step_counts]
+    want_roll = [2 * MULTI_STEPS * c for c in bf_counts]
+    ms16 = 1e3 * r0["shipped_seconds"] / MULTI_STEPS
+    # the halo report's name of each gate figure, and the rollout gate's
+    gate_keys = (("pair_overflow", "pair_overflow"),
+                 ("neighbor_overflow", "max_neighbors"),
+                 ("cell_overflow", "cell_overflow"),
+                 ("scale_counts", "scale_counts"),
+                 ("scale_caps", "scale_caps"), ("scales_fit", "scales_fit"))
+    print(f"  ({smi}) halo rollout at highest: {MULTI_EXACT_STEPS} steps "
+          f"within {err:.3e} of one process (tol {MULTI_TOL}), report "
+          f"{rep}, first-step voxel counts a rank {counts_sh.tolist()} vs "
+          f"one process {counts_1.tolist()} (witness {witness}), "
+          f"{1e3 * r0['exact_seconds'] / MULTI_EXACT_STEPS:.1f} ms/step")
+    print(f"  ({smi}) halo rollout of the shipped config (bf16 trunk): "
+          f"{MULTI_STEPS} steps, chunk {MULTI_CHUNK}, {ms16:.1f} ms/step on "
+          f"2 ranks sharing one card (no scale-out; one process "
+          f"{ms1:.1f}), report {rep16}")
+    print("  shipped config, the ranks' rollout vs one process's: " + "; ".join(
+        f"{k} {rep16.get(k)} vs {gate16.get(g)}" for k, g in gate_keys))
+    print(f"  K-list launches checked against the plain version: "
+          + "; ".join(f"rank {i} {r['exact_checked']} (highest), "
+                      f"{r['shipped_checked']} (shipped, bf16 trunk)"
+                      for i, r in enumerate(ranks))
+          + f"; max_abs_err fp32 {max(r['max_err'][False] for r in ranks):.3e}"
+          f" bf16 {max(r['max_err'][True] for r in ranks):.3e}")
+    print(f"  launches (fwd fp32, bf16, data fp32, bf16, filter fp32, bf16) "
+          f"{paths} (halo_exact want {want_exact[:2]}, halo_rollout "
+          f"{want_roll[:2]})")
+    check(err <= MULTI_TOL, f"(b) halo rollout vs one process {err}")
+    check(rep["halo_overflow"] == 0 and rep["pair_overflow"] <= 0
+          and rep["neighbor_overflow"] <= int(xcfg["neighbor_k"])
+          and rep.get("cell_overflow", 0) == 0 and rep["scales_fit"],
+          f"(b) the exact halo rollout's gate {rep}")
+    check(rep["repartitions"] == 0, "(b) no re-partition in 3 steps")
+    check(witness, "(b) the voxel-count witness")
+    check(rep16["halo_overflow"] == 0,
+          f"(b) the shipped halo rollout's exchange {rep16}")
+    check(paths["halo_exact"][:2] == want_exact[:2],
+          f"(b) halo_exact launches {paths['halo_exact']}")
+    check(paths["halo_rollout"][:2] == want_roll[:2],
+          f"(b) halo_rollout launches {paths['halo_rollout']}")
+    check(all(r["exact_checked"] == step_counts
+              and r["shipped_checked"] == bf_counts for r in ranks),
+          "(b) every launch of each rank's first steps checked")
+
+    # data parallel, one item a rank, against one process (fp32)
+    dp_err = 0.0
+    for r in ranks:
+        np.testing.assert_allclose(r["dp_lvec"], lref.tolist(), rtol=2e-4)
+        for name, p in mref.named_parameters():
+            g, scale = r["dp_grads"][name], float(p.grad.abs().max())
+            e = float((g - p.grad.cpu()).abs().max())
+            check(e <= DP_GRAD_TOL * scale or e == 0.0,
+                  f"(b) DP gradient {name} {e} > {DP_GRAD_TOL} x {scale}")
+            dp_err = max(dp_err, e / scale if scale else e)
+    want_dp = expected_train_launches(items, window, convs, 0)
+    print(f"  ({smi}) momentum DP train step at highest, one item a rank: "
+          f"gradients within {dp_err:.2e} of each one's max (tol "
+          f"{DP_GRAD_TOL}), launches {paths['dp_train_gloo']} (want "
+          f"{want_dp}); spawn and ranks {spawn_s:.1f} s; phase "
+          f"{time.time() - t_phase:.1f} s")
+    check(paths["dp_train_gloo"] == want_dp,
+          f"(b) DP launches {paths['dp_train_gloo']}")
+    return {"paths": paths, "ms_per_step": ms16, "ms_per_step_1": ms1,
+            "exact_err": err, "gate_1": gate16,
+            "dp_grad_rel_err": dp_err, "report": rep16, "halo_cap": halo_cap,
+            "width": width, "rf": rf, "owned": owned.tolist(),
+            "received": recv, "nccl": a, "seconds": time.time() - t_phase}
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -3462,6 +3987,13 @@ def main(argv):
     part("(d) the layer library")
     sparse_err, sparse_launches = layers_phase(dev)
 
+    phase(f"25 multi-rank: (a) NCCL, world size 1: the momentum DP train "
+          f"step and a one-slab halo step; (b) gloo, 2 ranks on one card: "
+          f"Liquid3d's halo rollout on {MULTI_BLOCK} at highest vs one "
+          f"process and {MULTI_STEPS} timed steps of the config as shipped, "
+          f"the DP train step with one item a rank")
+    multi = multi_rank_phase(root, dev, max_err, smi)
+
     pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
         "(pallas_continuous_conv)"
     vjp = "none (no TPU kernel): the VJP of dmcf_tpu/ops/cconv.py:173 " \
@@ -3500,6 +4032,8 @@ def main(argv):
             "path_b_launches": path_b["launches"][int(half)],
             "reference_ckpt_launches_per_step": reference["step"][int(half)],
             "reference_ckpt_launches": reference["launches"][int(half)],
+            "multi_rank_launches": {k: v[int(half)]
+                                    for k, v in multi["paths"].items()},
             "max_abs_err": max_err[half],
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
@@ -3535,6 +4069,9 @@ def main(argv):
                     column_cfgs["launches"][i + int(half)],
                 "liquid3d_train_launches":
                     liquid["train"]["launches"][i + int(half)],
+                "multi_rank_launches": {
+                    k: v[i + int(half)] for k, v in multi["paths"].items()
+                    if k.startswith("dp_train")},
                 "max_abs_err": max(bwd["worst_abs"][prec].get(g, 0.0)
                                    for g in grads[which]),
                 "max_rel_err": max(bwd["worst"][prec].get(g, 0.0)
@@ -3710,6 +4247,15 @@ def main(argv):
                   f"{row['step_plain_ms']:.4f}, bound "
                   f"{row['step_bound_ms']:.5f}); trunk shape "
                   f"{row['device_ms']:.4f} ms")
+    print(f"multi-rank ({smi}): (a) {multi['nccl']['transport']}, DP "
+          f"parameters bitwise {multi['nccl']['same']}, one-slab halo "
+          f"{multi['nccl']['halo_err']:.2e}; (b) Liquid3d halo rollout at "
+          f"highest within {multi['exact_err']:.2e} of one process, as "
+          f"shipped (bf16 trunk) {multi['ms_per_step']:.1f} ms/step on 2 "
+          f"ranks sharing one card (one process "
+          f"{multi['ms_per_step_1']:.1f}) "
+          f"(no scale-out), DP gradients within "
+          f"{multi['dp_grad_rel_err']:.2e}; phase {multi['seconds']:.1f} s")
     print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "
           f"fp32 {1e3 * dt32 / FP32_STEPS:.3f} ms/step ({FP32_STEPS} "
           f"steps)")

@@ -380,7 +380,8 @@ class PBFNet(nn.Module):
         """Global translate/scale/gravity-equivariant rotation of the
         scene.  Returns (sample', rotation or None): ``grav_eqvar`` turns
         the scene so that its gravity (row 0 of ``grav``) points along the
-        configured vector."""
+        configured vector.  A ``grid_center`` (the voxel grids' anchor
+        that the slab decomposition supplies) moves with the positions."""
         cfg = self._transform_cfg
         s = dict(sample)
         R = None
@@ -390,6 +391,8 @@ class PBFNet(nn.Module):
                              device=dev)
             s["pos"] = s["pos"] + t
             s["box"] = s["box"] + t
+            if s.get("grid_center") is not None:
+                s["grid_center"] = s["grid_center"] + t
         if "scale" in cfg:
             sc = torch.tensor(cfg["scale"], dtype=torch.float32, device=dev)
             s["pos"] = s["pos"] * sc
@@ -397,12 +400,15 @@ class PBFNet(nn.Module):
             s["vel"] = s["vel"] * sc
             if s.get("grav") is not None:
                 s["grav"] = s["grav"] * sc
+            if s.get("grid_center") is not None:
+                s["grid_center"] = s["grid_center"] * sc
         if "grav_eqvar" in cfg:
             target = torch.tensor(cfg["grav_eqvar"], dtype=torch.float32,
                                   device=dev)
             # same gravity for all particles of a sequence (row 0 is valid)
             R = align_vector(target, s["grav"][0])
-            for k in ("pos", "vel", "grav", "box", "box_normals"):
+            for k in ("pos", "vel", "grav", "box", "box_normals",
+                      "grid_center"):
                 if s.get(k) is not None:
                     s[k] = s[k] @ R
         return s, R
@@ -430,11 +436,12 @@ class PBFNet(nn.Module):
 
         ``sample``: dict of padded tensors ``pos`` [N,3], ``vel`` [N,3],
         optional ``grav`` [N,3], ``box`` [B,3], ``box_normals`` [B,3],
-        ``fluid_mask`` [N], ``box_mask`` [B].  ``vel_corr``: an externally
-        corrected velocity (the training ``iterations`` loop), used in
-        place of the advected one, its gradient stopped.  ``training``
-        selects the dense pairs' source chunking (``dense_n_chunk``).
-        Returns (pos, vel, aux).
+        ``fluid_mask`` [N], ``box_mask`` [B], optional ``grid_center`` [3]
+        (the voxel pyramid's anchor; default the centroid).  ``vel_corr``:
+        an externally corrected velocity (the training ``iterations``
+        loop), used in place of the advected one, its gradient stopped.
+        ``training`` selects the dense pairs' source chunking
+        (``dense_n_chunk``).  Returns (pos, vel, aux).
         """
         data, R = self.transform(sample)
         ctx = self.preprocess(data, vel_corr=vel_corr)
@@ -497,7 +504,7 @@ class PBFNet(nn.Module):
             voxel_size=(None if self.voxel_size is None
                         else np.asarray(self.voxel_size, np.float32)),
             centralize=self.centralize, pad=self.sample_pad,
-            hyst=self.sample_hyst)
+            hyst=self.sample_hyst, center=data.get("grid_center"))
 
         # where scale 0 of the pyramid IS all_pos (stride 1, use_bnds), one
         # all->all search at the finest radius serves the trunk pair

@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from .neighbors import (NeighborList, metric_dist, radius_threshold,
-                        recompute_dist, select_k_valid, sq_norm)
+                        recompute_dist, select_k_valid, sq_norm,
+                        to_int32_saturating)
 
 _G = 1024  # virtual grid cells per axis (scene must fit G-2 per axis)
 _INVALID_ID = 2 ** 30
@@ -36,7 +37,9 @@ TRANSIENT_BYTES = 2 << 30  # bound of one chunk's [.., 3] fp32 difference
 
 
 def _cells(pos, inv_cell):
-    return torch.floor(pos * inv_cell).to(torch.int32)
+    """Integer cells, saturating as XLA does (a masked sentinel row, 1e9
+    and up, lands at the int32 bound on every device)."""
+    return to_int32_saturating(torch.floor(pos * inv_cell))
 
 
 def _linear_ids(c):

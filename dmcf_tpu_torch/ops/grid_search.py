@@ -21,7 +21,7 @@ from itertools import product
 import torch
 
 from .neighbors import (NeighborList, metric_dist, radius_threshold,
-                        recompute_dist, select_k_valid)
+                        recompute_dist, select_k_valid, to_int32_saturating)
 
 _KEY_MAX = 2 ** 31 - 1
 _M32 = 0xFFFFFFFF
@@ -47,8 +47,10 @@ def _hash_cells(c):
 
 
 def _cell_coords(pos, radius):
+    """Integer cells, saturating as XLA does: a sentinel row (1e9 and up)
+    lands at the int32 bound on every device."""
     r = torch.tensor(float(radius), dtype=pos.dtype, device=pos.device)
-    return torch.floor(pos * (1.0 / r)).to(torch.int32)
+    return to_int32_saturating(torch.floor(pos * (1.0 / r)))
 
 
 def contact_weight(points, queries, radius, points_mask=None,

@@ -79,6 +79,13 @@ class NeighborList(NamedTuple):
     disp: Optional[torch.Tensor] = None
 
 
+def to_int32_saturating(x):
+    """float -> int32 that saturates out-of-range values, as XLA's convert
+    and CUDA's do (a plain ``.to(torch.int32)`` gives INT_MIN on x86)."""
+    inner = torch.clamp(x, -2.0**31, 2.0**31 - 128.0).to(torch.int32)
+    return torch.where(x >= 2.0**31, 2**31 - 1, inner)
+
+
 def sq_norm(d):
     """Squared L2 norm over the last axis (of size 3), summed left to
     right as XLA reduces it."""

@@ -17,17 +17,11 @@ import torch
 
 from ..kernels.fps import farthest_point_sample
 from .neighbors import fixed_radius_search
+from .neighbors import to_int32_saturating as _to_int32_saturating
 
 PAD_POS = 1e8  # sentinel coordinate for padded particles
 
 _I32_MAX = 2**31 - 1
-
-
-def _to_int32_saturating(x):
-    """float -> int32 that saturates out-of-range values, as XLA's convert
-    does (a plain ``.to(torch.int32)`` is undefined there)."""
-    inner = torch.clamp(x, -2.0**31, 2.0**31 - 128.0).to(torch.int32)
-    return torch.where(x >= 2.0**31, _I32_MAX, inner)
 
 
 def _dedup_cells(cells, cmask, out_max):
@@ -101,13 +95,16 @@ def nn_distance(a, b, a_mask=None, b_mask=None):
 
 
 def grid_pos(pos, mask, voxel_size, out_max, centralize=False, pad=0,
-             hyst=0.1):
+             hyst=0.1, center=None):
     """Occupied-voxel centers of a point set, padded to ``out_max``.
 
     Each point stamps the voxels around it (hysteresis duplication +/-hyst
     plus a (2+2*pad)^d offset neighborhood on active axes), duplicates are
     removed and voxel centers emitted.  ``voxel_size`` is a static
-    3-vector; axes with voxel_size < 1e-5 are inactive.
+    3-vector; axes with voxel_size < 1e-5 are inactive.  A ``center`` [3]
+    anchors the grid there instead of at the valid points' centroid (the
+    slab decomposition passes the whole scene's centroid, so that every
+    rank's grid lines up with the others').
 
     Returns (positions [out_max, 3], mask [out_max], count).
     """
@@ -117,12 +114,15 @@ def grid_pos(pos, mask, voxel_size, out_max, centralize=False, pad=0,
                          device=pos.device)
     dtype = pos.dtype
 
-    if centralize:
+    if center is not None:
+        center = center.to(dtype)
+        p = pos - center
+        centralize = True      # the centers are emitted about it below
+    elif centralize:
         denom = torch.clamp(mask.sum(), min=1)
         center = torch.where(mask[:, None], pos, 0.0).sum(dim=0) / denom
         p = pos - center
     else:
-        center = None
         p = pos
 
     base = p / vs
@@ -203,7 +203,7 @@ def compute_pressure(dens, rest_dens=3.5, stiffness=20.0):
 
 
 def get_dilated_pos(pos, mask, strides, out_maxes, voxel_size=None,
-                    centralize=False, pad=0, hyst=0.1):
+                    centralize=False, pad=0, hyst=0.1, center=None):
     """Multi-scale position pyramid.
 
     Returns (positions, masks, counts, idx) lists, one entry per stride:
@@ -212,7 +212,8 @@ def get_dilated_pos(pos, mask, strides, out_maxes, voxel_size=None,
     ``out_maxes[s]`` (idx None); without it each coarser scale is a
     farthest-point sample of the previous scale, ``max(count // stride,
     1)`` valid picks of ``out_maxes[s]`` (the absolute stride, as JAX
-    divides), and idx[s] its rows in the previous scale.
+    divides), and idx[s] its rows in the previous scale.  ``center``
+    anchors the voxel grids (``grid_pos``).
     """
     pcount = mask.sum(dtype=torch.int32)
     positions, masks, counts, idx = [], [], [], []
@@ -225,7 +226,8 @@ def get_dilated_pos(pos, mask, strides, out_maxes, voxel_size=None,
         elif voxel_size is not None:
             vs = np.asarray(voxel_size, np.float32) * stride
             gp, gm, gc = grid_pos(pos, mask, vs, out_maxes[si],
-                                  centralize=centralize, pad=pad, hyst=hyst)
+                                  centralize=centralize, pad=pad, hyst=hyst,
+                                  center=center)
             positions.append(gp)
             masks.append(gm)
             counts.append(gc)

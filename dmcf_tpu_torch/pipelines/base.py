@@ -22,6 +22,7 @@ from pathlib import Path
 import torch
 
 from .. import resolve_device
+from ..parallel.dist import is_main_rank
 from ..utils import Config
 from ..utils.log import get_runid, make_dir
 from ..utils.tb_writer import TBEventWriter
@@ -57,11 +58,28 @@ class SummaryLogger:
         self.jsonl.close()
 
 
+class NullSummary:
+    """The summary writer of a rank other than 0: writes nothing."""
+
+    def scalar(self, tag, value, step):
+        pass
+
+    def text(self, tag, value, step=0):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class BasePipeline:
     """Run-dir management, checkpoint save/load, summary plumbing.
 
     ``model`` is a port module already on ``device`` (default "cuda",
-    which raises without a GPU)."""
+    which raises without a GPU).  Under several ranks only rank 0 writes
+    the run's config and summaries."""
 
     def __init__(self, model, dataset=None, config=None, restart=False,
                  **kwargs):
@@ -90,7 +108,8 @@ class BasePipeline:
             shutil.rmtree(self.cfg.out_dir)
         make_dir(self.cfg.out_dir)
 
-        if config is not None:
+        main = is_main_rank()
+        if config is not None and main:
             with open(os.path.join(self.cfg.logs_dir, "config.txt"),
                       "w") as f:
                 f.write(config.dump() if hasattr(config, "dump")
@@ -102,7 +121,8 @@ class BasePipeline:
         self.tensorboard_dir = os.path.join(
             self.cfg.get("train_sum_dir", "./train_log"),
             runid + "_" + Path(tb_base).name)
-        self.writer = SummaryLogger(self.tensorboard_dir)
+        self.writer = (SummaryLogger(self.tensorboard_dir) if main
+                       else NullSummary())
         self._ckpt_dir = os.path.abspath(
             os.path.join(self.cfg.logs_dir, "checkpoint"))
 

@@ -17,6 +17,15 @@ step (JAX's ``jax.checkpoint(step)``), and its loss, normalised by the
 full batch's ``sum(time_w) * B``, is back-propagated on its own.  The loss
 is a sum over items, so the summed gradients are the batch's, and only one
 item's window is held at a time (what JAX's ``grad_accum`` is for).
+
+Data-parallel training (``data_parallel``, ``_setup_data_parallel``): one
+process a rank; rank 0 draws the global batch and scatters it, each
+rank receiving only its contiguous slice, which it steps normalised by
+the GLOBAL ``sum(time_w) *
+B``, and the step sums the gradients over the ranks in one flat
+all-reduce before ``w_decay`` and the clip, as JAX's GSPMD step does.
+Only rank 0 writes checkpoints and summaries and runs valid and test; the
+others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -120,6 +129,7 @@ class Simulator(BasePipeline):
                                  "gamma": 0.25, "neighbor_scale": 0.025}}
         self.loss_fns = {k: get_loss(**dict(v))
                          for k, v in self.loss_cfg.items()}
+        self.group = None  # the data-parallel group (run_train)
 
     @contextlib.contextmanager
     def _file_log(self, split):
@@ -438,17 +448,45 @@ class Simulator(BasePipeline):
             max_dens_err=max_dens_err,
             w_decay=float(self.cfg.get("w_decay", 0) or 0),
             grad_norm=float(self.cfg.get("grad_clip_norm", -1) or -1),
-            grad_accum=int(self.cfg.get("grad_accum", 1) or 1))
+            grad_accum=int(self.cfg.get("grad_accum", 1) or 1),
+            group=self.group)
 
     def _device_batch(self, batch):
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items() if v is not None}
 
-    def _emit_train_log(self, step, batch, time_w, lvec, pre_eff, stats):
+    def _setup_data_parallel(self):
+        """Data-parallel training over the ranks of the process group
+        (``torchrun``'s, or one already running).  ``data_parallel: auto``
+        (default) engages when the world size is above 1 and divides the
+        batch; ``true`` requires that it divides (a world of one runs the
+        collectives too); ``false`` disables.  The parameters start as
+        rank 0's."""
+        from ..parallel.dist import env_rank
+
+        mode = self.cfg.get("data_parallel", "auto")
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_initialized() else env_rank()[1])
+        bs = int(self.cfg.get("batch_size", 1))
+        enable = (world > 1 and bs % world == 0) if mode == "auto" \
+            else bool(mode)
+        self.group = None
+        if not enable:
+            return
+        if bs % world:
+            raise ValueError(f"data_parallel: batch_size {bs} not "
+                             f"divisible by the world size {world}")
+        from ..parallel import make_mesh, replicated_sharding
+        self.group = make_mesh(self.device)
+        replicated_sharding(self.model, self.group)
+        log.info("data-parallel training over %d ranks (%s, per-rank "
+                 "batch %d)", world, self.group.transport, bs // world)
+
+    def _emit_train_log(self, step, pre, time_w, lvec, pre_eff, stats):
         losses = {k: float(v) for k, v in zip(self.loss_fns, lvec.tolist())}
         losses["loss"] = float(sum(losses.values()))
         losses["timesteps"] = float(np.sum(time_w))
-        losses["warmup"] = float(np.mean(batch["pre"]))
+        losses["warmup"] = float(np.mean(pre))
         losses["warmup_diff"] = losses["warmup"] - float(
             pre_eff.float().mean())
         losses["max_neighbors"] = float(stats["max_neighbors"])
@@ -472,10 +510,6 @@ class Simulator(BasePipeline):
 
     def _run_train(self):
         cfg = self.cfg
-        if cfg.get("data_parallel", "auto") is True:
-            raise NotImplementedError(
-                "data_parallel: true (multi-GPU) is not ported yet (ROADMAP "
-                "queue 1, 'Multi-GPU')")
         if cfg.get("grad_accum_host", False):
             raise NotImplementedError(
                 "grad_accum_host is a TPU execution mode, not ported")
@@ -495,17 +529,38 @@ class Simulator(BasePipeline):
         max_dens_err = cfg.get("max_dens_err", None)
         log_every = int(cfg.get("log_every", 10))
 
-        def make_loader(window, warm):
-            return get_dataloader(self.dataset.train,
-                                  batch_size=int(cfg.batch_size),
-                                  window=window, pre_frames=warm,
-                                  **dg_cfg, **train_cfg)
-
         self.optimizer, self.scheduler = make_optimizer(
             self.model, dict(cfg.get("optimizer") or {}))
         start_ep = self.load_ckpt(
             self.model_cfg.get("ckpt_path"),
             is_resume=bool(self.model_cfg.get("is_resume", True)))
+        self._setup_data_parallel()
+        group = self.group
+        main = group is None or group.rank == 0
+
+        def make_loader(window, warm):
+            # under data parallelism rank 0 draws the global batch
+            if not main:
+                return None
+            return get_dataloader(self.dataset.train,
+                                  batch_size=int(cfg.batch_size),
+                                  window=window, pre_frames=warm,
+                                  **dg_cfg, **train_cfg)
+
+        def draw(loader):
+            """(this rank's items of the next global batch, the global
+            batch's warm-up frames ``pre``)"""
+            if group is None:
+                batch = next(loader)
+                return batch, batch["pre"]
+            mine = None
+            if main:
+                from ..parallel import shard_batch
+                batch = next(loader)
+                mine = [(shard_batch(batch, group, r), batch["pre"])
+                        for r in range(group.world_size)]
+            return group.scatter_object(mine)
+
         window_it, warm_up_it, it_idx = 0, 0, 0
         logged = []
         if self.device.type == "cuda":
@@ -524,10 +579,11 @@ class Simulator(BasePipeline):
                             window_bnds, max_warm_up, warm_up_bnds,
                             iterations, its_bnds)
                     if rebuild:
-                        loader.close()
+                        if loader is not None:
+                            loader.close()
                         loader = make_loader(windows[window_it],
                                              max_warm_up[warm_up_it])
-                    batch = next(loader)
+                    batch, pre = draw(loader)
                     time_w = compute_time_weights(step, window_it, windows,
                                                   window_bnds, time_blend)
                     train_step = self._make_train_step(
@@ -542,21 +598,17 @@ class Simulator(BasePipeline):
                                      for p in self.model.parameters()))
                     if i % log_every == 0:
                         logged.append(self._emit_train_log(
-                            step, batch, time_w, lvec, pre_eff, stats))
+                            step, pre, time_w, lvec, pre_eff, stats))
 
-                if epoch % int(cfg.get("save_ckpt_freq", 1)) == 0:
-                    self.save_ckpt(epoch)
-                # True = every epoch, False/0 = never, int N = every N
-                valid_every = cfg.get("run_valid_every_epoch", True)
-                if valid_every and epoch % max(int(valid_every), 1) == 0:
-                    self.run_valid(epoch)
-                    self.save_logs(self.writer, epoch, [self.valid_loss],
-                                   "valid")
-                test_every = cfg.get("run_test_every_epoch", True)
-                if test_every and epoch % max(int(test_every), 1) == 0:
-                    self.run_test(epoch)
+                if main:
+                    self._end_epoch(epoch)
+                if group is not None:
+                    group.barrier()
         finally:
-            loader.close()
+            if loader is not None:
+                loader.close()
+            if group is not None:
+                group.close()
         if self.device.type == "cuda":
             peak = torch.cuda.max_memory_allocated(self.device) / 2 ** 30
             log.info("peak device memory allocated: %.2f GiB", peak)
@@ -564,10 +616,25 @@ class Simulator(BasePipeline):
             self.writer.flush()
         return logged
 
+    def _end_epoch(self, epoch):
+        """Checkpoint, valid and test at the end of an epoch, as configured
+        (rank 0 alone under data parallelism)."""
+        cfg = self.cfg
+        if epoch % int(cfg.get("save_ckpt_freq", 1)) == 0:
+            self.save_ckpt(epoch)
+        # True = every epoch, False/0 = never, int N = every N
+        valid_every = cfg.get("run_valid_every_epoch", True)
+        if valid_every and epoch % max(int(valid_every), 1) == 0:
+            self.run_valid(epoch)
+            self.save_logs(self.writer, epoch, [self.valid_loss], "valid")
+        test_every = cfg.get("run_test_every_epoch", True)
+        if test_every and epoch % max(int(test_every), 1) == 0:
+            self.run_test(epoch)
+
 
 def make_train_step(model, loss_fns, optimizer, scheduler=None, *, window,
                     its=0, max_err=None, max_dens_err=None, w_decay=0.0,
-                    grad_norm=-1.0, grad_accum=1):
+                    grad_norm=-1.0, grad_accum=1, group=None):
     """The BPTT train step (standalone; used by ``Simulator.run_train``).
 
     Returns ``step(batch, time_w) -> (lvec, pre_eff, stats)``: ``batch`` a
@@ -582,6 +649,13 @@ def make_train_step(model, loss_fns, optimizer, scheduler=None, *, window,
     ``avg_neighbors``).  ``grad_accum`` must divide B: items are
     back-propagated one at a time, so any grouping gives the full batch's
     gradient.
+
+    With a ``group`` (``parallel.dist.Group``) the step is data-parallel:
+    ``batch`` is this rank's slice of the global batch, each item's loss is
+    normalised by the global ``sum(time_w) * B * world_size``, the
+    gradients are summed over the ranks (one flat all-reduce) before
+    ``w_decay`` and the clip, and ``lvec``, ``pre_eff`` and ``stats`` are
+    the global batch's, the same on every rank.
     """
     win_dens = get_window_func(getattr(model, "window_dens", None))
     radius0 = float(model.particle_radii[0])
@@ -684,7 +758,8 @@ def make_train_step(model, loss_fns, optimizer, scheduler=None, *, window,
                              f"batch {n_items}")
         time_w = torch.as_tensor(np.asarray(time_w, np.float32),
                                  device=batch["pos"].device)
-        denom = time_w.sum() * n_items
+        world = 1 if group is None else group.world_size
+        denom = time_w.sum() * (n_items * world)
         for p in params:
             p.grad = None
         lvec, pres, stats = 0.0, [], []
@@ -694,6 +769,19 @@ def make_train_step(model, loss_fns, optimizer, scheduler=None, *, window,
             lvec = lvec + lv
             pres.append(pre_eff)
             stats.append(torch.stack(st))
+        st = torch.stack(stats)
+        stats = {"max_neighbors": st[:, 0].max(),
+                 "pair_overflow": st[:, 1].max(),
+                 "avg_neighbors": st[:, 2].mean()}
+        pres = torch.tensor(pres)
+        if group is not None:
+            group.psum_grads(params)
+            tot = group.psum(torch.cat([lvec, stats["avg_neighbors"][None]]))
+            lvec, stats["avg_neighbors"] = tot[:-1], tot[-1] / world
+            top = group.pmax(torch.stack([stats["max_neighbors"],
+                                          stats["pair_overflow"]]))
+            stats["max_neighbors"], stats["pair_overflow"] = top
+            pres = group.all_gather(pres).reshape(-1)
         with torch.no_grad():
             for p in params:
                 if p.grad is None:
@@ -705,9 +793,6 @@ def make_train_step(model, loss_fns, optimizer, scheduler=None, *, window,
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        st = torch.stack(stats)
-        return lvec, torch.tensor(pres), {
-            "max_neighbors": st[:, 0].max(), "pair_overflow": st[:, 1].max(),
-            "avg_neighbors": st[:, 2].mean()}
+        return lvec, pres, stats
 
     return train_step

@@ -11,13 +11,15 @@ postprocess), and (3) a
 ``torch.profiler`` trace summary: device time per step, the device's busy
 share of the wall time, and the ops with the most device time.  Needs a
 CUDA device; never falls back to the CPU.  ``graph_ms`` (a kernel's
-device time), ``record_launches`` (the K-list conv calls of one step) and
+device time), ``record_launches`` (the K-list conv calls of one step;
+``launch_log`` those of any block) and
 ``trace`` (a profiler summary of any callable) serve ``chip_smoke.py`` and
 ``scripts/torch_klist_phases.py`` too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -67,11 +69,12 @@ def graph_ms(fn, iters=20, reps=5):
     return start.elapsed_time(end) / (iters * reps)
 
 
-def record_launches(model, sample):
-    """One model step on ``sample`` that keeps each K-list conv call:
-    returns (the step's outputs, [(conv module name, args, kwargs, output),
-    ...] in call order).  A pre-hook names the conv; the ops module's
-    handle on the wrapper is swapped for a recording one for the step."""
+@contextlib.contextmanager
+def launch_log(model):
+    """Keeps each K-list conv call of ``model`` made inside the block:
+    yields the list it fills with (conv module name, args, kwargs,
+    output), in call order.  A pre-hook names the conv; the ops module's
+    handle on the wrapper is swapped for a recording one."""
     log, current = [], {}
     hooks = [m.register_forward_pre_hook(
         lambda mod, args, name=name: current.update(conv=name))
@@ -85,12 +88,18 @@ def record_launches(model, sample):
 
     cconv.cconv_klist = recording
     try:
-        with torch.no_grad():
-            outputs = model(sample)
+        yield log
     finally:
         cconv.cconv_klist = cconv_klist
         for h in hooks:
             h.remove()
+
+
+def record_launches(model, sample):
+    """One model step on ``sample`` that keeps each K-list conv call:
+    returns (the step's outputs, ``launch_log``'s list)."""
+    with launch_log(model) as log, torch.no_grad():
+        outputs = model(sample)
     return outputs, log
 
 

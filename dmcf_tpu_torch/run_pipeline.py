@@ -8,7 +8,9 @@
 A YAML config with dataset/model/pipeline sections plus dotted overrides;
 the model section's ``loss`` configures the training losses.  ``--device``
 defaults to ``cuda`` and raises without a GPU; ``cpu`` runs the plain
-PyTorch path.  Weights are drawn from a ``torch.Generator`` seeded with
+PyTorch path.  Under ``torchrun --nproc_per_node N`` training is
+data-parallel (``pipeline.data_parallel``, default auto): rank r runs on
+``cuda:$LOCAL_RANK`` (NCCL) or, with ``--device cpu``, the CPU (gloo).  Weights are drawn from a ``torch.Generator`` seeded with
 ``pipeline.seed`` (default 42) unless a checkpoint is restored.
 """
 
@@ -71,13 +73,13 @@ def main(argv=None):
     random.seed(42)
     np.random.seed(42)
 
-    from . import resolve_device
     from .data import DatasetGroup
     from .models import build_model
+    from .parallel.dist import rank_device
     from .pipelines import PIPELINES
     from .utils import Config
 
-    device = resolve_device(args.device)
+    device = rank_device(args.device)
     logging.basicConfig(
         level=logging.INFO,
         format="%(levelname)s - %(asctime)s - %(module)s - %(message)s")

@@ -6,6 +6,9 @@
         --inflow_every 10 --boundary_crop_max 65536 --vel 2 0 -1.2 \\
         [--tf_ckpt ref/ckpt | --ckpt_path ckpt.pt] [--chunk N] \\
         [--device cuda|cpu]
+    torchrun --nproc_per_node N -m dmcf_tpu_torch.run_sample \\
+        -c configs/Liquid3d.yml --data_path scene.msgpack.zst \\
+        --spatial halo [--halo_width W] [--chunk N] [--device cpu]
 
 Reads frame 0 of a msgpack.zst scene, rolls the model out for
 ``--timesteps - 1`` steps and writes the trajectory (frame 0 and every
@@ -30,7 +33,16 @@ and report out): the GPU machine has neither ``zstandard`` nor ``h5py``,
 so scripts there call it directly.  ``--tf_ckpt`` loads a reference
 TensorFlow checkpoint (``utils/tf_ckpt.py``, read without TensorFlow) and
 takes precedence over ``--ckpt_path``, as in the root script.
-``--spatial halo`` (multi-device slabs) is not ported and raises.
+
+``--spatial halo`` runs the rollout slab-decomposed over the ranks of a
+``torchrun`` job (``parallel/halo_model.halo_rollout_host``: one process
+a rank on ``cuda:$LOCAL_RANK`` with NCCL, or on the CPU with gloo under
+``--device cpu``), with the full boundary (no crop), ``--chunk`` steps
+between re-partition checks (default 10) and ``--halo_width`` (default
+1.5 x the model's receptive field); it takes no ``--inflow`` and no
+``--boundary_crop_max``, as in the root script.  Every rank rolls out;
+rank 0 prints the halo report and writes the frames
+(``run_sample_halo`` is its in-memory part).
 """
 
 from __future__ import annotations
@@ -78,8 +90,8 @@ def parse_args(argv=None):
                         help="override model.neighbor_k")
     parser.add_argument("--spatial", default="none",
                         choices=["none", "halo"],
-                        help="'halo': slab decomposition over devices (not "
-                             "ported: raises)")
+                        help="'halo': slab decomposition over the ranks of "
+                             "a torchrun job (full boundary, no crop)")
     parser.add_argument("--halo_width", type=float, default=0.0)
     parser.add_argument("--override", action="append", default=[],
                         help="model-config override key=yaml_value "
@@ -252,6 +264,53 @@ def run_sample(model, frame0, timesteps, *, inflow=0, inflow_every=2,
     return out, report
 
 
+def run_sample_halo(model, frame0, timesteps, group, *, chunk=10,
+                    halo_width=None, vel=None, boundary_crop_margin=None,
+                    log=print):
+    """``run_sample``'s slab-decomposed counterpart, run by every rank of
+    ``group`` on the same ``frame0`` and weights: ``timesteps - 1`` steps
+    of ``halo_rollout_host`` over the full boundary.  Returns (frames
+    [timesteps, capacity, 3] numpy, 1000 on inactive rows, on rank 0 and
+    None on the others; the halo report with ``seconds``,
+    ``ms_per_step``, ``box``, the same on every rank); ``log`` gets the
+    re-partitions and the report."""
+    from .parallel.halo_model import halo_rollout_host
+
+    sample, pos0, _, box = scene_sample(
+        model, frame0, vel=vel, boundary_crop_margin=boundary_crop_margin,
+        device="cpu", log=log)
+    n0, capacity = pos0.shape[0], sample["pos"].shape[0]
+    log(f"scene: {n0} fluid (capacity {capacity}), {box.shape[0]} "
+        f"boundary; {timesteps} steps over {group.world_size} ranks "
+        f"({group.transport})")
+    n_steps = max(timesteps - 1, 1)
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+    t0 = time.time()
+    frames, report = halo_rollout_host(
+        model, group, sample, n_steps, chunk=chunk or 10,
+        halo_width=halo_width or None, log=log)
+    seconds = time.time() - t0
+    report.update(seconds=seconds, ms_per_step=1e3 * seconds / n_steps)
+    log("Average runtime: %.05f s/step (%d steps, %d ranks)"
+        % (seconds / n_steps, n_steps, group.world_size))
+    log(f"halo report: {report}")
+    if report["halo_overflow"] > 0:
+        log("HALO OVERFLOW: exchange buffer too small — results dropped "
+            "boundary-zone particles; raise halo_cap")
+    if report["pair_overflow"] > 0:
+        log(f"pair-search overflow: worst true count exceeded its pair K "
+            f"budget by {report['pair_overflow']}")
+    report["box"] = box
+    if frames is None:
+        return None, report
+    fmask = sample["fluid_mask"].numpy()
+    out = np.full((timesteps, capacity, 3), 1000.0, np.float32)
+    out[0, :n0] = pos0
+    out[1:, fmask] = frames[:timesteps - 1, fmask]
+    return out, report
+
+
 def main(argv=None):
     import yaml
 
@@ -259,10 +318,16 @@ def main(argv=None):
     from .models import build_model
 
     args = parse_args(argv)
+    group = None
     if args.spatial == "halo":
-        raise NotImplementedError(
-            "--spatial halo (slab decomposition over devices) is not "
-            "ported yet (ROADMAP queue 1, 'Multi-GPU')")
+        if args.inflow:
+            raise SystemExit("--spatial halo does not support --inflow")
+        if args.boundary_crop_max:
+            raise SystemExit("--spatial halo replaces the boundary crop "
+                             "(full boundary): drop --boundary_crop_max")
+        from .parallel.spatial import make_spatial_mesh
+        group = make_spatial_mesh(args.device)
+        args.device = group.device
     np.random.seed(42)
     with open(args.cfg_file) as f:
         cfg = yaml.safe_load(f)
@@ -292,10 +357,22 @@ def main(argv=None):
         raise SystemExit("run_sample: give the scene with --data_path")
     data = read_msgpack_zst(args.data_path)
     timesteps = args.timesteps if args.timesteps is not None else len(data)
-    out, report = run_sample(
-        model, data[0], timesteps, inflow=args.inflow,
-        inflow_every=args.inflow_every, chunk=args.chunk, vel=args.vel,
-        boundary_crop_margin=args.boundary_crop_margin, device=args.device)
+    if group is not None:
+        with group:
+            main_rank = group.rank == 0
+            out, report = run_sample_halo(
+                model, data[0], timesteps, group, chunk=args.chunk,
+                halo_width=args.halo_width, vel=args.vel,
+                boundary_crop_margin=args.boundary_crop_margin,
+                log=print if main_rank else (lambda *a: None))
+        if not main_rank:
+            return 0
+    else:
+        out, report = run_sample(
+            model, data[0], timesteps, inflow=args.inflow,
+            inflow_every=args.inflow_every, chunk=args.chunk, vel=args.vel,
+            boundary_crop_margin=args.boundary_crop_margin,
+            device=args.device)
     out_dir = os.path.join(args.output_dir, "example", "0000")
     path = os.path.join(out_dir, "0000.hdf5")
     write_results(path, type(model).__name__,

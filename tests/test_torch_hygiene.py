@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no file of ``dmcf_tpu_torch/``, not
-``chip_smoke.py`` and not the port's diagnostic scripts import JAX, flax,
-optax, orbax, TensorFlow or the JAX package (an AST scan, so imports
-inside functions count too)."""
+"""The PyTorch port stands alone: no file of ``dmcf_tpu_torch/`` (its
+``parallel/`` modules too), not ``chip_smoke.py``, not the port's
+diagnostic scripts and not the rank bodies its multi-process tests spawn
+(``tests/_torch_ranks.py``) import JAX, flax, optax, orbax, TensorFlow or
+the JAX package (an AST scan, so imports inside functions count too)."""
 
 import ast
 import pathlib
@@ -19,7 +20,9 @@ PORT_FILES = sorted((ROOT / "dmcf_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_klist_phases.py",
     ROOT / "scripts" / "torch_redesign_ab.py",
     ROOT / "scripts" / "torch_redesign_variants.py",
-    ROOT / "scripts" / "torch_bwd_flips.py"]
+    ROOT / "scripts" / "torch_bwd_flips.py",
+    ROOT / "scripts" / "torch_multi_rank.py",
+    ROOT / "tests" / "_torch_ranks.py"]
 
 
 def imported_modules(path):

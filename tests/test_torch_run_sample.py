@@ -5,8 +5,9 @@ precision, a bf16 trunk): the inflow counts, the hdf5 file and the report
 lines; its frames against root ``run_sample.py`` (JAX, random init from
 ``PRNGKey(0)``) with the same weights, which the test rebuilds in process
 from ``PRNGKey(0)``, converts through ``interop.params_from_flax`` and
-saves as a port checkpoint; and the option that is not ported
-(``--tf_ckpt`` has its tests in ``tests/test_torch_tf_ckpt.py``).
+saves as a port checkpoint; and ``--spatial halo``'s refusal of
+``--inflow`` (``--tf_ckpt`` has its tests in
+``tests/test_torch_tf_ckpt.py``).
 
 Tolerance of the frames: 1e-5 absolute on positions (|x| <= 0.6; four
 steps of a bf16 trunk whose sums the two packages take in other orders;
@@ -153,10 +154,12 @@ def test_run_sample_matches_root_run_sample(runs):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--spatial", "halo"], "Multi-GPU"),
+    (["--spatial", "halo", "--inflow", "4"], "inflow"),
 ])
 def test_unported_options_raise(extra, what):
-    with pytest.raises(NotImplementedError, match=what):
+    """What ``--spatial halo`` refuses, as the root script does (the halo
+    path itself runs in ``tests/test_torch_halo_run_sample.py``)."""
+    with pytest.raises(SystemExit, match=what):
         run_sample.main(["-c", os.path.join(ROOT, CONFIG), "--device",
                          "cpu", *extra])
 

@@ -341,7 +341,8 @@ def test_run_pipeline_train_writes_metrics_and_resumes(tmp_path,
     """``run_pipeline --split train`` on the CPU: two steps of one item,
     the scalars in metrics.jsonl, a checkpoint with the optimizer's state;
     a second run resumes from it (epoch 1, the optimizer's step count going
-    on)."""
+    on); a third with ``data_parallel: true`` trains on over a world of
+    one rank."""
     monkeypatch.chdir(tmp_path)
     args = ["--cfg_file", MOMENTUM, "--split", "train", "--device", "cpu",
             "--main_log_dir", "logs", "--output_dir", "out",
@@ -374,5 +375,10 @@ def test_run_pipeline_train_writes_metrics_and_resumes(tmp_path,
         tmp_path / "sum" / run / "metrics.jsonl")}
     assert {"train/loss", "train/weighted_mse", "train/learning_rate",
             "valid/mse_val", "valid/loss"} <= tags
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        run_pipeline.main(args + ["--pipeline.data_parallel", "true"])
+    # data_parallel: true outside torchrun trains over a world of one
+    # rank (the collectives run; test_torch_dp_pipeline.py has two)
+    third = run_pipeline.main(args + ["--pipeline.max_epoch", "2",
+                                      "--pipeline.data_parallel", "true"])
+    assert [e["step"] for e in third] == [4, 5]
+    assert all(np.isfinite(e["loss"]) for e in third)
+    assert not torch.distributed.is_initialized()

@@ -74,7 +74,15 @@ witness, a timed halo rollout of the config as shipped (bf16 trunk, the
 cell search, its K budgets and pyramid caps) with its overflows beside
 one process's, every K-list launch of each rank's first steps against
 its plain version, and the data-parallel train step with one item a rank
-against one process; no scale-out is measured on one card), and prints
+against one process; no scale-out is measured on one card), runs the
+particle-sharded step of ``parallel/spatial.py`` (phase 26: (a) an NCCL
+world of one rank, WaterRamps' SymNet bit for bit the one-process step;
+(b) two gloo ranks on the card, each searching and convolving its own
+query rows: every K-list launch of each rank's first step against its
+plain version, a 20-step rollout under the gate, a step at "highest"
+against one process; (c) path B with the farthest-point pyramid and
+``configs/Liquid3d.yml`` as shipped, a step each against one process),
+and prints
 one ``kernels`` JSON line (each kernel variant, its launches on each path),
 the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
 kernel's ``ms`` is the mean of calls issued back to back (CUDA events
@@ -2524,10 +2532,10 @@ def path_a_phase(root, dev, max_err):
                         dev, 2, 3, max_err, momentum=True)
 
 
-def path_b_phase(root, dev, max_err):
-    """Phase 22: path B, configs/column/hrnet.yml at full width with
-    PATH_B's options, on the train split's largest scene, made on the card
-    by the column kernel."""
+def path_b_sample(root, dev):
+    """Path B's scene: the column/hrnet.yml train split's largest scene,
+    made on the card by the column kernel, its first frame as a sample on
+    ``dev``."""
     from dmcf_tpu_torch.data import (DatasetGroup, get_rollout,
                                      pad_rollout_state)
     from dmcf_tpu_torch.pipelines.simulator import _STATE_KEYS
@@ -2544,11 +2552,17 @@ def path_b_phase(root, dev, max_err):
     seqs = get_rollout(group.train, **split)
     seq = max(seqs, key=lambda s: s["pos"].shape[1])
     state = pad_rollout_state(seq)
-    sample = {k: torch.as_tensor(np.ascontiguousarray(
+    return {k: torch.as_tensor(np.ascontiguousarray(
         state[k][0] if k in ("pos", "vel", "grav") else state[k]),
         device=dev) for k in _STATE_KEYS if state.get(k) is not None}
-    return option_phase(root, "path B", "column/hrnet.yml", PATH_B, sample,
-                        dev, 3, 2, max_err, inverted=True)
+
+
+def path_b_phase(root, dev, max_err):
+    """Phase 22: path B, configs/column/hrnet.yml at full width with
+    PATH_B's options, on ``path_b_sample``."""
+    return option_phase(root, "path B", "column/hrnet.yml", PATH_B,
+                        path_b_sample(root, dev), dev, 3, 2, max_err,
+                        inverted=True)
 
 
 REF_CKPT = os.path.join("tests", "data", "tf_ckpt_liquid3d", "ckpt")
@@ -3693,6 +3707,357 @@ def multi_rank_phase(root, dev, max_err, smi):
             "received": recv, "nccl": a, "seconds": time.time() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the particle-sharded step (``parallel/spatial.make_sharded_step``):
+# every rank holds every point and searches and convolves its own block of
+# each point set's query rows on the K-list kernels, one spawned process a
+# rank (the rank bodies below)
+
+SHARDED_STEPS = 20           # (b): the timed bf16-trunk sharded rollout
+SHARDED_TOL = 1e-5           # positions, sharded step vs one process
+
+
+def on_card(sample, dev):
+    return {k: None if v is None else torch.as_tensor(v, device=dev)
+            for k, v in sample.items()}
+
+
+def even_rows(sample, world):
+    """``sample`` (numpy) with each particle array padded by masked rows
+    to a multiple of ``world`` rows (``shard_sample`` splits evenly)."""
+    out = dict(sample)
+    for keys, mask in ((("pos", "vel", "grav"), "fluid_mask"),
+                       (("box", "box_normals"), "box_mask")):
+        n = len(sample[mask])
+        pad = -n % world
+        for k in keys + (mask,):
+            if sample.get(k) is not None and pad:
+                v = np.asarray(sample[k])
+                out[k] = np.concatenate(
+                    [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+    return out
+
+
+def aux_cpu(aux):
+    """A step's aux on the CPU (the pair details as ints)."""
+    return {k: ({a: int(b) for a, b in v.items()} if isinstance(v, dict)
+                else v.detach().cpu()) for k, v in aux.items()}
+
+
+def aux_diff(got, want):
+    """The keys of two aux dicts (``aux_cpu``) that differ: every value
+    equal but the position correction, held within SHARDED_TOL."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = got[k], want[k]
+        if isinstance(b, dict):
+            same = a == b
+        elif k == "pos_correction":
+            same = float((a - b).abs().max()) <= SHARDED_TOL
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def sharded_nccl_rank(group, cfg, state, sample):
+    """Phase 26 (a), the one rank of an NCCL world: WaterRamps' SymNet at
+    its precision, the sharded step against the one-process step, bit for
+    bit, and each one's K-list launches."""
+    from dmcf_tpu_torch.parallel.spatial import (make_sharded_step,
+                                                 shard_sample)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = group.device
+    model = _card_model(cfg, state, dev)
+    s = on_card(sample, dev)
+    zero_counts()
+    with torch.no_grad():
+        p1, v1, a1 = model(s)
+    one = counts()[:2]
+    step = make_sharded_step(model, group)
+    zero_counts()
+    p, v, a = step(shard_sample(s, group))
+    torch.cuda.synchronize()
+    sharded = counts()[:2]
+    return {"transport": group.transport, "one_counts": one,
+            "counts": sharded,
+            "same": torch.equal(p, p1) and torch.equal(v, v1)
+            and not aux_diff(aux_cpu(a), aux_cpu(a1)),
+            "gathers": step.split.gathers,
+            "gather_bytes": step.split.gather_bytes,
+            "reductions": step.split.reductions}
+
+
+def sharded_gloo_rank(group, cfg, state, sample, steps, exact_runs):
+    """Phase 26 (b)-(c), one of two gloo ranks on one card.  (b)
+    WaterRamps' SymNet at its bf16 trunk: the first sharded step with
+    every K-list launch held against its plain version (each launch's
+    query rows kept), then a ``steps``-step sharded rollout, each step fed
+    this rank's own output blocks, timed between barriers, the exactness
+    gate read every step; then one sharded step of each of
+    ``exact_runs`` ((name, model config, state, numpy sample)), its
+    blocks, aux and launches (K-list fp32, bf16, FPS)."""
+    from dmcf_tpu_torch.parallel.spatial import (make_sharded_step,
+                                                 shard_sample)
+    from dmcf_tpu_torch.profile_step import launch_log
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = group.device
+    t_rank = time.time()
+    out = {"transport": group.transport, "part_s": {}}
+    max_err = {False: 0.0, True: 0.0}
+    model = _card_model(cfg, state, dev)
+    step = make_sharded_step(model, group)
+    mine = on_card(shard_sample(sample, group), dev)
+    zero_counts()
+    with launch_log(model) as log:
+        step(mine)
+    torch.cuda.synchronize()
+    out["first_counts"] = counts()[:2]
+    out["split"] = [step.split.gathers, step.split.gather_bytes,
+                    step.split.reductions]
+    t0 = time.time()
+    launch_checks(log, f"rank {group.rank}", max_err, show=False)
+    out["part_s"]["launch checks"] = time.time() - t0
+    out["rows"] = [args[0].shape[0] for _, args, _, _ in log]
+    out["checked"] = counts_of(log)
+    out["max_err"] = max_err
+    del log
+
+    k = int(model.neighbor_k)
+    gates = []
+    torch.cuda.synchronize()
+    group.barrier()
+    zero_counts()                       # this rank's rollout starts here
+    t0 = time.time()
+    for _ in range(steps):
+        p, v, aux = step(mine)
+        mine = dict(mine, pos=p, vel=v)
+        gates.append([int(aux["pair_overflow"]),
+                      int(aux["neighbor_overflow"])])
+    torch.cuda.synchronize()
+    group.barrier()
+    out["seconds"] = time.time() - t0
+    out["counts"] = counts()[:2]        # and ends here
+    out["gates"] = gates
+    out["exact"] = all(e <= 0 and n <= k for e, n in gates)
+    fm = mine["fluid_mask"].bool()
+    out["finite"] = bool(torch.isfinite(mine["pos"][fm]).all())
+    del model, step
+    for name, rcfg, rstate, rsample in exact_runs:
+        t0 = time.time()
+        model = _card_model(rcfg, rstate, dev)
+        step = make_sharded_step(model, group)
+        zero_counts()
+        p, v, aux = step(on_card(shard_sample(rsample, group), dev))
+        torch.cuda.synchronize()
+        out[name] = {"pos": p.cpu(), "vel": v.cpu(), "aux": aux_cpu(aux),
+                     "counts": counts()[:2] + [fps_launches()],
+                     "split": [step.split.gathers, step.split.gather_bytes,
+                               step.split.reductions]}
+        out["part_s"][name] = time.time() - t0
+        del model, step
+        torch.cuda.empty_cache()
+    out["part_s"]["rank"] = time.time() - t_rank
+    return out
+
+
+def sharded_phase(root, dev, max_err, smi):
+    """Phase 26: the particle-sharded step.  (a) An NCCL world of one
+    rank, spawned: WaterRamps' SymNet at full width and depth (its bf16
+    trunk, seed-0 weights) on the bench scene, the sharded step bit for
+    bit the one-process step.  (b) Two gloo ranks sharing the card: the
+    same model's first sharded step with every K-list launch of each
+    rank against its plain version (one process's 18 bf16 + 1 fp32
+    launches a rank, each at most ceil(Q/2) query rows), a timed
+    SHARDED_STEPS-step sharded rollout under the exactness gate beside one
+    process's, and one step at "highest" against one process.  (c) On
+    the same ranks, paths the halo step cannot run, one step each at
+    "highest" against one process: path B (``column/hrnet.yml`` with the
+    farthest-point pyramid, ``transpose_search_reuse``, ``equivar``,
+    circular kernels: the FPS kernel on each rank) and
+    ``configs/Liquid3d.yml`` as shipped on ``liquid_scene(MULTI_BLOCK)``
+    (the cell search, its K budgets and caps: overflows included).  Two
+    ranks share one card: no scale-out is measured.  Returns the
+    launches and the figures."""
+    import yaml
+
+    from dmcf_tpu_torch.models import build_model
+    from dmcf_tpu_torch.parallel.dist import spawn
+    from dmcf_tpu_torch.profile_step import record_launches
+    from dmcf_tpu_torch.scene import bench_sample, build_scene
+
+    t_phase = time.time()
+    with open(os.path.join(root, "configs", "WaterRamps.yml")) as f:
+        wcfg = yaml.safe_load(f)["model"]
+    tsample = bench_sample(*build_scene(), device=dev)
+    sample = {k: v.cpu().numpy() for k, v in tsample.items()}
+    model = build_model(wcfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    n_rows = len(sample["pos"]) + len(sample["box"])
+
+    part("(a) NCCL, world size 1, spawned")
+    t0 = time.time()
+    (a,) = spawn(sharded_nccl_rank, 1, backend="nccl", devices=["cuda:0"],
+                 args=(wcfg, state, sample))
+    print(f"  ({smi}) {a['transport']}: WaterRamps SymNet (bf16 trunk) on "
+          f"{int(sample['fluid_mask'].sum())} fluid + "
+          f"{int(sample['box_mask'].sum())} boundary ({n_rows} rows): the "
+          f"sharded step bitwise the one-process step: {a['same']}; "
+          f"launches {a['counts']} (one process {a['one_counts']}); "
+          f"{a['gathers']} all-gathers ({a['gather_bytes']} B), "
+          f"{a['reductions']} reductions; {time.time() - t0:.1f} s")
+    check(a["transport"] == "nccl", "(a) runs on NCCL")
+    check(a["same"], "(a) the sharded step at world size 1 is bitwise the "
+          "one-process step")
+    check(a["counts"] == a["one_counts"] == [1, 18],
+          f"(a) launches {a['counts']}, one process {a['one_counts']}")
+
+    # one process: the bf16 step's launches, its rollout timed as the
+    # ranks' (the gate read every step), and each exact run's step
+    (_, _, _), one_log = record_launches(model, tsample)
+    one_rows = [args[0].shape[0] for _, args, _, _ in one_log]
+    step_counts = counts_of(one_log)
+    k = int(model.neighbor_k)
+    with torch.no_grad():
+        model(tsample)                               # warm-up step
+        torch.cuda.synchronize()
+        cur, gates1 = dict(tsample), []
+        t0 = time.time()
+        for _ in range(SHARDED_STEPS):
+            p, v, aux = model(cur)
+            cur = dict(cur, pos=p, vel=v)
+            gates1.append([int(aux["pair_overflow"]),
+                           int(aux["neighbor_overflow"])])
+        torch.cuda.synchronize()
+    ms1 = 1e3 * (time.time() - t0) / SHARDED_STEPS
+    exact1 = all(e <= 0 and n <= k for e, n in gates1)
+    del model
+    exact_runs, refs = [], {}
+    with open(os.path.join(root, "configs", "column", "hrnet.yml")) as f:
+        bcfg = dict(yaml.safe_load(f)["model"], **PATH_B,
+                    precision="highest")
+    with open(os.path.join(root, "configs", "Liquid3d.yml")) as f:
+        lcfg = dict(yaml.safe_load(f)["model"], precision="highest")
+    lsample = {k_: v.cpu().numpy() for k_, v in bench_sample(
+        *liquid_scene(MULTI_BLOCK), device=dev).items()}
+    for name, cfg, smp in (
+            ("waterramps", dict(wcfg, precision="highest"), sample),
+            ("path_b", bcfg, even_rows({
+                k_: v.cpu().numpy()
+                for k_, v in path_b_sample(root, dev).items()}, 2)),
+            ("liquid3d", lcfg, lsample)):
+        m = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+        zero_counts()
+        with torch.no_grad():
+            p, v, aux = m(on_card(smp, dev))
+        torch.cuda.synchronize()
+        refs[name] = {"pos": p.cpu(), "vel": v.cpu(), "aux": aux_cpu(aux),
+                      "counts": counts()[:2] + [fps_launches()],
+                      "rows": len(smp["pos"]) + len(smp["box"]),
+                      "fm": torch.from_numpy(smp["fluid_mask"].astype(bool)),
+                      "fluid": int(smp["fluid_mask"].sum()),
+                      "boundary": int(smp["box_mask"].sum())}
+        exact_runs.append((name, cfg, {k_: v.cpu() for k_, v in
+                                       m.state_dict().items()}, smp))
+        del m
+    torch.cuda.empty_cache()
+
+    part("(b)-(c) gloo, 2 ranks on cuda:0")
+    t0 = time.time()
+    ranks = spawn(sharded_gloo_rank, 2, backend="gloo",
+                  devices=["cuda:0", "cuda:0"],
+                  args=(wcfg, state, sample, SHARDED_STEPS, exact_runs))
+    spawn_s = time.time() - t0
+    for i, r in enumerate(ranks):
+        check(r["transport"] == "gloo via pinned host memory",
+              f"(b) rank {i} transport {r['transport']}")
+        for half in (False, True):
+            max_err[half] = max(max_err[half], r["max_err"][half])
+        check(r["checked"] == step_counts == [1, 18]
+              and r["first_counts"] == step_counts,
+              f"(b) rank {i} first-step launches {r['checked']}, one "
+              f"process {step_counts}")
+        check(len(r["rows"]) == len(one_rows) and all(
+            q <= -(-n // 2) for q, n in zip(r["rows"], one_rows)),
+              f"(b) rank {i} launch rows {r['rows']} vs one process "
+              f"{one_rows}")
+        check(r["finite"], f"(b) rank {i} finite rollout")
+        check(r["exact"], f"(b) rank {i} exactness gate {r['gates']}")
+        check(r["counts"] == [SHARDED_STEPS * c for c in step_counts],
+              f"(b) rank {i} rollout launches {r['counts']}")
+    ms2 = 1e3 * max(r["seconds"] for r in ranks) / SHARDED_STEPS
+    print("  rank seconds: " + "; ".join(
+        f"rank {i} " + ", ".join(f"{k_} {v:.1f}"
+                                 for k_, v in r["part_s"].items())
+        for i, r in enumerate(ranks)))
+    print(f"  (b) first sharded step of each rank: launches "
+          f"{[r['checked'] for r in ranks]} (one process {step_counts}), "
+          f"query rows a launch rank 0 {ranks[0]['rows']}, rank 1 "
+          f"{ranks[1]['rows']} of {one_rows}; all-gathers a step "
+          f"{ranks[0]['split'][0]} ({ranks[0]['split'][1]} B gathered), "
+          f"reductions {ranks[0]['split'][2]}; max_abs_err fp32 "
+          f"{max(r['max_err'][False] for r in ranks):.3e} bf16 "
+          f"{max(r['max_err'][True] for r in ranks):.3e}")
+    print(f"  ({smi}) (b) {SHARDED_STEPS}-step sharded rollout (bf16 "
+          f"trunk): {ms2:.1f} ms/step on 2 ranks sharing one card (no "
+          f"scale-out), one process {ms1:.1f} ms/step; gate exact every "
+          f"step: ranks {[r['exact'] for r in ranks]}, one process "
+          f"{exact1}; launches a rank {[r['counts'] for r in ranks]}")
+    figures = {}
+    for name, ref in refs.items():
+        got_p = torch.cat([r[name]["pos"] for r in ranks])
+        got_v = torch.cat([r[name]["vel"] for r in ranks])
+        fm = ref["fm"]
+        err = float((got_p - ref["pos"])[fm].abs().max())
+        verr = float((got_v - ref["vel"])[fm].abs().max())
+        bitwise = torch.equal(got_p, ref["pos"]) and torch.equal(
+            got_v, ref["vel"])
+        bad = [aux_diff(r[name]["aux"], ref["aux"]) for r in ranks]
+        aux = ref["aux"]
+        over = {k_: aux[k_].tolist() if torch.is_tensor(aux[k_])
+                else aux[k_] for k_ in ("neighbor_overflow", "pair_overflow",
+                                        "cell_overflow", "scale_counts",
+                                        "scale_caps") if k_ in aux}
+        print(f"  ({smi}) {name} at highest ({ref['fluid']} fluid + "
+              f"{ref['boundary']} boundary, {ref['rows']} rows): sharded "
+              f"vs one process positions {err:.3e}, velocities "
+              f"{verr:.3e}, bitwise {bitwise}; aux keys that differ "
+              f"{bad}; one process's overflows {over}; launches a rank "
+              f"(K-list fp32, bf16, FPS) "
+              f"{[r[name]['counts'] for r in ranks]}, one process "
+              f"{ref['counts']}; all-gathers a step "
+              f"{ranks[0][name]['split']}")
+        check(err <= SHARDED_TOL, f"{name}: sharded vs one process {err}")
+        check(not any(bad), f"{name}: aux differs in {bad}")
+        check(all(r[name]["counts"] == ref["counts"] for r in ranks),
+              f"{name}: each rank's launches as one process's")
+        figures[name] = {"pos_err": err, "vel_err": verr,
+                         "bitwise": bitwise, "overflows": over,
+                         "split": ranks[0][name]["split"]}
+    check(refs["path_b"]["counts"][2] == 3, "path B: the FPS kernel on "
+          "each rank, 3 launches a step")
+    paths = {"sharded_nccl": a["counts"],
+             "sharded_first_step": [sum(r["first_counts"][i] for r in ranks)
+                                    for i in range(2)],
+             "sharded_rollout": [sum(r["counts"][i] for r in ranks)
+                                 for i in range(2)],
+             "sharded_exact": [sum(r[n]["counts"][i] for r in ranks
+                                   for n in refs) for i in range(3)]}
+    print(f"  launches (K-list fp32, bf16; FPS last in sharded_exact), "
+          f"summed over the ranks: {paths}; spawn and ranks {spawn_s:.1f} "
+          f"s; phase {time.time() - t_phase:.1f} s")
+    return {"paths": paths, "ms_per_step": ms2, "ms_per_step_1": ms1,
+            "split": ranks[0]["split"], "figures": figures, "nccl": a,
+            "seconds": time.time() - t_phase}
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
@@ -3994,6 +4359,13 @@ def main(argv):
           f"the DP train step with one item a rank")
     multi = multi_rank_phase(root, dev, max_err, smi)
 
+    phase(f"26 the particle-sharded step: (a) NCCL, world size 1, bitwise "
+          f"the one-process step; (b) gloo, 2 ranks on one card: every "
+          f"K-list launch of each rank's first step vs plain, a "
+          f"{SHARDED_STEPS}-step rollout, a step at highest vs one process;"
+          f" (c) path B and Liquid3d as shipped at highest vs one process")
+    sharded = sharded_phase(root, dev, max_err, smi)
+
     pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
         "(pallas_continuous_conv)"
     vjp = "none (no TPU kernel): the VJP of dmcf_tpu/ops/cconv.py:173 " \
@@ -4034,6 +4406,8 @@ def main(argv):
             "reference_ckpt_launches": reference["launches"][int(half)],
             "multi_rank_launches": {k: v[int(half)]
                                     for k, v in multi["paths"].items()},
+            "sharded_launches": {k: v[int(half)]
+                                 for k, v in sharded["paths"].items()},
             "max_abs_err": max_err[half],
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
@@ -4167,6 +4541,8 @@ def main(argv):
         "path_b_launches": path_b["launches"][2],
         "path_a_train_launches": path_a["train"]["launches"][6],
         "path_b_train_launches": path_b["train"]["launches"][6],
+        "sharded_launches": {"sharded_exact":
+                             sharded["paths"]["sharded_exact"][2]},
         # the largest difference of any output element (idx, mask) from
         # the plain version over every checked launch of both paths
         "max_abs_err": max(path_a["fps_max_abs_err"],
@@ -4256,6 +4632,15 @@ def main(argv):
           f"{multi['ms_per_step_1']:.1f}) "
           f"(no scale-out), DP gradients within "
           f"{multi['dp_grad_rel_err']:.2e}; phase {multi['seconds']:.1f} s")
+    print(f"sharded step ({smi}): (a) bitwise at world size 1 "
+          f"{sharded['nccl']['same']}; (b) {SHARDED_STEPS}-step rollout "
+          f"{sharded['ms_per_step']:.1f} ms/step on 2 ranks sharing one card "
+          f"(one process {sharded['ms_per_step_1']:.1f}; no scale-out), "
+          f"{sharded['split'][0]} all-gathers a step "
+          f"({sharded['split'][1]} B); (c) " + ", ".join(
+              f"{k} {v['pos_err']:.2e} (bitwise {v['bitwise']})"
+              for k, v in sharded["figures"].items())
+          + f"; phase {sharded['seconds']:.1f} s")
     print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "
           f"fp32 {1e3 * dt32 / FP32_STEPS:.3f} ms/step ({FP32_STEPS} "
           f"steps)")

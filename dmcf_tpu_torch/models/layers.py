@@ -21,7 +21,8 @@ from ..ops.cconv import (build_circular_kernel, build_symmetric_kernel,
                          continuous_conv, continuous_conv_dense,
                          continuous_conv_dense_lazy, point_sampling)
 from ..ops.neighbors import (DensePair, LazyDensePair, NeighborList,
-                             fixed_radius_search, invert_neighbors_list)
+                             all_rows, fixed_radius_search,
+                             invert_neighbors_list, take_rows)
 
 
 def _uniform(shape, scale, generator, device):
@@ -54,6 +55,12 @@ class ContinuousConv(nn.Module):
     ``inp_importance`` [N] scales each source's slots (the K-list conv's
     per-slot weight; on a DensePair the pair field's); the lazy dense path
     raises for it, as the reference asserts.
+
+    A neighbor structure with ``rows`` (the sharded step's, see
+    ``parallel/spatial.py``) holds one rank's block of the query rows: the
+    conv computes those rows alone, the query-side inputs (output
+    positions, query features, per-query extents) cut to them, and
+    returns every row, gathered from the ranks.
     """
 
     def __init__(self, in_channels: int, filters: int,
@@ -121,6 +128,14 @@ class ContinuousConv(nn.Module):
         """``cached_taps``: the K-list conv computes what the reference's
         conv over a model-cached tap tensor does (``ops.cconv``)."""
         kernel = self.full_kernel()
+        rows = getattr(neighbors, "rows", None)
+        if rows is not None:
+            out_positions = rows.take(out_positions)
+            if self.symmetric_conv and query_features is None:
+                query_features = inp_features
+            query_features = take_rows(rows, query_features)
+            if torch.is_tensor(extents) and extents.ndim == 1:
+                extents = rows.take(extents)
         if isinstance(neighbors, (DensePair, LazyDensePair)) and (
                 self.symmetric_conv or self.normalize):
             raise ValueError("dense conv path covers plain trunk convs only")
@@ -178,7 +193,7 @@ class ContinuousConv(nn.Module):
                 "ported yet")
         if self.bias is not None:
             out = out + self.bias
-        return out
+        return all_rows(rows, out)
 
 
 class _SparseBase(nn.Module):
@@ -298,7 +313,8 @@ def _k_slice(nl: NeighborList, start, stop) -> NeighborList:
         idx=nl.idx[:, start:stop], mask=nl.mask[:, start:stop],
         dist=nl.dist[:, start:stop], count=nl.count,
         cell_overflow=nl.cell_overflow,
-        disp=None if nl.disp is None else nl.disp[:, start:stop])
+        disp=None if nl.disp is None else nl.disp[:, start:stop],
+        rows=nl.rows)
 
 
 def _glorot(in_features, units, generator, device):

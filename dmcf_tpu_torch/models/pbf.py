@@ -52,7 +52,8 @@ from torch import nn
 from .. import resolve_device
 from ..ops.cconv import dense_geometry, point_sampling
 from ..ops.neighbors import (DensePair, LazyDensePair, NeighborList,
-                             invert_neighbors_list, search, select_k_valid)
+                             all_rows, gather_list, invert_neighbors_list,
+                             search, select_k_valid, slice_list, take_rows)
 from ..ops.sph import (align_vector, compute_pressure,
                        compute_transformed_dx, get_dilated_pos,
                        masked_positions)
@@ -70,7 +71,7 @@ def subset_neighbors(nl: NeighborList, keep) -> NeighborList:
         dist=torch.where(mask, nl.dist, 0.0),
         count=mask.sum(dim=1, dtype=torch.int32),
         disp=None if nl.disp is None else
-        torch.where(mask[..., None], nl.disp, 0.0))
+        torch.where(mask[..., None], nl.disp, 0.0), rows=nl.rows)
 
 
 def drop_coincident(nl: NeighborList, points=None,
@@ -81,7 +82,8 @@ def drop_coincident(nl: NeighborList, points=None,
     if nl.disp is not None:
         same = nl.mask & (nl.disp == 0.0).all(dim=-1)
     else:
-        same = (points[nl.idx.long()] == queries[:, None, :]).all(dim=-1)
+        same = (points[nl.idx.long()]
+                == take_rows(nl.rows, queries)[:, None, :]).all(dim=-1)
     return subset_neighbors(nl, lambda idx, dist: ~same)
 
 
@@ -90,15 +92,30 @@ class SearchCache:
     dense pair field per (src, dst, radius), shared by every conv.  With
     ``transpose_reuse`` a pair whose transpose was searched already is
     that list inverted (``invert_neighbors_list``), exact wherever the
-    transpose kept every neighbour."""
+    transpose kept every neighbour.
+
+    ``split`` (the sharded step's ``parallel.spatial.RowSplit``; None in
+    one process): every structure holds this rank's block of its query
+    rows (``rows``), and ``pmax`` / ``psum`` reduce over the ranks."""
 
     def __init__(self, k: int, method: str = "auto", occ_cap: int = 128,
-                 transpose_reuse: bool = False):
+                 transpose_reuse: bool = False, split=None):
         self.k = k
         self.method = method
         self.occ_cap = occ_cap
         self.transpose_reuse = transpose_reuse
+        self.split = split
         self._cache: Dict[Tuple, object] = {}
+
+    def rows(self, n):
+        """This rank's rows of an n-row query set (None in one process)."""
+        return None if self.split is None else self.split.rows(n)
+
+    def pmax(self, t):
+        return t if self.split is None else self.split.pmax(t)
+
+    def psum(self, t):
+        return t if self.split is None else self.split.psum(t)
 
     def get_dense(self, src_name, dst_name, radius, points, pmask, queries,
                   qmask, lazy=False):
@@ -107,16 +124,18 @@ class SearchCache:
         rebuilds the field a source chunk at a time)."""
         key = ("dense", src_name, dst_name, float(radius))
         if key not in self._cache:
+            rows = self.rows(queries.shape[0])
+            queries, qmask = take_rows(rows, queries), take_rows(rows, qmask)
             if lazy:
                 self._cache[key] = LazyDensePair(
                     src_pos=points, src_mask=pmask.bool(), dst_pos=queries,
-                    dst_mask=qmask.bool(), radius=float(radius))
+                    dst_mask=qmask.bool(), radius=float(radius), rows=rows)
             else:
                 rel, qnorm, valid = dense_geometry(points, pmask, queries,
                                                    qmask, radius)
                 self._cache[key] = DensePair(
                     rel=rel, qnorm=qnorm, valid=valid,
-                    count=valid.sum(dim=1, dtype=torch.int32))
+                    count=valid.sum(dim=1, dtype=torch.int32), rows=rows)
         return self._cache[key]
 
     def get(self, src_name, dst_name, radius, points, pmask, queries, qmask,
@@ -125,13 +144,17 @@ class SearchCache:
         tkey = (dst_name, src_name, float(radius))
         if key not in self._cache and self.transpose_reuse \
                 and src_name != dst_name and tkey in self._cache:
-            self._cache[key] = invert_neighbors_list(
-                self._cache[tkey], queries.shape[0], k or self.k)
+            # the transpose's whole list (its rows from every rank), then
+            # this rank's rows of its inverse
+            self._cache[key] = slice_list(invert_neighbors_list(
+                gather_list(self._cache[tkey]), queries.shape[0],
+                k or self.k), self.rows(queries.shape[0]))
         elif key not in self._cache:
             self._cache[key] = search(
                 points, queries, radius, k or self.k, method=self.method,
                 points_mask=pmask, queries_mask=qmask,
-                occ_cap=occ_cap or self.occ_cap)
+                occ_cap=occ_cap or self.occ_cap,
+                rows=self.rows(queries.shape[0]))
         return self._cache[key]
 
 
@@ -290,8 +313,11 @@ class PBFNet(nn.Module):
     def caches_taps(self, nl, kernel_size=None):
         """Whether the reference caches the taps of a K-list conv over
         ``nl`` (``pbf.py:pair_taps``: Q*K*S at most
-        ``tap_cache_max_elems``)."""
+        ``tap_cache_max_elems``; Q of the whole query set where ``nl``
+        holds one rank's rows)."""
         q, k = nl.idx.shape
+        if nl.rows is not None:
+            q = nl.rows.n
         return q * k * int(np.prod(kernel_size or self.kernel_size)) \
             <= self.tap_cache_max_elems
 
@@ -431,7 +457,7 @@ class PBFNet(nn.Module):
     # ------------------------------------------------------------------
     # main step
 
-    def forward(self, sample, training=False, vel_corr=None):
+    def forward(self, sample, training=False, vel_corr=None, split=None):
         """One simulation step.
 
         ``sample``: dict of padded tensors ``pos`` [N,3], ``vel`` [N,3],
@@ -441,10 +467,12 @@ class PBFNet(nn.Module):
         an externally corrected velocity (the training ``iterations``
         loop), used in place of the advected one, its gradient stopped.
         ``training`` selects the dense pairs' source chunking
-        (``dense_n_chunk``).  Returns (pos, vel, aux).
+        (``dense_n_chunk``).  ``split``: the sharded step's query-row
+        split (``parallel.spatial.make_sharded_step``; the sample whole on
+        every rank).  Returns (pos, vel, aux).
         """
         data, R = self.transform(sample)
-        ctx = self.preprocess(data, vel_corr=vel_corr)
+        ctx = self.preprocess(data, vel_corr=vel_corr, split=split)
         out = self.net_forward(ctx, data, training=training)
         pos, vel, aux = self.postprocess(out, ctx, data, vel_corr=vel_corr)
         pos, vel = self.inv_transform(pos, vel, R)
@@ -453,10 +481,10 @@ class PBFNet(nn.Module):
         vel = torch.where(fm[:, None], vel, 0.0)
         return pos, vel, aux
 
-    def preprocess(self, data, vel_corr=None):
+    def preprocess(self, data, vel_corr=None, split=None):
         """Advect (or take ``vel_corr``), assemble features, run the
         scale-0 convs, build the position pyramid (and the density
-        pyramid with ``dens_norm``)."""
+        pyramid with ``dens_norm``); ``split`` as ``forward``'s."""
         acc = data.get("grav")
         feats_in = data.get("feats")
         box, bfeats = data["box"], data["box_normals"]
@@ -483,7 +511,8 @@ class PBFNet(nn.Module):
 
         cache = SearchCache(self.neighbor_k, method=self.search_method,
                             occ_cap=self.occ_for_radius(self._radii[-1]),
-                            transpose_reuse=self.transpose_search_reuse)
+                            transpose_reuse=self.transpose_search_reuse,
+                            split=split)
 
         # the pyramid is built over every particle, or over the fluid alone
         # without ``use_bnds``
@@ -541,7 +570,8 @@ class PBFNet(nn.Module):
                                             device=all_pos.device)
             w = self.window_dens_fn(q) if self.window_dens_fn is not None \
                 else q
-            dens = torch.where(nl_dens.mask, w, 0.0).sum(dim=1)
+            dens = all_rows(nl_dens.rows,
+                            torch.where(nl_dens.mask, w, 0.0).sum(dim=1))
             if self.dens_feats:
                 fluid_feats.append(dens[:n_fluid, None])
                 box_feats.append(dens[n_fluid:, None])
@@ -610,9 +640,9 @@ class PBFNet(nn.Module):
                                  dmask[scale - 1], dpos[scale], dmask[scale],
                                  occ_cap=self.occ_for_radius(ext_s / 2.0),
                                  k=self.k_for_pair(scale - 1, scale))
-                d = torch.clamp(point_sampling(
+                d = all_rows(nl_s.rows, torch.clamp(point_sampling(
                     dens_pyramid[-1], nl_s, ext_s,
-                    window_fn=self.window_dens_fn, normalize=True), min=1e-2)
+                    window_fn=self.window_dens_fn, normalize=True), min=1e-2))
                 dens_pyramid.append(torch.where(dmask[scale][:, None], d,
                                                 1.0))
 
@@ -664,6 +694,25 @@ class PBFNet(nn.Module):
             detail[f"{ckey[0]}>{ckey[1]}@{ckey[2]:g}"] = e
         return torch.stack(excess).max(), detail
 
+    def neighbor_stats(self, ctx, nl, mask):
+        """The step's neighbour statistics: over ``nl``'s rows (``mask``
+        their validity, the whole set's) the largest count, the sum of the
+        valid rows' counts and the largest cell overflow (None without),
+        and ``pair_excess``.  In the sharded step each is over every
+        rank's rows: one ``pmax``, one ``psum``."""
+        cache = ctx["cache"]
+        excess, detail = self.pair_excess(ctx)
+        top = [nl.count.max(), excess, *detail.values()]
+        if nl.cell_overflow is not None:
+            top.append(nl.cell_overflow.max())
+        top = cache.pmax(torch.stack([t.to(torch.int32) for t in top]))
+        total = cache.psum(torch.where(take_rows(nl.rows, mask), nl.count,
+                                       0).sum())
+        return dict(
+            neighbor_overflow=top[0], count_sum=total, pair_overflow=top[1],
+            pair_overflow_detail=dict(zip(detail, top[2:2 + len(detail)])),
+            cell_overflow=top[-1] if nl.cell_overflow is not None else None)
+
     def postprocess(self, out, ctx, data, vel_corr=None):
         """Scale the net output into a position correction, re-integrate,
         and report the neighbor statistics."""
@@ -672,8 +721,9 @@ class PBFNet(nn.Module):
         n_fluid = ctx["n_fluid"]
         dev = pos.device
 
-        num_fluid_neighbors = ctx["nl_fluid0"].mask.sum(dim=1).to(
-            torch.float32)[:n_fluid]
+        nl_fluid0 = ctx["nl_fluid0"]
+        num_fluid_neighbors = all_rows(nl_fluid0.rows, nl_fluid0.mask.sum(
+            dim=1).to(torch.float32))[:n_fluid]
 
         if self.equivar:
             out = self.equivariant_output(out, ctx)
@@ -694,25 +744,23 @@ class PBFNet(nn.Module):
         pos_out, vel_out = self.compute_new_pos_vel(pos, vel, pos2, vel2,
                                                     pos_correction)
 
-        excess, detail = self.pair_excess(ctx)
         all_mask = ctx["all_mask"]
         n_valid = torch.clamp(all_mask.sum(), min=1)
-        nl_all0 = ctx["nl_all0"]
+        stats = self.neighbor_stats(ctx, ctx["nl_all0"], all_mask)
         aux = {
             "num_fluid_neighbors": num_fluid_neighbors,
             "pos_correction": pos_correction,
-            "neighbor_overflow": nl_all0.count.max(),
-            "pair_overflow": excess,
-            "pair_overflow_detail": detail,
-            "avg_neighbors": torch.where(all_mask, nl_all0.count, 0).sum()
-            / n_valid,
+            "neighbor_overflow": stats["neighbor_overflow"],
+            "pair_overflow": stats["pair_overflow"],
+            "pair_overflow_detail": stats["pair_overflow_detail"],
+            "avg_neighbors": stats["count_sum"] / n_valid,
             "scale_counts": torch.stack([c.to(torch.int32)
                                          for c in ctx["dilated_count"]]),
             "scale_caps": torch.tensor(ctx["dilated_caps"],
                                        dtype=torch.int32, device=dev),
         }
-        if nl_all0.cell_overflow is not None:
-            aux["cell_overflow"] = nl_all0.cell_overflow.max()
+        if stats["cell_overflow"] is not None:
+            aux["cell_overflow"] = stats["cell_overflow"]
         if ctx["boundary_crop_count"] is not None:
             aux["boundary_crop_count"] = ctx["boundary_crop_count"]
         return pos_out, vel_out, aux

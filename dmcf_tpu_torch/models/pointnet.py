@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.neighbors import all_rows
 from .hrnet import _act
 from .pbf import PBFNet
 
@@ -53,8 +54,8 @@ class PointNet(PBFNet):
         for dense in self.denses:
             f = torch.where(mask[:, None], torch.relu(ans), 0.0)
             d = torch.where(mask[:, None], dense(f), 0.0)
-            pooled = torch.where(nl.mask[..., None], d[nl.idx.long()],
-                                 0.0).sum(dim=1)
+            pooled = all_rows(nl.rows, torch.where(
+                nl.mask[..., None], d[nl.idx.long()], 0.0).sum(dim=1))
             ans = pooled + ans if pooled.shape[-1] == ans.shape[-1] \
                 else pooled
         return _act(self.out_activation)(ans)
@@ -69,8 +70,8 @@ class PointNet(PBFNet):
         fluid_mask = data["fluid_mask"].bool()
         n_fluid = ctx["n_fluid"]
         nl = ctx["nl_pointnet"]
-        num_fluid_neighbors = nl.mask.sum(dim=1).to(
-            torch.float32)[:n_fluid]
+        num_fluid_neighbors = all_rows(nl.rows, nl.mask.sum(dim=1).to(
+            torch.float32))[:n_fluid]
         if self.equivar:
             out = self.equivariant_output(out, ctx)
         out_scale = torch.tensor(self.out_scale, dtype=torch.float32,
@@ -84,18 +85,18 @@ class PointNet(PBFNet):
             pos2, vel2 = self.integrate_pos_vel(pos, vel, data.get("grav"))
         pos_out, vel_out = self.compute_new_pos_vel(pos, vel, pos2, vel2,
                                                     pos_correction)
-        excess, detail = self.pair_excess(ctx)
         all_mask = ctx["all_mask"]
+        stats = self.neighbor_stats(ctx, nl, all_mask)
         aux = {
             "num_fluid_neighbors": num_fluid_neighbors,
             "pos_correction": pos_correction,
-            "neighbor_overflow": nl.count.max(),
+            "neighbor_overflow": stats["neighbor_overflow"],
             "scale_counts": torch.stack([c.to(torch.int32)
                                          for c in ctx["dilated_count"]]),
-            "avg_neighbors": torch.where(all_mask, nl.count, 0).sum()
+            "avg_neighbors": stats["count_sum"]
             / torch.clamp(all_mask.sum(), min=1),
-            "pair_overflow": excess,
-            "pair_overflow_detail": detail,
+            "pair_overflow": stats["pair_overflow"],
+            "pair_overflow_detail": stats["pair_overflow_detail"],
             "scale_caps": torch.tensor(ctx["dilated_caps"],
                                        dtype=torch.int32, device=pos.device),
         }

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .neighbors import (NeighborList, metric_dist, radius_threshold,
-                        recompute_dist, select_k_valid, sq_norm,
+                        recompute_dist, select_k_valid, sq_norm, take_rows,
                         to_int32_saturating)
 
 _G = 1024  # virtual grid cells per axis (scene must fit G-2 per axis)
@@ -50,12 +50,20 @@ def cell_fixed_radius_search(points, queries, radius, k, points_mask=None,
                              queries_mask=None, metric: str = "L2",
                              ignore_query_point: bool = False,
                              occ_cap: int = 64, block_q: int = 32,
-                             block_chunk: int = 1024) -> NeighborList:
+                             block_chunk: int = 1024,
+                             rows=None) -> NeighborList:
     """Fixed-radius search by the sorted-window cell list (module
     docstring): the in-radius points of each query capped at K by sorted
     position, ``count`` the true count seen, ``cell_overflow`` the rows its
     block's windows dropped (plus 2^20 where the scene's span does not fit
-    the grid)."""
+    the grid).
+
+    ``rows`` (the sharded step's block of the query rows): a block's
+    windows span its queries, so the list depends on which queries share a
+    block.  Every rank sorts all the queries into the one-process blocks,
+    searches its share of the blocks, gathers the blocks' slots and
+    returns the list of its ``rows``: the one-process list's rows, window
+    drops included."""
     n, q = points.shape[0], queries.shape[0]
     dev, dt = points.device, points.dtype
     r = torch.tensor(float(radius), dtype=dt, device=dev)
@@ -157,13 +165,27 @@ def cell_fixed_radius_search(points, queries, radius, k, points_mask=None,
 
     per_block = block_q * 9 * w * 3 * points.element_size()
     bc = max(1, min(block_chunk, TRANSIENT_BYTES // per_block))
-    outs = [process(lo[s:s + bc], cnt[s:s + bc], sq_blocks[s:s + bc],
-                    bvalid[s:s + bc]) for s in range(0, n_blocks, bc)]
-    pos_sorted, kmask, count = (torch.cat(x) for x in zip(*outs))
+    b_lo, b_hi = ((0, n_blocks) if rows is None else
+                  rows.split.block(n_blocks))
+    outs = [process(lo[s:e], cnt[s:e], sq_blocks[s:e], bvalid[s:e])
+            for s in range(b_lo, b_hi, bc) for e in [min(s + bc, b_hi)]]
+    if outs:
+        pos_sorted, kmask, count = (torch.cat(x) for x in zip(*outs))
+    else:                  # a rank with no block (fewer blocks than ranks)
+        pos_sorted = torch.zeros((0, block_q, k), dtype=torch.long,
+                                 device=dev)
+        kmask = torch.zeros((0, block_q, k), dtype=torch.bool, device=dev)
+        count = torch.zeros((0, block_q), dtype=torch.int32, device=dev)
+    if rows is not None:   # every block's slots, from the ranks
+        pos_sorted, kmask, count = (
+            rows.split.gather(x, n_blocks) for x in
+            (pos_sorted.to(torch.int32), kmask, count))
 
-    # rows back to the original query order
+    # rows back to the original query order (this rank's rows)
     iperm = torch.empty((q,), dtype=torch.long, device=dev)
     iperm[qorder.long()] = torch.arange(q, device=dev)
+    iperm, qm = take_rows(rows, iperm), take_rows(rows, qm)
+    queries = take_rows(rows, queries)
     idx_sorted = pos_sorted.reshape(q_pad, k)[iperm]
     mask_k = kmask.reshape(q_pad, k)[iperm] & qm[:, None]
     count_q = torch.where(qm, count.reshape(q_pad)[iperm], 0)

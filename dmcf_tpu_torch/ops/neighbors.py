@@ -15,6 +15,11 @@ as the reference does.  Every search takes the reference's three metrics:
 "L2" (squared distances against r^2, the dense path by the expansion form),
 "L1" and "Linf" (direct differences against r).  ``radius_search`` takes a
 radius a query.
+
+Every structure has an optional ``rows``: in the particle-sharded step
+(``parallel/spatial.py``) a list holds one rank's block of the query rows
+(``rows.lo:rows.hi`` of ``rows.n``), and ``rows.gather`` puts a per-row
+result back together on every rank; None elsewhere.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ class DensePair(NamedTuple):
     qnorm: torch.Tensor
     valid: torch.Tensor
     count: torch.Tensor
+    rows: Optional[object] = None
 
 
 class LazyDensePair(NamedTuple):
@@ -55,6 +61,7 @@ class LazyDensePair(NamedTuple):
     dst_pos: torch.Tensor
     dst_mask: torch.Tensor
     radius: float
+    rows: Optional[object] = None
 
 
 class NeighborList(NamedTuple):
@@ -77,6 +84,41 @@ class NeighborList(NamedTuple):
     count: torch.Tensor
     cell_overflow: Optional[torch.Tensor] = None
     disp: Optional[torch.Tensor] = None
+    rows: Optional[object] = None
+
+
+def take_rows(rows, t):
+    """This rank's query rows of ``t`` (all of it where ``rows`` is None
+    or ``t`` is)."""
+    return t if rows is None or t is None else t[rows.lo:rows.hi]
+
+
+def all_rows(rows, t):
+    """Every query row of a per-row result ``t`` of this rank's rows:
+    gathered from the ranks, or ``t`` where ``rows`` is None."""
+    return t if rows is None else rows.gather(t)
+
+
+def gather_list(nl: NeighborList) -> NeighborList:
+    """The whole list of a list of this rank's rows (``nl.rows``): each
+    field gathered from the ranks; ``nl`` itself where it has no rows."""
+    if nl.rows is None:
+        return nl
+    return NeighborList(*(None if f is None else nl.rows.gather(f)
+                          for f in nl[:-1]))
+
+
+def slice_list(nl: NeighborList, rows) -> NeighborList:
+    """This rank's rows of a whole list, marked with ``rows``; ``nl``
+    itself where ``rows`` is None."""
+    if rows is None:
+        return nl
+    return NeighborList(*(take_rows(rows, f) for f in nl[:-1]), rows=rows)
+
+
+def auto_method(n_points, n_queries):
+    """``search``'s 'auto' choice: the cell search where N*Q > 3e7."""
+    return "cell" if n_points * n_queries > 3e7 else "brute"
 
 
 def to_int32_saturating(x):
@@ -258,31 +300,39 @@ def batched_fixed_radius_search(points, queries, radii, k, points_mask=None,
 
 def search(points, queries, radius, k, *, method="auto", points_mask=None,
            queries_mask=None, metric="L2", ignore_query_point=False,
-           cell_cap=32, planar_axis=None, occ_cap=128):
+           cell_cap=32, planar_axis=None, occ_cap=128, rows=None):
     """Dispatching fixed-radius search, as the reference's: 'cell' (the
     sorted-window cell list), 'grid' (the hash-probe cell list), 'brute'
     (``fixed_radius_search``), or 'auto': the cell search where N*Q > 3e7,
-    else brute."""
+    else brute.  With ``rows`` (the sharded step's block of the query
+    rows) the list holds those rows alone, and 'auto' decides on every
+    query; the cell search, whose query blocks span the rows, takes the
+    whole query set and its share of the blocks."""
     if method == "auto":
-        method = ("cell" if points.shape[0] * queries.shape[0] > 3e7
-                  else "brute")
+        method = auto_method(points.shape[0], queries.shape[0])
     if method == "cell":
         from .cell_search import cell_fixed_radius_search
-        return cell_fixed_radius_search(
+        nl = cell_fixed_radius_search(
             points, queries, radius, k, points_mask=points_mask,
             queries_mask=queries_mask, metric=metric,
-            ignore_query_point=ignore_query_point, occ_cap=occ_cap)
-    if method == "grid":
-        from .grid_search import grid_fixed_radius_search
-        return grid_fixed_radius_search(
-            points, queries, radius, k, points_mask=points_mask,
-            queries_mask=queries_mask, metric=metric,
-            ignore_query_point=ignore_query_point, cell_cap=cell_cap,
-            planar_axis=planar_axis)
-    return fixed_radius_search(points, queries, radius, k,
-                               points_mask=points_mask,
-                               queries_mask=queries_mask, metric=metric,
-                               ignore_query_point=ignore_query_point)
+            ignore_query_point=ignore_query_point, occ_cap=occ_cap,
+            rows=rows)
+    else:
+        queries = take_rows(rows, queries)
+        queries_mask = take_rows(rows, queries_mask)
+        if method == "grid":
+            from .grid_search import grid_fixed_radius_search
+            nl = grid_fixed_radius_search(
+                points, queries, radius, k, points_mask=points_mask,
+                queries_mask=queries_mask, metric=metric,
+                ignore_query_point=ignore_query_point, cell_cap=cell_cap,
+                planar_axis=planar_axis)
+        else:
+            nl = fixed_radius_search(
+                points, queries, radius, k, points_mask=points_mask,
+                queries_mask=queries_mask, metric=metric,
+                ignore_query_point=ignore_query_point)
+    return nl if rows is None else nl._replace(rows=rows)
 
 
 def radius_search(points, queries, radii, k, points_mask=None,

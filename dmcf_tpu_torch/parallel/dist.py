@@ -153,6 +153,28 @@ class Group:
         dist.all_gather(parts, h)
         return self._back(torch.stack(parts), t)
 
+    def all_gather_rows(self, t, n):
+        """[n, ...]: an n-row array whose rows the ranks hold in blocks
+        (rank r rows ``row_block(n, world_size, r)``), from each rank's
+        block ``t``.  The blocks need not be equal: each is padded to the
+        largest before the all-gather and trimmed after it.  Bool tensors
+        travel as uint8."""
+        w = self.world_size
+        blocks = [row_block(n, w, r) for r in range(w)]
+        lo, hi = blocks[self.rank]
+        if t.shape[0] != hi - lo:
+            raise ValueError(f"all_gather_rows: rank {self.rank} holds "
+                             f"{t.shape[0]} rows, its block of {n} is "
+                             f"{hi - lo}")
+        width = max(b - a for a, b in blocks)
+        x = t.to(torch.uint8) if t.dtype == torch.bool else t
+        if x.shape[0] < width:
+            x = torch.cat([x, x.new_zeros((width - x.shape[0],
+                                           *x.shape[1:]))])
+        parts = self.all_gather(x)
+        out = torch.cat([parts[r, :b - a] for r, (a, b) in enumerate(blocks)])
+        return out.to(torch.bool) if t.dtype == torch.bool else out
+
     def broadcast(self, t, src=0):
         """``t`` overwritten in place with rank ``src``'s values."""
         h = self._out(t)
@@ -208,6 +230,16 @@ class Group:
         with torch.no_grad():
             for t in list(module.parameters()) + list(module.buffers()):
                 self.broadcast(t.data, src=src)
+
+
+def row_block(n, world_size, rank):
+    """(lo, hi): rank ``rank``'s contiguous block of ``n`` rows split over
+    ``world_size`` ranks, the first ``n % world_size`` blocks one row
+    longer (at most ``ceil(n / world_size)`` rows; no block is empty
+    where n >= world_size)."""
+    base, extra = divmod(int(n), int(world_size))
+    lo = rank * base + min(rank, extra)
+    return lo, lo + base + (rank < extra)
 
 
 def env_rank():

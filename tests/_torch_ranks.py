@@ -119,3 +119,66 @@ def run_pipeline_main(group, workdir, args):
                 "logs", "SymNet_Momentum_momentum", "checkpoint")))
             if os.path.isdir(os.path.join("logs", "SymNet_Momentum_momentum",
                                           "checkpoint")) else []}
+
+
+def _conv_rows(neighbors):
+    """(query rows, slots or sources, rows of the whole set) of a
+    ContinuousConv call's neighbor structure."""
+    from dmcf_tpu_torch.ops.neighbors import DensePair, LazyDensePair
+
+    if isinstance(neighbors, LazyDensePair):
+        q, k = neighbors.dst_pos.shape[0], neighbors.src_pos.shape[0]
+    elif isinstance(neighbors, DensePair):
+        q, k = neighbors.rel.shape[:2]
+    else:
+        q, k = neighbors.idx.shape
+    return q, k, q if neighbors.rows is None else neighbors.rows.n
+
+
+def record_conv_rows(model):
+    """Forward hooks on every ContinuousConv of ``model``: the returned
+    list gets each call's ``_conv_rows``."""
+    from dmcf_tpu_torch.models.layers import ContinuousConv
+
+    calls = []
+    for m in model.modules():
+        if isinstance(m, ContinuousConv):
+            m.register_forward_hook(
+                lambda mod, args, out: calls.append(_conv_rows(args[4])))
+    return calls
+
+
+def sharded_step(group, cfg, state, sample):
+    """The particle-sharded step (``parallel.spatial.make_sharded_step``)
+    on this rank's ``shard_sample`` block: its pos/vel block, aux, every
+    ContinuousConv call's rows and the step's collectives."""
+    from dmcf_tpu_torch.parallel.spatial import (make_sharded_step,
+                                                 shard_sample)
+
+    model = _model(cfg, state)
+    calls = record_conv_rows(model)
+    step = make_sharded_step(model, group)
+    mine = {k: None if v is None else torch.as_tensor(v)
+            for k, v in shard_sample(sample, group).items()}
+    pos, vel, aux = step(mine)
+    split = step.split
+    return {"pos": pos, "vel": vel, "aux": aux, "calls": calls,
+            "gathers": split.gathers, "gather_bytes": split.gather_bytes,
+            "reductions": split.reductions}
+
+
+def sharded_cases(group, cases):
+    """``sharded_step`` of each case ((model config, state dict, numpy
+    sample) by name), beside the one-process step in this rank (its
+    pos, vel, aux and conv calls as ``ref_*`` and ``one_calls``)."""
+    out = {}
+    for name, (cfg, state, sample) in cases.items():
+        one = _model(cfg, state)
+        one_calls = record_conv_rows(one)
+        with torch.no_grad():
+            pos, vel, aux = one({k: torch.as_tensor(v)
+                                 for k, v in sample.items()})
+        out[name] = dict(sharded_step(group, cfg, state, sample),
+                         ref_pos=pos, ref_vel=vel, ref_aux=aux,
+                         one_calls=one_calls)
+    return out

@@ -25,9 +25,13 @@ variants against the plain backward at every launch shape of a momentum
 train step and at the WaterRamps trunk shape, each kernel's two
 launches bitwise equal at each (phase 10), trains the
 momentum config on the card through ``run_pipeline --split train`` with
-every kernel variant's launches counted exactly and its first two steps
-held against the CPU path (phase 11), runs one WaterRamps train step at
-batch 16, window 3 (phase 12), runs the fp32 path (precision "highest": a
+every kernel variant's launches counted exactly, the loop's profiler
+capture of one train step (its Chrome trace must hold that step's
+launches of every hand kernel), the deferred log flush and the section
+timing, and its first two steps held against the CPU path (phase 11),
+runs one WaterRamps train step at batch 16, window 3, and one of its
+first item under the profiler (phase 12), runs the fp32 path (precision
+"highest": a
 100-step rollout and momentum train steps, phase 13), holds the column
 solver kernel (``csrc/column_sph.cu``) against its plain version and the
 JAX package's fixture and generates the column splits at full size (phase
@@ -59,8 +63,9 @@ kernels' other interpolation modes (phase 24: WaterRamps' SymNet with
 first step against its plain version with both backward kernels at each
 shape, a 100-step rollout under the gate with the ASCC ratio and the
 exact-tie pairs that break it, card vs CPU and train steps; Liquid3d with
-``linear_border``, 20 steps; every mode's kernels past the span's ends and
-on ties; ``SparseConv``, ``SparseConvTranspose`` and ``PointSampling``
+``linear_border``, 20 steps and a train step whose every bf16 data launch
+is held against the plain backward; every mode's kernels past the span's
+ends and on ties; ``SparseConv``, ``SparseConvTranspose`` and ``PointSampling``
 card vs CPU), runs the multi-rank paths of ``dmcf_tpu_torch/parallel``
 over ``torch.distributed``, one spawned process a rank (phase 25: (a) an
 NCCL world of one rank, the momentum train step data-parallel with its
@@ -93,7 +98,9 @@ with a non-zero exit; without a CUDA device it exits non-zero before doing
 anything.
 """
 
+import contextlib
 import copy
+import glob
 import json
 import os
 import subprocess
@@ -120,6 +127,18 @@ BF16_BWD_TOL = 2e-3          # bf16 backward kernels vs the plain backward,
 #   apart from elements exactly one bf16 step apart: sums taken in other
 #   orders meet a rounding midpoint for ~1e-4 of the elements, so at most
 #   max(4, 1e-3 of them)
+BF16_ROW_FLIP_RATE = 2e-4    # the bf16 data kernel's dfeats one-step flips
+#   held at every launch of a train step, a share of the elements per square
+#   root of the launch's rows' mean length L (the valid slots that read a
+#   feats row, over the rows): dfeats is an fp32 sum over the slots that
+#   read its row, rounded to bf16 last, so longer rows meet more rounding
+#   midpoints; the sweep against fp64 on an H100 (scripts/
+#   torch_bwd_flips.py --k: K 40 to 1856, L 102 to 804) found the kernel
+#   exactly as far from fp64 as the plain version fed its dT (the same
+#   largest distance in bf16 steps and the same misrounded elements at
+#   every K), and flips against the plain backward growing with L, not
+#   with K: at most 9.45e-5 sqrt(L) of the elements (L 692, K 352, Cin
+#   8); twice that, and never less than the 1e-3 above (``dfeats_flip_cap``)
 BF16_GRAD_TOL = 2e-2         # bf16 train-step gradients, card vs CPU
 VALID_FRAMES = 5             # frames of phase 9's card-vs-CPU comparison
 BWD_TOL = 1e-5               # backward kernels vs plain backward, relative
@@ -128,6 +147,14 @@ BWD_TOL = 1e-5               # backward kernels vs plain backward, relative
 GRAD_TOL = 1e-4              # train-step gradients, card vs CPU, relative to
 #   each tensor's max abs (fp32 through a 3-step window of 18 convs)
 TRAIN_ITERS = 10             # phase 11's run_train iterations
+PROFILE_STEP = 3             # phase 11's captured train step (profile_step)
+FLUSH_STEPS = 4              # phase 11's log_flush_steps: two flushes and
+#                              the epoch's end
+LOOP_SECTIONS = ("fetch", "dispatch", "prefetch", "log", "other")
+CAPTURE_ITEMS = 1            # phase 12's captured train step: its batch's
+#                              first item (the items run one after
+#                              another; the whole batch of 16 makes ~1.9
+#                              million kernel events)
 # momentum drift |sum v_T - sum v_0| / sum |v_0| of a momentum rollout: the
 # velocity is a position difference over dt, so each step rounds each
 # particle's velocity by up to ~ulp(|x| ~ 0.25) / dt = 1.2e-5; once the
@@ -304,7 +331,7 @@ def bwd_check(args, qfeats, seed, precision="highest",
     launched twice and the two results must be bitwise equal (both are
     deterministic): dW, and dfeats, dqfeats, da and dt."""
     from dmcf_tpu_torch.kernels.cconv_klist import (
-        bf16_data_flips, cconv_klist_bwd_data, cconv_klist_bwd_filter,
+        cconv_klist_bwd_data, cconv_klist_bwd_filter,
         cconv_klist_bwd_reference, is_bf16, rounding_flips)
     idx, a, t, feats, w, ksize = args
     half = is_bf16(precision)
@@ -346,31 +373,9 @@ def bwd_check(args, qfeats, seed, precision="highest",
             check(err <= tol * scale,
                   f"{name}: kernel vs plain backward {err} > {tol} x {scale}")
     if half:  # da and dt as phase 7 holds T: dT's one-step flips counted
-        res = bf16_data_flips(*full[:7], (dfeats, da, dt), tol,
-                              interpolation)
-        check(res["dT_flips"] <= max(4, 1e-3 * res["dT_elements"])
-              and res["dT_err"] <= 1e-4 * res["dT_scale"],
-              f"dT: {res['dT_flips']} one-step flips, other elements "
-              f"{res['dT_err']}")
-        err, n_flip = res["forced"]["dfeats"]
-        check(n_flip <= max(4, 1e-3 * dfeats.numel())
-              and err <= tol * res["dfeats_scale"],
-              f"dfeats vs the plain backward fed the kernel's dT: {err}, "
-              f"{n_flip} flips")
-        for name in ("da", "dt"):
-            check(res["forced"][name] <= tol,
-                  f"{name} vs the plain backward fed the kernel's dT: "
-                  f"{res['forced'][name]} > {tol}")
-            check(res["unexplained"][name] == 0,
-                  f"{name}: {res['unexplained'][name]} elements beyond "
-                  f"{tol} in slots that touch no flipped tap row of dT")
+        res = hold_bf16_data(full, (dfeats, da, dt), tol, interpolation,
+                             max(4, 1e-3 * dfeats.numel()))
         flips["dT"] = res["dT_flips"]
-        print(f"    dT: {res['dT_flips']} one-step flips of "
-              f"{res['dT_elements']}; fed the kernel's dT, the plain "
-              f"backward's da {res['forced']['da']:.2e}, dt "
-              f"{res['forced']['dt']:.2e} of the max; beyond {tol} of the "
-              f"plain backward itself: da {res['beyond']['da']}, dt "
-              f"{res['beyond']['dt']} elements")
     if flips:
         sizes = {k: got[BWD_NAMES.index(k)].numel() for k in flips
                  if k != "dT"}
@@ -379,6 +384,42 @@ def bwd_check(args, qfeats, seed, precision="highest",
         print("    one-step bf16 rounding flips: " + ", ".join(
             f"{k} {v} of {sizes[k]}" for k, v in flips.items()))
     return rel, abs_err, full
+
+
+def hold_bf16_data(full, got, tol, interpolation, dfeats_cap):
+    """The bf16 data kernel's (dfeats, da, dt) ``got`` at one launch
+    (``full``: its dout and inputs, feats and w bf16) held as phase 7 holds
+    T (``bf16_data_flips``): dT's one-step flips at most max(4, 1e-3 of
+    its elements), its other elements within 1e-4 of its max; against the
+    plain backward fed the kernel's dT, dfeats within ``tol`` of its max
+    apart from at most ``dfeats_cap`` one-step flips, da and dt within
+    ``tol``, and no element of da or dt beyond ``tol`` of the plain
+    backward itself in a slot that touches no flipped tap row.  Prints
+    and returns ``bf16_data_flips``'s dict."""
+    from dmcf_tpu_torch.kernels.cconv_klist import bf16_data_flips
+    res = bf16_data_flips(*full[:7], got, tol, interpolation)
+    check(res["dT_flips"] <= max(4, 1e-3 * res["dT_elements"])
+          and res["dT_err"] <= 1e-4 * res["dT_scale"],
+          f"dT: {res['dT_flips']} one-step flips, other elements "
+          f"{res['dT_err']}")
+    err, n_flip = res["forced"]["dfeats"]
+    check(n_flip <= dfeats_cap and err <= tol * res["dfeats_scale"],
+          f"dfeats vs the plain backward fed the kernel's dT: {err}, "
+          f"{n_flip} flips (cap {dfeats_cap:g})")
+    for name in ("da", "dt"):
+        check(res["forced"][name] <= tol,
+              f"{name} vs the plain backward fed the kernel's dT: "
+              f"{res['forced'][name]} > {tol}")
+        check(res["unexplained"][name] == 0,
+              f"{name}: {res['unexplained'][name]} elements beyond "
+              f"{tol} in slots that touch no flipped tap row of dT")
+    print(f"    dT: {res['dT_flips']} one-step flips of "
+          f"{res['dT_elements']}; fed the kernel's dT, the plain "
+          f"backward's da {res['forced']['da']:.2e}, dt "
+          f"{res['forced']['dt']:.2e} of the max; beyond {tol} of the "
+          f"plain backward itself: da {res['beyond']['da']}, dt "
+          f"{res['beyond']['dt']} elements")
+    return res
 
 
 def bwd_times(full, precision="highest", interpolation="linear"):
@@ -866,9 +907,12 @@ def expected_train_launches(items, window, convs, bf16_convs,
 def train_phase(root, dev):
     """Phase 11: ``run_pipeline --split train`` of the momentum config on
     the card (its precision: a bf16 trunk; data scaled by 0.9, TRAIN_ITERS
-    iterations of batch 2, window 3, then its per-epoch ``run_valid``) with
-    every kernel variant's launches counted exactly and the losses finite;
-    then the first two train steps of a seeded loader on the card and on
+    iterations of batch 2, window 3, then its per-epoch ``run_valid``;
+    ``profile_step`` PROFILE_STEP, ``log_flush_steps`` FLUSH_STEPS,
+    ``DMCF_LOOP_TIMING=1``) with every kernel variant's launches counted
+    exactly, the losses finite and logged in step order, a timing line
+    each log interval, the captured step's trace holding one step's
+    launches (``captured_train_step``); then the first two train steps of a seeded loader on the card and on
     the CPU from the same weights (the CPU model takes the card's weights
     before each step): loss vectors and every parameter's gradient
     compared (bf16: within BF16_GRAD_TOL, the card and the CPU rounding
@@ -883,7 +927,6 @@ def train_phase(root, dev):
     from dmcf_tpu_torch.models.losses import get_loss
     from dmcf_tpu_torch.pipelines.simulator import (make_optimizer,
                                                     make_train_step)
-    from dmcf_tpu_torch.profile_step import print_report, trace
 
     cfg = momentum_cfg(root)
     pcfg = cfg["pipeline"]
@@ -912,13 +955,23 @@ def train_phase(root, dev):
             "--pipeline.data_generator.scale", "[0.9,0.9,0.0]",
             "--pipeline.run_test_every_epoch", "false",
             "--pipeline.log_every", "1",
+            "--pipeline.profile_step", str(PROFILE_STEP),
+            "--pipeline.log_flush_steps", str(FLUSH_STEPS),
             "--main_log_dir", os.path.join(tmp.name, "logs"),
             "--output_dir", os.path.join(tmp.name, "out"),
             "--pipeline.train_sum_dir", os.path.join(tmp.name, "sum")]
+    timing = os.environ.get("DMCF_LOOP_TIMING")
+    os.environ["DMCF_LOOP_TIMING"] = "1"
     zero_counts()               # the training path starts here
     torch.cuda.synchronize()
     t0 = time.time()
-    logged = run_pipeline.main(args)
+    try:
+        logged = run_pipeline.main(args)
+    finally:
+        if timing is None:
+            os.environ.pop("DMCF_LOOP_TIMING")
+        else:
+            os.environ["DMCF_LOOP_TIMING"] = timing
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = counts()         # the training path ends here
@@ -936,7 +989,19 @@ def train_phase(root, dev):
     print("  losses " + " ".join(f"{v:.6e}" for v in losses))
     check(len(losses) == TRAIN_ITERS and all(np.isfinite(losses)),
           "finite train losses")
+    check([e["step"] for e in logged] == list(range(TRAIN_ITERS)),
+          f"logged steps {[e['step'] for e in logged]}")
     check(launches == want, f"train launches {launches} == {want}")
+    (log_file,) = glob.glob(os.path.join(tmp.name, "logs", "*",
+                                         "log_train_*.txt"))
+    with open(log_file) as f:
+        timing_lines = [ln for ln in f if "loop timing (s since last):" in ln]
+    print(f"  DMCF_LOOP_TIMING: {len(timing_lines)} lines, the last: "
+          f"{timing_lines[-1].strip() if timing_lines else None}")
+    check(len(timing_lines) == TRAIN_ITERS and all(
+        all(f" {k}=" in ln for k in LOOP_SECTIONS)
+        for ln in timing_lines),
+        f"{len(timing_lines)} loop timing lines with {LOOP_SECTIONS}")
 
     # the first two steps, card vs CPU
     loader = get_dataloader(group.train, batch_size=batch_size,
@@ -944,6 +1009,8 @@ def train_phase(root, dev):
                             **dict(dg["train"], seed=0))
     batches = [next(loader) for _ in range(5)]
     loader.close()
+    captured = captured_train_step(tmp.name, model, batches[0], step,
+                                   batch_size * window, dev)
     cpu_model = copy.deepcopy(model).to("cpu")
     loss = {k: get_loss(**v) for k, v in cfg["model"]["loss"].items()}
     opt_cfg = pcfg["optimizer"]
@@ -992,15 +1059,56 @@ def train_phase(root, dev):
     check(got == [len(batches[2:]) * x for x in step],
           f"{got} launches in {len(batches[2:])} steps, a step {step}")
     print(f"  card train step (batch {batch_size}, window {window}): "
-          f"{step_s:.4f} s over {len(batches[2:])} steps")
-    print("  where a train step's time goes:")
-    print_report(trace(lambda: card_step(
-        {k: torch.as_tensor(v, device=dev) for k, v in batches[2].items()
-         if v is not None}, time_w), reps=1, top=10), top=10)
+          f"{step_s:.4f} s over {len(batches[2:])} steps (where its time "
+          f"goes: the captured step above)")
     (run,) = os.listdir(os.path.join(tmp.name, "sum"))
     return {"launches": launches, "launches_per_step": step,
             "step_s": step_s, "grad_rel_err": grad_err, "seconds": seconds,
+            "trace": captured,
             "summary_dir": os.path.join(tmp.name, "sum", run), "tmp": tmp}
+
+
+def captured_train_step(tmp, model, batch, step, runs, dev):
+    """Phase 11's capture of train step PROFILE_STEP (``profile_step``):
+    its Chrome trace under the run's ``logs_dir/profile/``, summarised
+    (``profile_step.trace_file_summary``), must hold one train step's
+    launches ``step`` (``expected_train_launches``) as device events: the
+    forward kernel's, three data kernels a data launch (dT, walk, dfeats;
+    a memset before them), the filter kernel a filter launch, and its sum
+    kernel ``runs`` (items x window) times for each conv whose shape
+    (``record_launches`` on the batch's first item) takes a workspace."""
+    from dmcf_tpu_torch.kernels.cconv_klist import _filter_workspace
+    from dmcf_tpu_torch.profile_step import (print_report, record_launches,
+                                             trace_file_summary)
+    (path,) = glob.glob(os.path.join(tmp, "logs", "*", "profile",
+                                     f"train_step_{PROFILE_STEP}.json"))
+    summary = trace_file_summary(path, top=10)
+    summary["trace_bytes"] = os.path.getsize(path)
+    sample = {k: torch.as_tensor(batch[k][0][0] if k in ("pos", "vel")
+                                 else batch[k][0], device=dev)
+              for k in ("pos", "vel", "box", "box_normals", "fluid_mask",
+                        "box_mask")}
+    _, log = record_launches(model, sample)
+    grouped = sum(_filter_workspace(*args[0].shape, *args[3].shape,
+                                    args[4].shape[1], *args[5]) > 0
+                  for _, args, _, _ in log)
+    hand = summary["hand_kernels"]
+    want = {"cconv_klist_kernel": step[0] + step[1],
+            "cconv_klist_bwd_dT_kernel": step[2] + step[3],
+            "cconv_klist_bwd_walk_kernel": step[2] + step[3],
+            "cconv_klist_bwd_dfeats_kernel": step[2] + step[3],
+            "cconv_klist_bwd_filter_kernel": step[4] + step[5],
+            "cconv_klist_bwd_filter_sum_kernel": runs * grouped}
+    print(f"  captured train step {PROFILE_STEP}: {path} "
+          f"({summary['trace_bytes']} B)")
+    print_report(summary, top=10)
+    print("  hand kernels' events in the captured step (want): " + ", ".join(
+        f"{k} {hand[k]} ({v})" for k, v in want.items())
+        + f"; memsets {summary['memsets']} (at least {step[2] + step[3]})")
+    check(all(hand[k] == v for k, v in want.items())
+          and summary["memsets"] >= step[2] + step[3],
+          f"captured step's kernel events {hand} == {want}")
+    return summary
 
 
 def fp32_train_phase(root, dev, steps=3):
@@ -1119,7 +1227,12 @@ COLUMN_EARLY = 11
 COLUMN40_X_TOL = 2.6e-2
 COLUMN40_V_TOL = 12.0
 COLUMN_SPLITS = ("train", "valid", "test")
-COLUMN_ITERS = 10            # phase 15's run_train iterations
+COLUMN_ITERS = 4             # phase 15's run_train iterations (10 up to
+#                              PR 15; cut for the smoke's time limit)
+COLUMN_FRAMES = 3            # phase 14's frames of the kernel-vs-plain
+#                              check (5 up to PR 15; cut for the time
+#                              limit: the plain solver runs up to 10,000
+#                              projection iterations a frame)
 LIQUID_BLOCK = (22, 6, 22)   # phase 16's fluid block (particles an axis)
 LIQUID_STEPS = 50
 WBC_STEPS = 20
@@ -1196,7 +1309,8 @@ def support_share(counts, iters, pairs):
 
 def column_phase(root, dev):
     """Phase 14: the column kernel (``csrc/column_sph.cu``) against its
-    plain version on the card (4 scenes of 1-40 fluid particles, 5 frames,
+    plain version on the card (4 scenes of 1-40 fluid particles,
+    COLUMN_FRAMES frames,
     the full 10,000-iteration cap), against the JAX package's solver at
     full size (the fixture), two launches bitwise equal, then each split of
     ``configs/column/symnet.yml`` generated at its full size: time,
@@ -1213,8 +1327,8 @@ def column_phase(root, dev):
         x0, v0, counts, kw = problem
         return [torch.as_tensor(a, device=dev) for a in (x0, v0, counts)], kw
 
-    args, kw = on_card(column_problem(4, 5, pts_cnt=[1, 10, 25, 40],
-                                      **base))
+    args, kw = on_card(column_problem(4, COLUMN_FRAMES,
+                                      pts_cnt=[1, 10, 25, 40], **base))
     got = column_solve(*args, **kw)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1229,7 +1343,8 @@ def column_phase(root, dev):
     out["bound_ms"], out["bound_by"] = column_bound(
         args[2].tolist(), iters, pairs, kw["bcnt"], args[0].shape[1])
     out["max_abs_err"] = err
-    print(f"  4 scenes x 5 frames, iterations a frame {iters.tolist()}: "
+    print(f"  4 scenes x {COLUMN_FRAMES} frames, iterations a frame "
+          f"{iters.tolist()}: "
           f"kernel {out['ms']:.3f} ms, plain version {out['plain_ms']:.1f} "
           f"ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']}; the "
           f"solver is latency-bound), kernel vs plain max |diff| {err:.3e},"
@@ -1355,8 +1470,9 @@ def column_configs_phase(root, dev):
     print(f"  symnet.yml train: {len(losses)} iterations in {sec:.3f} s "
           f"(the kernel makes the splits first)")
     print("  losses " + " ".join(f"{v:.6e}" for v in losses))
-    print(f"  loss of the last 5 iterations / the first 5: "
-          f"{np.mean(losses[-5:]) / np.mean(losses[:5]):.4f}")
+    half = len(losses) // 2
+    print(f"  loss of the last {half} iterations / the first {half}: "
+          f"{np.mean(losses[-half:]) / np.mean(losses[:half]):.4f}")
     check(len(losses) == COLUMN_ITERS and all(np.isfinite(losses)),
           "finite column train losses")
     valid, sec = run("symnet.yml", "valid", "--dataset.train.timesteps",
@@ -1455,8 +1571,97 @@ def launch_checks(log, what, max_err, show=True):
                       f"{kw['qfeats'] is not None:d}: max_abs_err {err:.3e}")
 
 
+def dfeats_flip_cap(n, row_len):
+    """The most one-step bf16 flips of dfeats a bf16 data launch with ``n``
+    dfeats elements and rows of mean length ``row_len`` (valid slots a
+    feats row) may show: max(4, n max(1e-3, BF16_ROW_FLIP_RATE
+    sqrt(row_len)))."""
+    return max(4, n * max(1e-3, BF16_ROW_FLIP_RATE * float(np.sqrt(row_len))))
+
+
+class _Holding:
+    """``cconv_klist_bwd_data`` that also keeps the inputs of each bf16
+    launch in ``held`` (the launch's dout and inputs, its keyword
+    arguments); every other attribute, the launch counts the wrapper adds
+    to included, is the wrapper's own."""
+
+    def __init__(self, real):
+        object.__setattr__(self, "_real", real)
+        object.__setattr__(self, "held", [])
+
+    def __call__(self, dout, idx, a, t, feats, w, ksize, qfeats=None,
+                 precision="highest", interpolation="linear"):
+        from dmcf_tpu_torch.kernels.cconv_klist import is_bf16
+        if is_bf16(precision):
+            self.held.append(((dout, idx, a, t, feats, w, ksize, qfeats),
+                              dict(precision=precision,
+                                   interpolation=interpolation)))
+        return self._real(dout, idx, a, t, feats, w, ksize, qfeats,
+                          precision, interpolation)
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._real, name, value)
+
+
+@contextlib.contextmanager
+def held_bf16_data(on=True):
+    """Keeps the inputs of each bf16 data launch made inside the block
+    (with ``on``; else nothing): yields the list ``_Holding`` fills; the
+    wrapper the autograd Function calls is swapped for it."""
+    from dmcf_tpu_torch.kernels import cconv_klist as ck
+    if not on:
+        yield []
+        return
+    real = ck.cconv_klist_bwd_data
+    ck.cconv_klist_bwd_data = holding = _Holding(real)
+    try:
+        yield holding.held
+    finally:
+        ck.cconv_klist_bwd_data = real
+
+
+def hold_bf16_launches(held, what):
+    """Each held bf16 data launch (``held_bf16_data``) against the plain
+    backward on its own dout: the launch repeated on its inputs (the
+    kernels are deterministic, and ``bf16_data_flips`` checks a third
+    launch bitwise against it), dfeats within BF16_BWD_TOL of its max
+    apart from at most ``dfeats_flip_cap`` one-step flips, against the
+    plain backward itself and fed the kernel's dT, and dT, da and dt as
+    ``hold_bf16_data`` holds them.  Returns {K: (launches, the most
+    flips, the largest share of flipped elements, the longest mean
+    row)}."""
+    from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_bwd_data
+    out = {}
+    for full, kw in held:
+        dfeats, _, da, dt = cconv_klist_bwd_data(*full, **kw)
+        (q, k), n = full[1].shape, dfeats.numel()
+        row_len = float((full[2] != 0).sum()) / full[4].shape[0]
+        cap = dfeats_flip_cap(n, row_len)
+        res = hold_bf16_data(full, (dfeats, da, dt), BF16_BWD_TOL,
+                             kw["interpolation"], cap)
+        err, flips = res["plain"]
+        scale = res["plain_scale"]
+        print(f"  {what} bf16 data launch Q {q} K {k} N "
+              f"{full[4].shape[0]} Cin {full[4].shape[1]} Cout "
+              f"{full[5].shape[1]}, rows of {row_len:.1f} slots: dfeats "
+              f"{flips} one-step flips of {n} against the plain backward "
+              f"(cap {cap:g}; {res['forced']['dfeats'][1]} fed the "
+              f"kernel's dT), other elements {err:.3e} of max {scale:.3e}")
+        check(flips <= cap and err <= BF16_BWD_TOL * scale,
+              f"{what} K {k}: dfeats {flips} flips (cap {cap:g}), {err} > "
+              f"{BF16_BWD_TOL} x {scale}")
+        cnt, most, rate, rows = out.get(k, (0, 0, 0.0, 0.0))
+        out[k] = (cnt + 1, max(most, flips), max(rate, flips / n),
+                  max(rows, row_len))
+    return out
+
+
 def train_step_phase(root, cfg_path, dev, model, sample, what,
-                     batch_size=None, step0_free=2, cpu_check=False):
+                     batch_size=None, step0_free=2, cpu_check=False,
+                     hold_data=False, capture=0):
     """One train step at the config's batch (or ``batch_size``: its items
     are copies of one sequence) and first window (its first curriculum
     stage, the model's precision) on a sequence the port's rollout makes
@@ -1466,8 +1671,14 @@ def train_step_phase(root, cfg_path, dev, model, sample, what,
     against the forward launches of one step of ``model`` on ``sample``
     (``expected_train_launches`` with ``step0_free``; FPS twice an item a
     window step).  With ``cpu_check`` the step also runs on a CPU copy of
-    ``model`` made before it: the loss within 1e-4 and every parameter's
-    gradient within GRAD_TOL of that tensor's largest CPU element."""
+    ``model`` made before it, on one item (the CPU's result on the whole
+    batch, see below): the loss within 1e-4 and every parameter's
+    gradient within GRAD_TOL of that tensor's largest CPU element.  With
+    ``hold_data`` every bf16 data launch of the step is held against the
+    plain backward (``hold_bf16_launches``, after the launches are
+    counted); with ``capture`` > 0 a second step on the batch's first
+    ``capture`` items runs under ``torch.profiler`` (``profile_step.trace``,
+    the card's activity), its summary printed."""
     import yaml
 
     from dmcf_tpu_torch.models.losses import get_loss
@@ -1510,10 +1721,11 @@ def train_step_phase(root, cfg_path, dev, model, sample, what,
     from dmcf_tpu_torch.kernels.cconv_klist import cconv_klist_bwd_data
     cconv_klist_bwd_data.workspace_peak = 0
     zero_counts()                # this training path starts here
-    t0 = time.time()
-    lvec, _, stats = steps[0](batch, time_w)
-    torch.cuda.synchronize()
-    seconds = time.time() - t0
+    with held_bf16_data(hold_data) as held:
+        t0 = time.time()
+        lvec, _, stats = steps[0](batch, time_w)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
     launches = counts() + [fps_launches()]          # and ends here
     peak = torch.cuda.max_memory_allocated(dev)
     want = expected_train_launches(batch_size, window, sum(fwd), fwd[1],
@@ -1534,9 +1746,33 @@ def train_step_phase(root, cfg_path, dev, model, sample, what,
               for p in model.parameters() if p.grad is not None),
           f"finite {what} gradients")
     out = {"launches": launches, "seconds": seconds, "peak_bytes": peak}
+    if hold_data:
+        out["held"] = hold_bf16_launches(held, what)
+        check(len(held) == launches[3],
+              f"{what}: {len(held)} bf16 data launches held of "
+              f"{launches[3]}")
+        print(f"  {what}: every bf16 data launch held, by K (launches, "
+              "most flips, largest flip share, longest mean row): "
+              + ", ".join(f"{k} {v}" for k, v in
+                          sorted(out["held"].items())))
+    del held
+    if capture:
+        from dmcf_tpu_torch.profile_step import print_report, trace
+        part = {k: v[:capture] for k, v in batch.items()}
+        out["trace"] = trace(lambda: steps[0](part, time_w), reps=1, top=10,
+                             host=False)
+        out["trace"]["items"] = capture
+        print(f"  captured step of {capture} item(s):")
+        print_report(out["trace"], top=10)
     if cpu_model is None:
         return out
-    lc, _, _ = steps[1]({k: v.cpu() for k, v in batch.items()}, time_w)
+    check(batch_size & (batch_size - 1) == 0,
+          f"{what}: a batch of {batch_size} items, not a power of two")
+    # the items are copies of one sequence and the step scales each item's
+    # gradient by 1 / items (a power of two here), so the CPU's step on one
+    # of them gives its step's loss and gradients on all of them, bit for
+    # bit: the card's whole batch is held against that
+    lc, _, _ = steps[1]({k: v[:1].cpu() for k, v in batch.items()}, time_w)
     close(lvec.sum(), lc.sum(), 1e-4, 0.0, f"{what} train loss")
     worst, zero = 0.0, []
     for (name, pg), (_, pc) in zip(model.named_parameters(),
@@ -2960,7 +3196,8 @@ def border_phase(root, dev, mode_err):
     linear model's (the model maps in-radius offsets inside the span,
     where the two modes agree), at "highest" one step card vs CPU, and
     one train step (batch 1, the config's first window) at the bf16
-    trunk, its launches counted exactly."""
+    trunk, its launches counted exactly and every one of its bf16 data
+    launches held against the plain backward under ``dfeats_flip_cap``."""
     import yaml
 
     from dmcf_tpu_torch.models import build_model
@@ -3006,7 +3243,8 @@ def border_phase(root, dev, mode_err):
     check(scale > 0 and err <= 1e-4 * scale,
           f"linear_border card vs CPU pos_correction {err}")
     train = train_step_phase(root, "Liquid3d.yml", dev, model, sample,
-                             "Liquid3d linear_border", batch_size=1)
+                             "Liquid3d linear_border", batch_size=1,
+                             hold_data=True)
     only_mode(mode, "linear_border train step")
     return dict(run, step=step, card_cpu_err=err / scale, train=train)
 
@@ -4269,9 +4507,10 @@ def main(argv):
           "bf16 trunk)")
     train = train_phase(root, dev)
 
-    phase("12 one WaterRamps train step (batch 16, window 3, bf16 trunk)")
+    phase(f"12 one WaterRamps train step (batch 16, window 3, bf16 trunk), "
+          f"then one of {CAPTURE_ITEMS} item(s) captured")
     wr_train = train_step_phase(root, "WaterRamps.yml", dev, model, sample,
-                                "WaterRamps")
+                                "WaterRamps", capture=CAPTURE_ITEMS)
 
     phase(f"13 the fp32 path: {FP32_STEPS}-step rollout and momentum train "
           "steps at precision highest")

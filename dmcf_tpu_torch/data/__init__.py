@@ -1,9 +1,10 @@
-from .dataflow import (WindowSampler, batch_samples, get_dataloader,
-                       get_normalization_stats, get_rollout,
+from .dataflow import (Prefetcher, WindowSampler, batch_samples,
+                       get_dataloader, get_normalization_stats, get_rollout,
                        pad_rollout_state)
 from .dataset import (Dataset, DatasetGroup, read_msgpack_zst,
                       write_msgpack_zst)
-from .generators import gen_free_fall_data, gen_momentum_data
+from .generators import (SPH1D, gen_column_data, gen_free_fall_data,
+                         gen_momentum_data)
 from .writers import write_results
 
 __all__ = [
@@ -11,9 +12,12 @@ __all__ = [
     "DatasetGroup",
     "read_msgpack_zst",
     "write_msgpack_zst",
+    "SPH1D",
+    "gen_column_data",
     "gen_free_fall_data",
     "gen_momentum_data",
     "WindowSampler",
+    "Prefetcher",
     "batch_samples",
     "get_dataloader",
     "get_normalization_stats",

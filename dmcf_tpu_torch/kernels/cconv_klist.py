@@ -211,7 +211,9 @@ def bf16_data_flips(dout, idx, a, t, feats, w, kernel_size, got, tol,
     ``forced``, the errors of da and dt (max abs over the max) and of
     dfeats (apart from one-step flips, and their count) against
     ``bwd_data_from_dT`` fed the kernel's dT (``dfeats_scale`` its
-    max); ``beyond``, the elements of da and dt beyond ``tol`` of the max
+    max); ``plain``, dfeats against the plain backward itself (its own
+    dT; ``rounding_flips``, ``plain_scale`` its max); ``beyond``, the
+    elements of da and dt beyond ``tol`` of the max
     against the plain backward itself; ``unexplained``, those of them
     whose slot touches no tap row of its query where dT flipped (a slot's
     da and dt read dT only there, so a flip can move no other)."""
@@ -244,7 +246,7 @@ def bf16_data_flips(dout, idx, a, t, feats, w, kernel_size, got, tol,
     for name, x, y in (("da", got[1], f_da), ("dt", got[2], f_dt)):
         scale = float(y.abs().max())
         forced[name] = float((x - y).abs().max()) / scale if scale else 0.0
-    _, _, _, r_da, r_dt = cconv_klist_bwd_reference(
+    r_dfeats, _, _, r_da, r_dt = cconv_klist_bwd_reference(
         dout, idx, a, t, f16, w16, kernel_size, precision="default",
         interpolation=interpolation)
     flipped = _one_step(dT, plain.to(torch.bfloat16)).any(dim=2)  # [Q, S]
@@ -257,6 +259,8 @@ def bf16_data_flips(dout, idx, a, t, feats, w, kernel_size, got, tol,
         unexplained[name] = int((far & ~explained[..., None]).sum())
     return {"dT_flips": flips, "dT_elements": n, "dT_err": dT_err,
             "dT_scale": float(plain.abs().max()), "forced": forced,
+            "plain": rounding_flips(got[0], r_dfeats),
+            "plain_scale": float(r_dfeats.abs().max()),
             "beyond": beyond, "unexplained": unexplained,
             "dfeats_scale": float(f_dfeats.abs().max())}
 

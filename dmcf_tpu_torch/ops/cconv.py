@@ -94,6 +94,14 @@ def point_sampling(inp_features, neighbors: NeighborList, extents, *,
     return out
 
 
+def reduce_neighbor_count(neighbors: NeighborList, num_out=None):
+    """Each output's valid neighbour count as float32, the first
+    ``num_out`` outputs where given (the reference's
+    ``reduce_subarrays_sum`` over ones)."""
+    cnt = neighbors.mask.sum(dim=1).to(torch.float32)
+    return cnt if num_out is None else cnt[:num_out]
+
+
 def _radius_terms(extents, like):
     """(1/radius, radius^2) in the working dtype, as the reference forms
     them (radius = extents / 2); for per-query extents [Q], shaped [Q, 1,

@@ -452,8 +452,18 @@ class Simulator(BasePipeline):
             group=self.group)
 
     def _device_batch(self, batch):
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items() if v is not None}
+        """(``batch`` on the pipeline's device, the host buffers its copies
+        read).  On the card each array goes through pinned host memory
+        and a ``non_blocking`` copy on the current stream, the one the
+        step runs on, so the copy overlaps the step in flight; keep the
+        host buffers until the batch is consumed."""
+        host = {k: torch.as_tensor(v) for k, v in batch.items()
+                if v is not None}
+        if self.device.type != "cuda":
+            return {k: v.to(self.device) for k, v in host.items()}, None
+        pinned = {k: v.pin_memory() for k, v in host.items()}
+        return {k: v.to(self.device, non_blocking=True)
+                for k, v in pinned.items()}, pinned
 
     def _setup_data_parallel(self):
         """Data-parallel training over the ranks of the process group
@@ -482,29 +492,95 @@ class Simulator(BasePipeline):
         log.info("data-parallel training over %d ranks (%s, per-rank "
                  "batch %d)", world, self.group.transport, bs // world)
 
-    def _emit_train_log(self, step, pre, time_w, lvec, pre_eff, stats):
-        losses = {k: float(v) for k, v in zip(self.loss_fns, lvec.tolist())}
+    @staticmethod
+    def _pack_train_stats(lvec, pre_eff, stats):
+        """One fp32 vector on ``lvec``'s device, JAX's layout: the loss
+        vector, then the mean of ``pre_eff``, ``max_neighbors``,
+        ``pair_overflow`` and ``avg_neighbors``; formed without reading the
+        device back (``pre_eff``, on the host, goes up non-blocking)."""
+        pre = pre_eff.float().mean()
+        if pre.device != lvec.device:
+            pre = pre.pin_memory().to(lvec.device, non_blocking=True)
+        return torch.cat([lvec.float(), torch.stack([
+            pre, stats["max_neighbors"].float(),
+            stats["pair_overflow"].float(),
+            stats["avg_neighbors"].float()])])
+
+    def _flush_train_logs(self, queue):
+        """Reads the queued entries' packed vectors back in one stacked
+        transfer and emits each; returns their logged entries."""
+        mat = torch.stack([e[-1] for e in queue]).cpu().numpy()
+        return [self._emit_train_log(*e[:-1], vec)
+                for e, vec in zip(queue, mat)]
+
+    def _emit_train_log(self, step, pre, time_w, lr, vec):
+        n = len(self.loss_fns)
+        losses = {k: float(v) for k, v in zip(self.loss_fns, vec[:n])}
         losses["loss"] = float(sum(losses.values()))
         losses["timesteps"] = float(np.sum(time_w))
         losses["warmup"] = float(np.mean(pre))
-        losses["warmup_diff"] = losses["warmup"] - float(
-            pre_eff.float().mean())
-        losses["max_neighbors"] = float(stats["max_neighbors"])
-        losses["avg_neighbors"] = float(stats["avg_neighbors"])
+        losses["warmup_diff"] = losses["warmup"] - float(vec[n])
+        losses["max_neighbors"] = float(vec[n + 1])
+        losses["avg_neighbors"] = float(vec[n + 3])
         self._check_neighbor_overflow(losses["max_neighbors"],
                                       f"train step {step}")
-        self._check_pair_overflow(float(stats["pair_overflow"]),
-                                  f"train step {step}")
+        self._check_pair_overflow(float(vec[n + 2]), f"train step {step}")
         log.info("step %d - %s", step, " ".join(
             "%s: %.5f" % (k, v) for k, v in losses.items()))
-        losses["learning_rate"] = self.optimizer.param_groups[0]["lr"]
+        losses["learning_rate"] = lr
         self.save_logs(self.writer, step, [losses], "train")
         return dict(losses, step=step)
+
+    def _profile_start(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _profile_stop(self, prof, step):
+        """Ends the capture of train step ``step`` (the card synchronised
+        first), writes its Chrome trace to ``logs_dir/profile/
+        train_step_<step>[_rank<r>].json`` and logs its path, and on the
+        card its summary where it holds device events."""
+        from ..profile_step import format_report, trace_file_summary
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = os.path.join(self.cfg.logs_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        rank = "" if self.group is None else f"_rank{self.group.rank}"
+        path = os.path.join(out, f"train_step_{step}{rank}.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
+        if self.device.type != "cuda":
+            return
+        summary = trace_file_summary(path)
+        if summary["device_events"]:
+            log.info("train step %d on the device:\n%s", step,
+                     "\n".join(format_report(summary, top=10)))
 
     def run_train(self):
         """The BPTT training loop (curricula, loader rebuilds, logs to
         ``metrics.jsonl``, checkpoints, valid / test per epoch).  Returns
-        the logged step entries (one dict per ``log_every`` steps)."""
+        the logged step entries (one dict per ``log_every`` steps).
+
+        As JAX's loop: the next batch is drawn and sent to the device
+        while the step runs (one deep; dropped when the curriculum
+        rebuilds the loader); each log interval's telemetry stays on the
+        device, packed in one vector, and is read back in one transfer
+        every ``log_flush_steps`` (default 1000) entries and at each
+        epoch's end, where an overflow then raises; ``profile_step: N``
+        (N >= 0) wraps global train step N (``epoch * iter + i``) in
+        ``torch.profiler`` (CPU, and CUDA on the card), written as a Chrome
+        trace under ``logs_dir/profile/`` (JAX writes a TensorBoard
+        profile directory there; ``profile_step.trace_file_summary`` reads
+        the trace); ``DMCF_LOOP_TIMING=1`` logs the host seconds of the
+        loop's fetch, dispatch, prefetch, log and other sections each log
+        interval (no synchronisation added: on the card ``dispatch`` is
+        the host's time to issue the step)."""
         with self._file_log("train"):
             return self._run_train()
 
@@ -528,6 +604,11 @@ class Simulator(BasePipeline):
         max_err = cfg.get("max_err", None)
         max_dens_err = cfg.get("max_dens_err", None)
         log_every = int(cfg.get("log_every", 10))
+        flush_every = int(cfg.get("log_flush_steps", 1000))
+        profile_at = int(cfg.get("profile_step", -1))
+        loop_timing = bool(int(os.environ.get("DMCF_LOOP_TIMING", "0")))
+        tmr = dict.fromkeys(("fetch", "dispatch", "prefetch", "log",
+                             "other"), 0.0)
 
         self.optimizer, self.scheduler = make_optimizer(
             self.model, dict(cfg.get("optimizer") or {}))
@@ -547,27 +628,31 @@ class Simulator(BasePipeline):
                                   window=window, pre_frames=warm,
                                   **dg_cfg, **train_cfg)
 
-        def draw(loader):
-            """(this rank's items of the next global batch, the global
-            batch's warm-up frames ``pre``)"""
+        def fetch():
+            """(this rank's items of the next global batch on the device,
+            their host buffers, the global batch's warm-up frames
+            ``pre``); every rank calls it at the same step, so the
+            scatter pairs"""
             if group is None:
                 batch = next(loader)
-                return batch, batch["pre"]
+                return (*self._device_batch(batch), batch["pre"])
             mine = None
             if main:
                 from ..parallel import shard_batch
                 batch = next(loader)
                 mine = [(shard_batch(batch, group, r), batch["pre"])
                         for r in range(group.world_size)]
-            return group.scatter_object(mine)
+            batch, pre = group.scatter_object(mine)
+            return (*self._device_batch(batch), pre)
 
         window_it, warm_up_it, it_idx = 0, 0, 0
-        logged = []
+        logged, queue, pending = [], [], None
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
         log.info("Writing summary in %s.", self.tensorboard_dir)
         log.info("Started training")
         loader = make_loader(windows[0], max_warm_up[0])
+        t_prev = time.perf_counter()
         try:
             for epoch in range(start_ep, int(cfg.max_epoch) + 1):
                 log.info("=== EPOCH %d/%d ===", epoch, int(cfg.max_epoch))
@@ -583,23 +668,51 @@ class Simulator(BasePipeline):
                             loader.close()
                         loader = make_loader(windows[window_it],
                                              max_warm_up[warm_up_it])
-                    batch, pre = draw(loader)
+                        pending = None  # drawn for the old window
+                    t0 = time.perf_counter()
+                    tmr["other"] += t0 - t_prev
+                    batch, _, pre = pending or fetch()
                     time_w = compute_time_weights(step, window_it, windows,
                                                   window_bnds, time_blend)
+                    t1 = time.perf_counter()
+                    tmr["fetch"] += t1 - t0
                     train_step = self._make_train_step(
                         windows[window_it], iterations[it_idx], max_err,
                         max_dens_err)
-                    lvec, pre_eff, stats = train_step(
-                        self._device_batch(batch), time_w)
+                    prof = self._profile_start() if step == profile_at \
+                        else None
+                    lvec, pre_eff, stats = train_step(batch, time_w)
+                    t2 = time.perf_counter()
+                    tmr["dispatch"] += t2 - t1
+                    pending = fetch()
+                    t3 = time.perf_counter()
+                    tmr["prefetch"] += t3 - t2
+                    if prof is not None:
+                        self._profile_stop(prof, step)
                     if i == 0 and epoch == start_ep:
                         log.info("Parameter count '%s': %d",
                                  type(self.model).__name__,
                                  sum(p.numel()
                                      for p in self.model.parameters()))
+                    t_prev = time.perf_counter()
                     if i % log_every == 0:
-                        logged.append(self._emit_train_log(
-                            step, pre, time_w, lvec, pre_eff, stats))
+                        queue.append((step, pre, time_w,
+                                      self.optimizer.param_groups[0]["lr"],
+                                      self._pack_train_stats(lvec, pre_eff,
+                                                             stats)))
+                        if len(queue) >= flush_every:
+                            logged += self._flush_train_logs(queue)
+                            queue = []
+                        if loop_timing:
+                            tmr["log"] += time.perf_counter() - t3
+                            log.info("loop timing (s since last): "
+                                     + " ".join("%s=%.2f" % kv
+                                                for kv in tmr.items()))
+                            tmr = dict.fromkeys(tmr, 0.0)
 
+                if queue:
+                    logged += self._flush_train_logs(queue)
+                    queue = []
                 if main:
                     self._end_epoch(epoch)
                 if group is not None:

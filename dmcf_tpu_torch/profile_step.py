@@ -1,6 +1,7 @@
 """Where a WaterRamps SymNet step's time goes on the card.
 
     python -m dmcf_tpu_torch.profile_step [--steps N] [--out FILE.json]
+    python -m dmcf_tpu_torch.profile_step --summary TRACE.json
 
 Builds the model of ``configs/WaterRamps.yml`` (random weights, seed 0; the
 config's precision, a bf16 trunk) on the bench scene, then reports its precision and (1) steady-state
@@ -14,7 +15,11 @@ CUDA device; never falls back to the CPU.  ``graph_ms`` (a kernel's
 device time), ``record_launches`` (the K-list conv calls of one step;
 ``launch_log`` those of any block) and
 ``trace`` (a profiler summary of any callable) serve ``chip_smoke.py`` and
-``scripts/torch_klist_phases.py`` too.
+``scripts/torch_klist_phases.py`` too; ``trace_file_summary`` gives the
+same summary (``summarise``) of a Chrome trace that the train loop's
+``profile_step`` capture wrote
+(``python -m dmcf_tpu_torch.profile_step --summary FILE.json``, any
+machine).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -151,56 +157,142 @@ def profile(steps=20, top=25):
     return report
 
 
-def trace(fn, reps=5, top=25):
-    """``torch.profiler`` over ``reps`` calls of ``fn``: per call, the wall
-    time (``profiled_ms_per_step``), the device time and its share of the
-    wall, the kernel launches, and the kernels and host ops with the most
-    device time."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+def trace(fn, reps=5, top=25, host=True):
+    """``torch.profiler`` over ``reps`` calls of ``fn``: ``summarise``'s
+    report per call, the window being the synchronised wall time of the
+    calls, plus the host ops with the most device time (``top_ops``).
+    ``host=False`` records the card's activity alone and gives no
+    ``top_ops``: the profiler's processing of a step of ~10^5 kernels
+    then takes a fraction of the time."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         _, prof_wall = _sync_time(lambda: [fn() for _ in range(reps)])
-    kernels, ops = [], []
+    device, ops = [], []
     for e in prof.key_averages():
-        row = (e.key, _device_us(e) / reps, e.count // reps)
-        # device-side events are the kernels themselves; host ops carry
-        # the device time of the kernels they launched
-        (kernels if str(e.device_type).endswith("CUDA") else ops).append(row)
-    kernels.sort(key=lambda r: -r[1])
-    ops.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in kernels) / 1e3
-    report = {"profiled_ms_per_step": prof_wall / reps,
-              "device_ms_per_step": device_ms,
-              "device_busy_share": device_ms / (prof_wall / reps),
-              "kernel_launches_per_step": sum(r[2] for r in kernels)}
-    for name, rows in (("top_kernels", kernels), ("top_ops", ops)):
-        report[name] = [{"name": k, "device_us_per_step": us,
-                         "calls_per_step": c}
-                        for k, us, c in rows[:top] if us > 0]
+        # device-side events are the kernels, copies and memsets
+        # themselves; host ops carry the device time of what they launched
+        if str(e.device_type).endswith("CUDA"):
+            kind = ("memset" if e.key.startswith("Memset") else
+                    "memcpy" if e.key.startswith("Memcpy") else "kernel")
+            device.append((e.key, kind, _device_us(e), e.count))
+        else:
+            ops.append((e.key, _device_us(e) / reps, e.count // reps))
+    report = summarise(device, prof_wall, reps, top)
+    if host:
+        ops.sort(key=lambda r: -r[1])
+        report["top_ops"] = [{"name": k, "device_us_per_step": us,
+                              "calls_per_step": c}
+                             for k, us, c in ops[:top] if us > 0]
     return report
 
 
-def print_report(report, top=None):
-    """Print a ``profile`` report (or a ``trace`` one: no stage times), the
-    first ``top`` rows of each table."""
+# the hand kernels' symbols (csrc/*.cu), as the device events name them
+HAND_KERNELS = ("cconv_klist_kernel", "cconv_klist_bwd_dT_kernel",
+                "cconv_klist_bwd_walk_kernel",
+                "cconv_klist_bwd_dfeats_kernel",
+                "cconv_klist_bwd_filter_kernel",
+                "cconv_klist_bwd_filter_sum_kernel", "fps_warp_kernel",
+                "fps_block_kernel", "fps_workspace_kernel",
+                "column_sph_kernel")
+_HAND = re.compile(r"(?<!\w)(" + "|".join(HAND_KERNELS) + r")(?!\w)")
+# the Chrome trace's categories of events that ran on the device
+_DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy",
+                "gpu_memset": "memset"}
+
+
+def summarise(device, window_ms, calls=1, top=25):
+    """The one summary of a profiler capture, from its device events
+    ``device``: (name, kind "kernel", "memcpy" or "memset", device us,
+    events), each name once, over a captured window of ``window_ms`` that
+    made ``calls`` calls.  Per call: the window (``profiled_ms_per_step``),
+    the device time (``device_ms_per_step``, the device events' summed
+    time), the busy share (that device time over the window: the events
+    of one stream do not overlap), the kernels, the device events, the
+    memsets, each hand kernel's events by its symbol (``hand_kernels``),
+    and the kernels, copies and memsets with the most device time."""
+    rows = sorted(device, key=lambda r: -r[2])
+    hand = dict.fromkeys(HAND_KERNELS, 0)
+    for name, kind, _, n in rows:
+        m = _HAND.search(name) if kind == "kernel" else None
+        if m:
+            hand[m.group(1)] += n // calls
+    wall = window_ms / calls
+    device_ms = sum(r[2] for r in rows) / 1e3 / calls
+    return {"profiled_ms_per_step": wall, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall if wall else 0.0,
+            "kernel_launches_per_step": sum(n for _, kind, _, n in rows
+                                            if kind == "kernel") // calls,
+            "device_events": sum(r[3] for r in rows) // calls,
+            "memsets": sum(n for _, kind, _, n in rows
+                           if kind == "memset") // calls,
+            "hand_kernels": hand,
+            "top_kernels": [{"name": k, "device_us_per_step": us / calls,
+                             "calls_per_step": n // calls}
+                            for k, _, us, n in rows[:top] if us > 0]}
+
+
+def trace_file_summary(path, top=25):
+    """``summarise`` of a ``torch.profiler`` Chrome trace
+    (``export_chrome_trace``, as the train loop's ``profile_step`` capture
+    writes it), the whole file as one call: the window is the span of its
+    events; ``device_events`` is 0 for a trace with no device activity."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    lo = min((float(e["ts"]) for e in events), default=0.0)
+    hi = max((float(e["ts"]) + float(e["dur"]) for e in events),
+             default=0.0)
+    by_name = {}
+    for e in events:
+        kind = _DEVICE_CATS.get(e.get("cat"))
+        if kind is not None:
+            _, us, n = by_name.get(e["name"], (kind, 0.0, 0))
+            by_name[e["name"]] = (kind, us + float(e["dur"]), n + 1)
+    return summarise([(k, *v) for k, v in by_name.items()], (hi - lo) / 1e3,
+                     top=top)
+
+
+def format_report(report, top=None):
+    """The lines ``print_report`` prints."""
+    lines = []
     if "stage_ms" in report:
-        print(f"device {report['device']}, precision "
-              f"{report['precision']}: {report['ms_per_step']:.3f} "
-              f"ms/step over {report['steps']} steps")
+        lines.append(f"device {report['device']}, precision "
+                     f"{report['precision']}: {report['ms_per_step']:.3f} "
+                     f"ms/step over {report['steps']} steps")
         for k, v in report["stage_ms"].items():
-            print(f"  stage {k:12s} {v:9.3f} ms (synchronised wall)")
-    print(f"profiler: {report['device_ms_per_step']:.3f} ms device time per "
-          f"step in {report['kernel_launches_per_step']} kernel launches, "
-          f"busy share {report['device_busy_share']:.3f} of "
-          f"{report['profiled_ms_per_step']:.3f} ms wall")
+            lines.append(f"  stage {k:12s} {v:9.3f} ms (synchronised wall)")
+    lines.append(
+        f"profiler: {report['device_ms_per_step']:.3f} ms device time per "
+        f"step in {report['kernel_launches_per_step']} kernel launches, "
+        f"busy share {report['device_busy_share']:.3f} of "
+        f"{report['profiled_ms_per_step']:.3f} ms wall")
+    if "hand_kernels" in report:
+        lines.append("hand kernels' events: " + (", ".join(
+            f"{k} {n}" for k, n in report["hand_kernels"].items() if n)
+            or "none") + f"; memsets {report['memsets']}")
     for name in ("top_kernels", "top_ops"):
-        print(name)
+        if name not in report:
+            continue
+        lines.append(name)
         for r in report[name][:top]:
-            print(f"  {r['device_us_per_step']:10.1f} us "
-                  f"{r['calls_per_step']:6d}x  {r['name'][:100]}")
+            lines.append(f"  {r['device_us_per_step']:10.1f} us "
+                         f"{r['calls_per_step']:6d}x  {r['name'][:100]}")
+    return lines
+
+
+def print_report(report, top=None):
+    """Print a ``profile`` report (or a ``trace`` or ``trace_file_summary``
+    one: no stage times), the first ``top`` rows of each table."""
+    print("\n".join(format_report(report, top)))
 
 
 def main(argv):
+    if "--summary" in argv:
+        print_report(trace_file_summary(argv[argv.index("--summary") + 1]),
+                     top=25)
+        return
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv else 20
     report = profile(steps)
     if "--out" in argv:

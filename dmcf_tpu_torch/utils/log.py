@@ -35,6 +35,10 @@ def get_runid(path):
     return "%05d" % (best + 1)
 
 
+def code2md(code_text, language=None):
+    """Code in markdown fences (TensorBoard text panels)."""
+    return "```" + (language or "") + "\n" + code_text + "\n```"
+
 def setup_logging():
     """Brace-format records and one INFO handler on the root logger
     (``force``: replaces handlers a library installed before)."""

@@ -23,8 +23,8 @@ def _model(cfg, state):
 
 
 def halo_search(group, parts, kernel, radius, k, halo_cap, small_cap):
-    """This rank's neighbour counts and conv rows, and the halo overflow
-    at ``halo_cap`` and at ``small_cap``."""
+    """This rank's neighbour counts and conv rows, the halo overflow at
+    ``halo_cap`` and at ``small_cap``, and ``exchange_grad``'s message."""
     from dmcf_tpu_torch.ops.windows import get_window_func
 
     mine = shard_parts(parts, group.rank, "cpu")
@@ -35,7 +35,8 @@ def halo_search(group, parts, kernel, radius, k, halo_cap, small_cap):
     _, over_small = make_halo_search_conv(
         group, radius=radius, k=k, halo_cap=small_cap)(mine)
     return {"counts": counts, "conv": conv, "over": int(over),
-            "over_conv": int(over_conv), "over_small": int(over_small)}
+            "over_conv": int(over_conv), "over_small": int(over_small),
+            "exchange_grad": exchange_grad(group)}
 
 
 def halo_step(group, cfg, state, parts, halo_width, halo_cap, target):
@@ -56,10 +57,12 @@ def halo_step(group, cfg, state, parts, halo_width, halo_cap, target):
             "grads": {n: q.grad for n, q in model.named_parameters()}}
 
 
-def halo_rollout(group, cfg, state, sample, n_steps, kw):
-    """``halo_rollout_host`` on this rank (frames and report)."""
+def halo_rollouts(group, cfg, state, runs):
+    """``halo_rollout_host`` on this rank (frames and report) for each
+    (sample, n_steps, kw) of ``runs``."""
     model = _model(cfg, state)
-    return halo_rollout_host(model, group, sample, n_steps, **kw)
+    return [halo_rollout_host(model, group, sample, n_steps, **kw)
+            for sample, n_steps, kw in runs]
 
 
 def exchange_grad(group):

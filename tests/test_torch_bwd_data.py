@@ -15,6 +15,7 @@ most max(4, 1e-3 of them): an fp32 sum taken in another order can meet a
 rounding midpoint.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -125,8 +126,8 @@ def search_inputs(symmetric, ksize, dim, seed, n_feats=None):
     if symmetric:
         kern = np.asarray(jcc.build_symmetric_kernel(
             jnp.asarray(kern[:, :ksize[1] // 2]), 1))
-    nl = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(pts), 0.075,
-                                 24, ignore_query_point=symmetric)
+    nl = jax.jit(lambda p: jnb.fixed_radius_search(
+        p, p, 0.075, 24, ignore_query_point=symmetric))(jnp.asarray(pts))
     win = "peak" if symmetric else "poly6"
     want, _, dout, geom, qf = _vjp_both(pts, feats, kern, nl, symmetric,
                                         win)

@@ -18,6 +18,8 @@ on 2 of the 8 virtual CPU devices, the port on 2 gloo ranks
   and overflows equal JAX's exactly.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,7 +88,21 @@ def test_halo_select_matches_jax(side):
     assert int(got[3]) > 0
 
 
-def test_halo_search_conv_matches_jax():
+@pytest.fixture(scope="module")
+def halo_ranks():
+    """One spawn of 2 gloo ranks for the module, in the background while
+    the tests compute their references: a future of each rank's
+    ``_torch_ranks.halo_search`` on ``_cloud``'s slabs."""
+    pos, mask, feats = _cloud()
+    kernel = np.random.RandomState(1).normal(
+        scale=0.1, size=(4, 4, 4, 4, 8)).astype(np.float32)
+    parts = jhalo.slab_partition(pos, mask, 2, payload=feats)
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(spawn, _torch_ranks.halo_search, 2,
+                          args=(parts, kernel, RADIUS, K, 128, 2))
+
+
+def test_halo_search_conv_matches_jax(halo_ranks):
     pos, mask, feats = _cloud()
     kernel = np.random.RandomState(1).normal(
         scale=0.1, size=(4, 4, 4, 4, 8)).astype(np.float32)
@@ -101,8 +117,7 @@ def test_halo_search_conv_matches_jax():
     _, want_small = jax.jit(jhalo.make_halo_search_conv(
         mesh, radius=1.5, k=K, halo_cap=2))(jparts)
 
-    ranks = spawn(_torch_ranks.halo_search, 2,
-                  args=(parts, kernel, RADIUS, K, 128, 2))
+    ranks = halo_ranks.result()
     counts = torch.cat([r["counts"] for r in ranks]).numpy()
     conv = torch.cat([r["conv"] for r in ranks]).numpy()
     np.testing.assert_array_equal(counts, np.asarray(want_counts))
@@ -137,8 +152,8 @@ def test_shard_sample_takes_contiguous_blocks():
         shard_sample({"pos": np.zeros((6, 3))}, G)
 
 
-def test_exchange_refuses_gradients():
-    msg, _ = spawn(_torch_ranks.exchange_grad, 2)
+def test_exchange_refuses_gradients(halo_ranks):
+    msg = halo_ranks.result()[0]["exchange_grad"]
     assert msg and "does not differentiate" in msg
 
 
@@ -146,9 +161,10 @@ def test_dilated_pos_center_matches_jax():
     pos, mask, _ = _cloud(n=200, pad=256)
     center = np.array([0.3, -0.05, 0.02], np.float32)
     vs = np.array([0.05, 0.05, 0.05], np.float32)
-    want = jsph.get_dilated_pos(jnp.asarray(pos), jnp.asarray(mask),
-                                [1, 2, 4], [256, 512, 256], voxel_size=vs,
-                                centralize=True, center=jnp.asarray(center))
+    # JAX's pyramid compiled whole (eager, each op compiles on its own)
+    want = jax.jit(lambda p, m, c: jsph.get_dilated_pos(
+        p, m, [1, 2, 4], [256, 512, 256], voxel_size=vs, centralize=True,
+        center=c))(jnp.asarray(pos), jnp.asarray(mask), jnp.asarray(center))
     got = sph.get_dilated_pos(torch.from_numpy(pos), torch.from_numpy(mask),
                               [1, 2, 4], [256, 512, 256], voxel_size=vs,
                               centralize=True,

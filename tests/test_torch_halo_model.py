@@ -20,6 +20,7 @@ the single-process step than JAX's halo step does: 1e-6 here.
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -101,16 +102,19 @@ def test_halo_step_and_loss_match_jax(bridged):
                     .astype(np.float32), sample["vel"] * 0.9], 1)
     tgt_sh = tgt[parts["src"]]                       # [D, fcap, 2, 3]
 
-    mesh = make_spatial_mesh(jax.devices()[:2])
-    jparts = jhm.shard_model_parts(parts, mesh)
-    jstep = jhm.make_halo_model_step(jmodel, mesh, halo_width=rf,
-                                     halo_cap=512)
-    jp, jv, _ = jax.jit(jstep)(params, jparts)
-    jl, jg = jax.jit(jax.value_and_grad(lambda pr: jstep.loss(
-        pr, jparts, jnp.asarray(tgt_sh), w_pos=1.0, w_vel=0.5)))(params)
-
-    ranks = spawn(_torch_ranks.halo_step, 2,
-                  args=(dict(CFG), bridged["state"], parts, rf, 512, tgt_sh))
+    # the ranks run while JAX compiles and runs its step here
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(spawn, _torch_ranks.halo_step, 2,
+                              args=(dict(CFG), bridged["state"], parts, rf,
+                                    512, tgt_sh))
+        mesh = make_spatial_mesh(jax.devices()[:2])
+        jparts = jhm.shard_model_parts(parts, mesh)
+        jstep = jhm.make_halo_model_step(jmodel, mesh, halo_width=rf,
+                                         halo_cap=512)
+        jp, jv, _ = jax.jit(jstep)(params, jparts)
+        jl, jg = jax.jit(jax.value_and_grad(lambda pr: jstep.loss(
+            pr, jparts, jnp.asarray(tgt_sh), w_pos=1.0, w_vel=0.5)))(params)
+        ranks = spawned.result()
     fm = sample["fluid_mask"]
     got_p = hm.gather_owned(parts, torch.cat([r["pos"] for r in ranks]), n)
     got_v = hm.gather_owned(parts, torch.cat([r["vel"] for r in ranks]), n)

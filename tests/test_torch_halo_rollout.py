@@ -17,7 +17,10 @@ boundary row (ROADMAP §3, a reference behaviour), and a slice that fills
 its rows exactly would feed it a real particle there.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+import pytest
 import torch
 
 from dmcf_tpu_torch.models import build_model
@@ -41,12 +44,41 @@ def _single_rollout(model, sample, n_steps):
     return frames[0][1:].numpy()
 
 
-def _run(sample, n_steps, kw):
+def _short():
+    return {k: torch.from_numpy(v) for k, v in _scene(nx=40).items()}, 3, \
+        {"chunk": 3}
+
+
+def _drifting():
+    s = _scene(nx=24)
+    s["vel"][:, 0] = 30.0
+    rf = hm.receptive_field(build_model(dict(CFG_K), device="cpu"))
+    return {k: torch.from_numpy(v) for k, v in s.items()}, 9, \
+        {"chunk": 7, "halo_width": 3 * rf}
+
+
+@pytest.fixture(scope="module")
+def halo_runs():
+    """One spawn of 2 gloo ranks for the module, the halo rollouts of
+    ``_short`` and ``_drifting``, while the single-process rollouts of the
+    same weights run here.  Returns, for each, (the single-process frames,
+    each rank's (frames, report))."""
     model = build_model(dict(CFG_K), device="cpu")
-    want = _single_rollout(model, sample, n_steps)
-    ranks = spawn(_torch_ranks.halo_rollout, 2,
-                  args=(dict(CFG_K), model.state_dict(), sample, n_steps,
-                        dict(kw, bcap_round=64)))
+    cases = [_short(), _drifting()]
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(
+            spawn, _torch_ranks.halo_rollouts, 2,
+            args=(dict(CFG_K), model.state_dict(),
+                  [(s, n, dict(kw, bcap_round=64)) for s, n, kw in cases]))
+        wants = [_single_rollout(model, s, n) for s, n, _ in cases]
+        ranks = spawned.result()
+    return [(want, [r[i] for r in ranks]) for i, want in enumerate(wants)]
+
+
+def _run(halo_runs, which, sample):
+    """The halo rollout ``which`` of ``halo_runs`` against the
+    single-process rollout of the same weights."""
+    want, ranks = halo_runs[which]
     m = sample["fluid_mask"].numpy()
     traj, report = ranks[0]
     assert report["halo_overflow"] == 0
@@ -61,15 +93,14 @@ def _run(sample, n_steps, kw):
     return report
 
 
-def test_short_rollout_matches_single_process():
-    sample = {k: torch.from_numpy(v) for k, v in _scene(nx=40).items()}
-    report = _run(sample, 3, {"chunk": 3})
+def test_short_rollout_matches_single_process(halo_runs):
+    report = _run(halo_runs, 0, _short()[0])
     assert report["repartitions"] == 0
     assert report["halo_width"] == 1.5 * hm.receptive_field(
         build_model(dict(CFG_K), device="cpu"))
 
 
-def test_forced_repartition_stays_exact():
+def test_forced_repartition_stays_exact(halo_runs):
     """A drift along the slab axis (x, 30 a second: 0.3 a step) against a
     halo of three receptive fields.  Rank 0's right edge starts 0.025 left
     of its plane, so its step inputs pass half the halo (1.5) at step 7
@@ -77,10 +108,6 @@ def test_forced_repartition_stays_exact():
     (7 steps) is exact and reports the escape, and the rollout
     re-partitions (every rank alike, from all-gathered state) and goes on
     exact."""
-    s = _scene(nx=24)
-    s["vel"][:, 0] = 30.0
-    sample = {k: torch.from_numpy(v) for k, v in s.items()}
-    rf = hm.receptive_field(build_model(dict(CFG_K), device="cpu"))
-    report = _run(sample, 9, {"chunk": 7, "halo_width": 3 * rf})
+    report = _run(halo_runs, 1, _drifting()[0])
     assert report["repartitions"] == 1
     assert report["halo_escaped_max"] > 0

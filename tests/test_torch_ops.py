@@ -192,9 +192,10 @@ def _dilated_pos_both(caps):
     pos = np.array(jsph.masked_positions(jnp.asarray(pos),
                                          jnp.asarray(mask)))
     vox = np.asarray([0.01, 0.01, 0.0], np.float32)
-    ref = jsph.get_dilated_pos(jnp.asarray(pos), jnp.asarray(mask),
-                               [1, 2, 4], caps, voxel_size=vox,
-                               centralize=True)
+    # JAX's pyramid compiled whole (eager, each op compiles on its own)
+    ref = jax.jit(lambda p, m: jsph.get_dilated_pos(
+        p, m, [1, 2, 4], caps, voxel_size=vox, centralize=True))(
+        jnp.asarray(pos), jnp.asarray(mask))
     got = sph.get_dilated_pos(T(pos), T(mask), [1, 2, 4], caps,
                               voxel_size=vox, centralize=True)
     for s in range(3):
@@ -228,9 +229,10 @@ def _conv_inputs(seed, q=256, k=16, cin=8, ignore_query_point=False):
     pts = random_cloud(rng, q)
     feats = rng.randn(q, cin).astype(np.float32)
     ext = 0.15
-    nl = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(pts),
-                                 ext / 2, k,
-                                 ignore_query_point=ignore_query_point)
+    # JAX's search compiled whole (eager, each op compiles on its own)
+    nl = jax.jit(lambda p: jnb.fixed_radius_search(
+        p, p, ext / 2, k, ignore_query_point=ignore_query_point))(
+        jnp.asarray(pts))
     if ignore_query_point:
         nl = jax_drop_coincident(nl, jnp.asarray(pts), jnp.asarray(pts))
     return rng, pts, feats, ext, nl
@@ -251,11 +253,12 @@ def test_continuous_conv_matches_jax(symmetric, mapping):
     else:
         kern_t = T((rng.randn(1, 8, 8, 8, 4) * 0.1).astype(np.float32))
         kern_j = jnp.asarray(kern_t.numpy())
-    ref = jcc.continuous_conv(
-        kern_j, jnp.asarray(pts), jnp.asarray(pts), jnp.asarray(feats), nl,
-        ext, window_fn=jwin.get_window_func(win),
+    # JAX's conv compiled whole (eager, each op compiles on its own)
+    ref = jax.jit(lambda k_, p_, f_, nl_: jcc.continuous_conv(
+        k_, p_, p_, f_, nl_, ext, window_fn=jwin.get_window_func(win),
         coordinate_mapping=mapping, symmetric=symmetric,
-        query_features=jnp.asarray(feats) if symmetric else None)
+        query_features=f_ if symmetric else None))(
+        kern_j, jnp.asarray(pts), jnp.asarray(feats), nl)
     kw = dict(window_fn=windows.get_window_func(win),
               coordinate_mapping=mapping, symmetric=symmetric,
               query_features=T(feats) if symmetric else None)
@@ -353,9 +356,10 @@ def test_continuous_conv_dense_matches_jax(n_chunk):
                  0.0).astype(np.float32)
     feats = rng.randn(300, 8).astype(np.float32)
     kern = (rng.randn(1, 8, 8, 8, 4) * 0.1).astype(np.float32)
-    ref = jcc.continuous_conv_dense(jnp.asarray(kern), jnp.asarray(rel),
-                                    jnp.asarray(a), jnp.asarray(feats),
-                                    precision="highest")
+    # JAX's dense conv compiled whole (eager, each op compiles on its own)
+    ref = jax.jit(lambda *xs: jcc.continuous_conv_dense(
+        *xs, precision="highest"))(jnp.asarray(kern), jnp.asarray(rel),
+                                   jnp.asarray(a), jnp.asarray(feats))
     got = cconv.continuous_conv_dense(T(kern), T(rel), T(a), T(feats),
                                       n_chunk=n_chunk)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
@@ -444,8 +448,8 @@ def test_klist_conv_vjp_matches_jax(symmetric, ksize, dim):
     if symmetric:
         kern = np.asarray(jcc.build_symmetric_kernel(
             jnp.asarray(kern[:, :4]), 1))
-    nl = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(pts), 0.075,
-                                 24, ignore_query_point=symmetric)
+    nl = jax.jit(lambda p: jnb.fixed_radius_search(
+        p, p, 0.075, 24, ignore_query_point=symmetric))(jnp.asarray(pts))
     win = "peak" if symmetric else "poly6"
     want, got, dout, (idx, a, t), qf = _vjp_both(pts, feats, kern, nl,
                                                  symmetric, win)
@@ -510,8 +514,8 @@ def test_klist_conv_vjp_2d_kink_convention():
     pts = random_cloud(rng, 150, dim=2)
     feats = rng.randn(150, 4).astype(np.float32)
     kern = (rng.randn(1, 4, 4, 4, 3) * 0.1).astype(np.float32)
-    nl = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(pts), 0.075,
-                                 24)
+    nl = jax.jit(lambda p: jnb.fixed_radius_search(p, p, 0.075, 24))(
+        jnp.asarray(pts))
     want, got, dout, (idx, a, t), _ = _vjp_both(pts, feats, kern, nl,
                                                 False, "poly6")
     _close(got[3][:, :2], want[3][:, :2], "x/y positions")

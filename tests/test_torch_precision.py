@@ -60,8 +60,8 @@ def _klist_inputs(dim):
     feats = rng.randn(256, 8).astype(np.float32)
     ksize = (1, 8, 8) if dim == 2 else (4, 4, 4)
     kern = (rng.randn(*ksize, 8, 4) * 0.1).astype(np.float32)
-    nl = jnb.fixed_radius_search(jnp.asarray(pts), jnp.asarray(pts), 0.075,
-                                 16)
+    nl = jax.jit(lambda p: jnb.fixed_radius_search(p, p, 0.075, 16))(
+        jnp.asarray(pts))
     return pts, feats, kern, nl
 
 

@@ -36,6 +36,7 @@ each row alone), integer ``aux`` and ``avg_neighbors`` exactly.
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -195,19 +196,27 @@ _RUNS = {}
 def runs(cases):
     """Each world size's ranks (once, every case whose rows it divides:
     the JAX scene's 64 and 32 at two ranks).  A world of one runs here,
-    in this process's own group; the others spawn."""
-    def get(world):
-        if world not in _RUNS:
-            mine = {k: v for k, v in cases.items()
-                    if k != "jax_scene" or world == 2}
-            if world == 1:
-                with init_group("cpu", rank=0, world_size=1) as group:
-                    _RUNS[1] = [_torch_ranks.sharded_cases(group, mine)]
-            else:
-                _RUNS[world] = spawn(_torch_ranks.sharded_cases, world,
-                                     args=(mine,))
-        return _RUNS[world]
-    return get
+    in this process's own group; two and three ranks spawn at once, in
+    the background from the fixture's first use, while the tests compute
+    their references."""
+    def mine(world):
+        return {k: v for k, v in cases.items()
+                if k != "jax_scene" or world == 2}
+
+    with ThreadPoolExecutor(2) as pool:
+        spawned = {w: pool.submit(spawn, _torch_ranks.sharded_cases, w,
+                                  args=(mine(w),)) for w in (2, 3)}
+
+        def get(world):
+            if world not in _RUNS:
+                if world == 1:
+                    with init_group("cpu", rank=0, world_size=1) as group:
+                        _RUNS[1] = [_torch_ranks.sharded_cases(group,
+                                                               mine(1))]
+                else:
+                    _RUNS[world] = spawned[world].result()
+            return _RUNS[world]
+        yield get
 
 
 def _whole(ranks, name, key):

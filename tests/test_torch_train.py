@@ -166,6 +166,15 @@ def narrow_cfg():
     return cfg
 
 
+# narrow_cfg's cut as run_pipeline overrides
+NARROW_ARGS = [
+    "--model.kernel_size", "[1,4,4]", "--model.sym_kernel_size", "[1,4,4]",
+    "--model.strides", "[1,2]", "--model.particle_radii", "[0.02,0.04]",
+    "--model.scale_size_factor", "[1.0,0.5]", "--model.neighbor_k", "16",
+    "--model.neighbor_k_gaps", "[32]", "--model.layer_channels",
+    "[[[4]],[[4],[4]],[[4],[4]],[[4]],[[2]]]"]
+
+
 def capture_grads():
     """An optax transformation that keeps the gradients in its state and
     leaves the parameters as they are."""
@@ -273,9 +282,14 @@ def test_train_step_matches_jax(slice_setup):
     model.load_state_dict(params_from_flax(
         jax.tree.map(np.asarray, slice_setup.params)))
     opt, sch = sim.make_optimizer(model, OPT_CFG)
+
+    @jax.jit  # optax's update compiled whole (eager, each op compiles)
+    def update(g, st, p):
+        u, st = tx.update(g, st, p)
+        return optax.apply_updates(p, u), st
+
     for _ in range(2):
-        upd, state = tx.update(jg, state, params)
-        params = optax.apply_updates(params, upd)
+        params, state = update(jg, state, params)
         for name, p in model.named_parameters():
             p.grad = jgrads[name].clone()
         opt.step()

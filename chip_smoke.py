@@ -41,7 +41,9 @@ full width (K-list launches up to K 1856 in chunks, the 6x6x6 ASCC conv,
 a 50-step rollout, a batch-8 train step; phase 16), ``configs/WBC-SPH.yml``
 upright and turned by 30 degrees (``grav_eqvar``, phase 17) and the
 CConv and PointNet baselines (phase 18), runs the root bench's canyon
-protocol on a generated scene of the canyon's size (``bench.bench_canyon``
+protocol on a generated scene of the canyon's size, read from the scene
+file phase 27 (c) writes through ``bench --canyon``'s read
+(``bench.bench_canyon``
 with the cell search, the contact crop, every K-list launch of its first
 step held against its plain version, the searches against each other and
 the CPU, and lazy dense pairs against eager ones; phase 19) and
@@ -87,6 +89,16 @@ query rows: every K-list launch of each rank's first step against its
 plain version, a 20-step rollout under the gate, a step at "highest"
 against one process; (c) path B with the farthest-point pyramid and
 ``configs/Liquid3d.yml`` as shipped, a step each against one process),
+runs the port's entry points with only what the GPU machine has
+installed, in a child process that cannot import ``zstandard``, ``h5py``
+or ``matplotlib`` (phase 27: (a) ``run_pipeline --split test`` on
+``configs/column/symnet.yml``'s full test split with its dataset cache,
+each hdf5 file and the cache read back bitwise, the launches counted
+exactly; (b) the ``run_sample`` CLI on Liquid3d with the fixture
+checkpoint and scene file at the reference's 200-frame horizon, its file
+read back bitwise, its launches 199 steps x phase 23's, its exactness
+printed; (c) the canyon scene written by ``python -m
+dmcf_tpu_torch.scene`` and read back bitwise, run ahead of phase 19),
 and prints
 one ``kernels`` JSON line (each kernel variant, its launches on each path),
 the card's name and power limit, and a last ``{"ok": true, ...}`` line.  A
@@ -2070,11 +2082,13 @@ def same_sets(a, b):
     return torch.equal(a.count, b.count) and torch.equal(rows(a), rows(b))
 
 
-def canyon_phase(root, dev, max_err):
+def canyon_phase(root, dev, max_err, canyon_file):
     """Phase 19: the root bench's canyon protocol on a generated scene of
     the canyon's size and contact load (``scene.canyon_frame``: 1,280
     fluid resting on the terrain, 185,436 boundary, 6,126 of them in
-    contact) with ``configs/Liquid3d.yml`` at full width,
+    contact), read from ``canyon_file`` (phase 27 (c)'s, written by
+    ``python -m dmcf_tpu_torch.scene``) by ``bench --canyon``'s route
+    (``bench.read_canyon``), with ``configs/Liquid3d.yml`` at full width,
     ``CANYON_OVERRIDES`` and a contact crop of 8192.  The first step: each
     trunk pair's search and its time, every K-list launch against its plain
     version, the scale-0 pair's cell search on the card against the
@@ -2088,19 +2102,20 @@ def canyon_phase(root, dev, max_err):
     device time and busy share, and lazy dense pairs against eager ones on
     the bench scene."""
     from dmcf_tpu_torch.bench import (CANYON_BOOST, bench_canyon,
-                                      canyon_exact, canyon_model)
+                                      canyon_exact, canyon_model,
+                                      read_canyon)
     from dmcf_tpu_torch.models import pbf as pbf_mod
     from dmcf_tpu_torch.ops import neighbors
     from dmcf_tpu_torch.ops.cell_search import contact_weight_dense
     from dmcf_tpu_torch.profile_step import record_launches, trace
     from dmcf_tpu_torch.run_sample import scene_sample
-    from dmcf_tpu_torch.scene import canyon_frame
 
-    frame = canyon_frame()
+    frame = read_canyon(canyon_file)
     model = canyon_model(CANYON_CROP, dev)
     sample, _, _, box = scene_sample(model, frame, vel=CANYON_BOOST,
                                      device=dev, log=lambda m: None)
-    print(f"  scene: {len(frame['pos'])} fluid, {len(box)} boundary; crop "
+    print(f"  scene from {canyon_file}: {len(frame['pos'])} fluid, "
+          f"{len(box)} boundary; crop "
           f"{CANYON_CROP}, {model.precision} trunk")
     searches = []
     search = pbf_mod.search
@@ -2815,7 +2830,10 @@ def abs_sum(arrays):
                      for a in arrays)
 
 
-def reference_phase(root, dev, max_err, summary_dir):
+READ_REPS = 5               # phase 23 (b): reads of each file a route
+
+
+def reference_phase(root, dev, max_err, summary_dir, canyon_file):
     """Phase 23: a reference-format checkpoint and a dataset file on the
     card.  (a) The fixture bundle (``tests/data/tf_ckpt_liquid3d``: the
     reference's variable layout, the JAX package's init weights, written
@@ -2826,7 +2844,10 @@ def reference_phase(root, dev, max_err, summary_dir):
     (b) The native scene loader built with g++ and
     ``tests/data/liquid_block.msgpack.zst`` (phase 16's block) read
     through ``Dataset`` under ``DMCF_NATIVE_LOADER=1``: each array's
-    sha256 equal to the fixtures'.  (c) ``run_sample.run_sample`` on that
+    sha256 equal to the fixtures'; that file and ``canyon_file`` (phase
+    27 (c)'s) read by the native loader and by ``read_msgpack_zst``
+    (libzstd through ctypes), frames bitwise equal, each route's best of
+    READ_REPS reads printed.  (c) ``run_sample.run_sample`` on that
     frame with those weights, REF_STEPS steps on the card, no velocity
     boost: the exactness gate, the K-list launches counted exactly
     against the first step's, every launch of the first step against its
@@ -2841,7 +2862,8 @@ def reference_phase(root, dev, max_err, summary_dir):
 
     import yaml
 
-    from dmcf_tpu_torch.data import Dataset, native_loader
+    from dmcf_tpu_torch.data import Dataset, native_loader, \
+        read_msgpack_zst
     from dmcf_tpu_torch.models import build_model
     from dmcf_tpu_torch.profile_step import record_launches
     from dmcf_tpu_torch.run_sample import capacity_for, run_sample, \
@@ -2914,6 +2936,23 @@ def reference_phase(root, dev, max_err, summary_dir):
           f"sha256 equal to fixtures.json: "
           f"{ {k: d == want['sha256'][k] for k, d in digests.items()} }")
     check(digests == want["sha256"], "scene arrays' sha256")
+    for path in (scene, canyon_file):
+        best = {}
+        for route, read in (("native loader", native_loader.load_scene),
+                            ("read_msgpack_zst", read_msgpack_zst)):
+            times = []
+            for _ in range(READ_REPS):
+                t0 = time.perf_counter()
+                got = read(path)
+                times.append(time.perf_counter() - t0)
+            best[route] = (min(times), got)
+        same_frames(best["read_msgpack_zst"][1], best["native loader"][1],
+                    f"{path}: libzstd route vs native loader")
+        print(f"  {os.path.basename(path)} ({os.path.getsize(path)} bytes):"
+              f" best of {READ_REPS} reads, native loader "
+              f"{1e3 * best['native loader'][0]:.3f} ms, read_msgpack_zst "
+              f"{1e3 * best['read_msgpack_zst'][0]:.3f} ms; frames bitwise "
+              f"equal")
 
     print(f"  (c) run_sample, {REF_STEPS} steps")
     zero = [0.0, 0.0, 0.0]
@@ -4296,7 +4335,331 @@ def sharded_phase(root, dev, max_err, smi):
             "seconds": time.time() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the port's entry points with only what the card's machine has
+# installed, each run in a child process (``--installed WHAT WORKDIR``,
+# ``installed_main``) that cannot import INSTALLED_BLOCKED, through their
+# command-line paths: (a) ``run_pipeline --split test`` on the column
+# config's full test split with its dataset cache, (b) the ``run_sample``
+# CLI on Liquid3d at the reference's test horizon, (c) the canyon scene
+# written by ``python -m dmcf_tpu_torch.scene`` and read by ``bench
+# --canyon``'s route (run ahead of phase 19, which takes its frame from
+# that file)
+INSTALLED_BLOCKED = ("zstandard", "h5py", "matplotlib")
+LIQUID_HORIZON = 200         # (b): Liquid3d's reference test horizon in
+#                              frames (BASELINE.md), --timesteps 200: 199
+#                              steps after frame 0
+INSTALLED_TIMEOUT = 900      # seconds a child may take
+
+
+def same_frames(got, want, what):
+    """Two lists of frame dicts equal key for key, arrays bitwise (dtype,
+    shape, bytes)."""
+    check(len(got) == len(want), f"{what}: {len(got)} vs {len(want)} frames")
+    for g, w in zip(got, want):
+        check(sorted(g) == sorted(w), f"{what}: keys {sorted(g)}")
+        for k, v in w.items():
+            if isinstance(v, np.ndarray):
+                check(isinstance(g[k], np.ndarray) and g[k].dtype == v.dtype
+                      and g[k].shape == v.shape
+                      and g[k].tobytes() == v.tobytes(),
+                      f"{what}: {k} bitwise")
+            else:
+                check(g[k] == v, f"{what}: {k} {g[k]!r} vs {v!r}")
+
+
+def same_array(got, want, what):
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and got.tobytes() == want.tobytes(),
+          f"{what}: {got.dtype} {got.shape} bitwise {want.dtype} "
+          f"{want.shape}")
+
+
+def installed_canyon(root, work):
+    """(c): ``scene.main`` writes ``canyon_frame()``'s scene through
+    libzstd; ``bench.read_canyon`` (``bench --canyon``'s read) reads it
+    back bitwise.  No device work."""
+    from dmcf_tpu_torch import scene
+    from dmcf_tpu_torch.bench import read_canyon
+
+    path = os.path.join(work, "canyon.msgpack.zst")
+    t0 = time.time()
+    check(scene.main([path]) == 0, "scene.main")
+    write_s = time.time() - t0
+    t0 = time.time()
+    got = read_canyon(path)
+    read_s = time.time() - t0
+    want = scene.canyon_frame()
+    n = len(want["pos"])
+    want.update(frame_id=0, scene_id="generated",
+                grav=np.tile(np.array([0, -9.81, 0], np.float32), (n, 1)))
+    same_frames([got], [want], "canyon file")
+    size = os.path.getsize(path)
+    print(f"  (c) {path}: {size} bytes, written in {write_s:.2f} s (zstd "
+          f"level 22), read back in {read_s:.3f} s: {n} fluid, "
+          f"{len(got['box'])} boundary, every array bitwise canyon_frame()'s")
+    return {"path": path, "bytes": size, "write_s": write_s,
+            "read_s": read_s}
+
+
+def installed_column(root, work, dev):
+    """(a): ``run_pipeline.main`` on ``configs/column/symnet.yml --split
+    test`` on the card, seed weights, ``strict_overflow`` (an overflow
+    raises), the default ``cache_dir`` (``cache`` in the work directory):
+    the column kernel makes the three splits (one launch each) and the
+    cache; the test rollout runs the config's full test split (3 scenes
+    of 5, 20 and 40 particles, 200 frames) and writes each scene's hdf5.
+    Held: each file (``read_results``) bitwise the rollout's positions,
+    the split's ground truth and boundary; the K-list forward launches
+    exactly each scene's steps times its recorded step's, and every
+    launch of each scene's recorded step against its plain version
+    (``launch_checks``, TOL / BF16_TOL); then a second
+    ``DatasetGroup`` over the config reads the cache back bitwise the
+    generated splits with no column launch.  Printed: ms/step and each
+    scene's device time a step."""
+    import yaml
+
+    from dmcf_tpu_torch import run_pipeline
+    from dmcf_tpu_torch.data import DatasetGroup, pad_rollout_state, \
+        read_results
+    from dmcf_tpu_torch.kernels.column_sph import column_solve
+    from dmcf_tpu_torch.pipelines.simulator import Simulator
+    from dmcf_tpu_torch.profile_step import record_launches, trace
+
+    cfg_file = os.path.join(root, "configs", "column", "symnet.yml")
+    with open(cfg_file) as f:
+        cfg = yaml.safe_load(f)
+    rec = {}
+    run_rollout = Simulator.run_rollout
+
+    def recording(self, data, timesteps=2, bucket=64):
+        results = run_rollout(self, data, timesteps, bucket)
+        rec.update(sim=self, data=data, results=results)
+        return results
+
+    Simulator.run_rollout = recording
+    try:
+        column_solve.launches = 0
+        zero_counts()            # the test split's path starts here
+        torch.cuda.synchronize()
+        t0 = time.time()
+        check(run_pipeline.main(["--cfg_file", cfg_file, "--split", "test",
+                                 "--pipeline.strict_overflow", "true"])
+              is None, "run_pipeline --split test")
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = counts()[:2]  # and ends here
+        column_launches = column_solve.launches
+    finally:
+        Simulator.run_rollout = run_rollout
+    sim, data, results = rec["sim"], rec["data"], rec["results"]
+    test = cfg["dataset"]["test"]
+    shapes = [d["pos"].shape for d in data]
+    print(f"  (a) column/symnet.yml --split test in {seconds:.2f} s (the "
+          f"kernel makes the three splits and the cache first): scenes "
+          f"{shapes}, boundary {[d['box'].shape for d in data]}")
+    check(shapes == [(test["timesteps"], n, 3) for n in test["pts_cnt"]],
+          f"the config's full test split {shapes}")
+    check(column_launches == 3, f"column kernel: {column_launches} "
+          f"launches (one a split)")
+    name = type(sim.model).__name__
+    for i, ((ps, _), d) in enumerate(zip(results, data)):
+        files = sorted(glob.glob(os.path.join(sim.cfg.out_dir, "visual",
+                                              "%04d" % i, "*.hdf5")))
+        check(len(files) == 1, f"scene {i}: one hdf5 file {files}")
+        got = read_results(files[0])
+        check(list(got) == [name], f"{files[0]}: groups {list(got)}")
+        series = got[name]
+        check(sorted(series) == ["bnd", "gt", "pred"],
+              f"{files[0]}: datasets {sorted(series)}")
+        for key, want in (("pred", ps), ("gt", d["pos"]), ("bnd", d["box"])):
+            same_array(series[key].data, want, f"{files[0]} {key}")
+            check(series[key].attrs["type"] == "PARTICLE"
+                  and series[key].attrs["dim"].tolist() == list(want.shape),
+                  f"{files[0]} {key} attributes {series[key].attrs}")
+        print(f"  {os.path.relpath(files[0], work)}: pred, gt, bnd bitwise "
+              f"the rollout's and the split's")
+    ms_step = 1e3 / sim.last_steps_per_sec
+    want, device = [0, 0], []
+    max_err = {False: 0.0, True: 0.0}
+    for i, d in enumerate(data):
+        s = sim._device_state(pad_rollout_state(d, bucket=64), frame=0)
+        _, log = record_launches(sim.model, s)
+        launch_checks(log, f"test split scene {i}", max_err, show=False)
+        step = counts_of(log)
+        n_steps = d["pos"].shape[0] - 1
+        want = [w + n_steps * x for w, x in zip(want, step)]
+        with torch.no_grad():
+            rep = trace(lambda: sim.model(s), reps=5, host=False)
+        device.append([rep["device_ms_per_step"], rep["device_busy_share"],
+                       rep["kernel_launches_per_step"]])
+    print(f"  test rollout {ms_step:.3f} ms/step (mean of the scenes' "
+          f"means); device time a step (scene: ms, busy share, kernels) "
+          f"{device}; K-list launches (fp32, bf16) {launches}, want "
+          f"{want}; each scene's step vs plain: max_abs_err fp32 "
+          f"{max_err[False]:.3e} bf16 {max_err[True]:.3e}")
+    check(launches == want, f"test split launches {launches} vs {want}")
+
+    column_solve.launches = 0
+    t0 = time.time()
+    again = DatasetGroup(**cfg["dataset"], split="test", device=dev)
+    read_s = time.time() - t0
+    for split in ("train", "valid", "test"):
+        got, want = (getattr(g, split).data for g in (again, sim.dataset))
+        check(len(got) == len(want), f"cache {split}: {len(got)} scenes")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_frames(g, w, f"cache {split} scene {i}")
+    cached = sorted(glob.glob(os.path.join(work, "cache", "*",
+                                           "data.msgpack.zst")))
+    print(f"  the cache ({len(cached)} files, "
+          f"{sum(os.path.getsize(p) for p in cached)} bytes) read back by a "
+          f"second DatasetGroup in {read_s:.2f} s, bitwise the generated "
+          f"splits; column kernel launches {column_solve.launches}")
+    check(len(cached) == 3 and column_solve.launches == 0,
+          f"the splits from the cache ({len(cached)} files, "
+          f"{column_solve.launches} column launches)")
+    return {"seconds": seconds, "launches": launches,
+            "column_launches": column_launches, "ms_per_step": ms_step,
+            "device": device, "cache_read_s": read_s,
+            "max_abs_err": [max_err[False], max_err[True]],
+            "cache_column_launches": column_solve.launches}
+
+
+def installed_liquid(root, work):
+    """(b): the ``run_sample`` CLI (``run_sample.main``) on
+    ``configs/Liquid3d.yml`` with the reference-format fixture
+    checkpoint, ``tests/data/liquid_block.msgpack.zst`` read through
+    libzstd (not the native loader), ``--timesteps LIQUID_HORIZON --vel 0
+    0 0`` on the card.  Held: the written hdf5 (``read_results``) bitwise
+    the frames ``run_sample`` returned and its boundary, finite frames,
+    the steps.  Returned for the parent: the K-list launches (it holds
+    them against phase 23's step) and the exactness report, with the
+    first step whose counts break the gate (each step's counts kept on
+    the device and read once)."""
+    from dmcf_tpu_torch import run_sample as rs
+    from dmcf_tpu_torch.data import read_results
+
+    rec, per_step = {}, []
+    run, gate_cls = rs.run_sample, rs.Gate
+
+    def recording(*args, **kw):
+        out, report = run(*args, **kw)
+        rec.update(out=out, report=report)
+        return out, report
+
+    class StepGate(gate_cls):
+        def update(self, aux):
+            super().update(aux)
+            per_step.append(torch.stack([aux["neighbor_overflow"].int(),
+                                         aux["pair_overflow"].int()]))
+
+    out_dir = os.path.join(work, "liquid")
+    rs.run_sample, rs.Gate = recording, StepGate
+    try:
+        zero_counts()            # the run_sample CLI's path starts here
+        t0 = time.time()
+        rc = rs.main(["-c", os.path.join(root, "configs", "Liquid3d.yml"),
+                      "--tf_ckpt", os.path.join(root, REF_CKPT),
+                      "--data_path", os.path.join(root, REF_SCENE),
+                      "--timesteps", str(LIQUID_HORIZON),
+                      "--vel", "0", "0", "0", "--output_dir", out_dir])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = counts()[:2]  # and ends here
+    finally:
+        rs.run_sample, rs.Gate = run, gate_cls
+    check(rc == 0, f"run_sample.main: {rc}")
+    out, report = rec["out"], rec["report"]
+    path = os.path.join(out_dir, "example", "0000", "0000.hdf5")
+    got = read_results(path)["SymNet"]
+    same_array(got["pred"].data, out, f"{path} pred")
+    same_array(got["bnd"].data, report["box"], f"{path} bnd")
+    check(bool(np.isfinite(out).all()), "finite frames")
+    check(report["steps"] == LIQUID_HORIZON - 1
+          and out.shape[0] == LIQUID_HORIZON,
+          f"{report['steps']} steps, {out.shape[0]} frames")
+    steps = torch.stack(per_step).cpu().numpy()
+    k = report["neighbor_k"]
+    broken = np.flatnonzero((steps[:, 0] > k) | (steps[:, 1] > 0))
+    exact = report["pair_overflow"] <= 0 and report["max_neighbors"] <= k
+    first = int(broken[0]) if len(broken) else None
+    print(f"  (b) run_sample CLI, Liquid3d, {LIQUID_HORIZON} frames "
+          f"({report['steps']} steps) in {seconds:.2f} s with the model's "
+          f"build and the checkpoint: {report['ms_per_step']:.3f} ms/step; "
+          f"{path} bitwise the returned frames; K-list launches (fp32, "
+          f"bf16) {launches}")
+    print(f"  exactness over {report['steps']} steps: exact {exact} "
+          f"(max_neighbors {report['max_neighbors']} of K {k}, "
+          f"pair_overflow {report['pair_overflow']}, pair excess "
+          f"{report['pair_overflow_detail']}); first step that breaks the "
+          f"gate: {first} (step numbers from 0; {len(broken)} such steps); "
+          f"scale counts {report['scale_counts']} of caps "
+          f"{report['scale_caps']}")
+    if first is not None:
+        print(f"  at step {first}: max_neighbors {int(steps[first, 0])}, "
+              f"pair_overflow {int(steps[first, 1])}")
+    return {"seconds": seconds, "ms_per_step": report["ms_per_step"],
+            "steps": report["steps"], "launches": launches, "exact": exact,
+            "first_broken_step": first, "broken_steps": len(broken),
+            "max_neighbors": report["max_neighbors"], "neighbor_k": k,
+            "pair_overflow": report["pair_overflow"],
+            "pair_excess": report["pair_overflow_detail"]}
+
+
+def installed_main(argv):
+    """``chip_smoke.py --installed WHAT WORKDIR``: phase 27's child.  Makes
+    INSTALLED_BLOCKED unimportable before it imports the port, runs the
+    parts named in WHAT (comma-separated: canyon, column, liquid) with
+    WORKDIR as its working directory, and writes their results to
+    WORKDIR/WHAT.json; a failed check exits non-zero."""
+    import importlib
+
+    for m in INSTALLED_BLOCKED:
+        sys.modules[m] = None
+    what, work = argv[0], os.path.abspath(argv[1])
+    for m in INSTALLED_BLOCKED:
+        try:
+            importlib.import_module(m)
+        except ImportError:
+            continue
+        check(False, f"{m} importable")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.chdir(work)
+    dev = torch.device("cuda")
+    parts = {"canyon": lambda: installed_canyon(root, work),
+             "column": lambda: installed_column(root, work, dev),
+             "liquid": lambda: installed_liquid(root, work)}
+    out = {"blocked": list(INSTALLED_BLOCKED)}
+    for name in what.split(","):
+        out[name] = parts[name]()
+    with open(os.path.join(work, f"{what}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def installed_run(root, work, what):
+    """Runs ``installed_main`` in a child process; prints its output and
+    returns its results (a failed child fails the phase)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "chip_smoke.py"), "--installed",
+         what, work], cwd=work, capture_output=True, text=True,
+        timeout=INSTALLED_TIMEOUT)
+    print("\n".join("  | " + ln for ln in proc.stdout.splitlines()))
+    if proc.returncode:
+        print(proc.stderr[-6000:])
+    check(proc.returncode == 0, f"phase 27 child {what}: exit "
+          f"{proc.returncode}")
+    with open(os.path.join(work, f"{what}.json")) as f:
+        out = json.load(f)
+    print(f"  child ({what}) with {', '.join(out['blocked'])} "
+          f"unimportable: {time.time() - t0:.1f} s")
+    return out
+
+
 def main(argv):
+    if argv[:1] == ["--installed"]:
+        return installed_main(argv[1:])
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
         else HORIZON
     if not torch.cuda.is_available():
@@ -4553,7 +4916,12 @@ def main(argv):
     phase(f"19 the canyon protocol: a generated scene of the canyon's size,"
           f" crop {CANYON_CROP}, {CANYON_STEPS}-step timed rollout; lazy "
           f"dense pairs")
-    canyon = canyon_phase(root, dev, max_err)
+    installed_tmp = tempfile.TemporaryDirectory()
+    part("phase 27 (c), run here: the canyon scene file written by "
+         "python -m dmcf_tpu_torch.scene in a child that cannot import "
+         f"{', '.join(INSTALLED_BLOCKED)}")
+    installed = installed_run(root, installed_tmp.name, "canyon")
+    canyon = canyon_phase(root, dev, max_err, installed["canyon"]["path"])
 
     phase(f"20 run_sample, inflow regime: {INFLOW_STEPS} steps, an event "
           f"every {INFLOW_EVERY}, crop {INFLOW_CROP}")
@@ -4572,7 +4940,8 @@ def main(argv):
     phase(f"23 reference checkpoint and dataset file on the card: the "
           f"fixture bundle without TensorFlow, the scene through the native "
           f"loader, a {REF_STEPS}-step run_sample, phase 11's events file")
-    reference = reference_phase(root, dev, max_err, train["summary_dir"])
+    reference = reference_phase(root, dev, max_err, train["summary_dir"],
+                                installed["canyon"]["path"])
     train.pop("tmp").cleanup()
 
     phase(f"24 interpolation modes: (a) WaterRamps nearest_neighbor at "
@@ -4604,6 +4973,25 @@ def main(argv):
           f"{SHARDED_STEPS}-step rollout, a step at highest vs one process;"
           f" (c) path B and Liquid3d as shipped at highest vs one process")
     sharded = sharded_phase(root, dev, max_err, smi)
+
+    phase(f"27 the entry points with only the card machine's packages, in "
+          f"a child that cannot import {', '.join(INSTALLED_BLOCKED)}: (a) "
+          f"run_pipeline --split test on column/symnet.yml's full test split"
+          f" and its dataset cache, (b) the run_sample CLI on Liquid3d, "
+          f"{LIQUID_HORIZON} frames, (c) the canyon file (run before phase "
+          f"19)")
+    installed.update(installed_run(root, installed_tmp.name,
+                                   "column,liquid"))
+    installed_tmp.cleanup()
+    for half in (False, True):
+        max_err[half] = max(max_err[half],
+                            installed["column"]["max_abs_err"][int(half)])
+    liquid200 = installed["liquid"]
+    want = [liquid200["steps"] * x for x in reference["step"]]
+    print(f"  (b) launches {liquid200['launches']}: {liquid200['steps']} "
+          f"steps x phase 23 (c)'s step {reference['step']} = {want}")
+    check(liquid200["launches"] == want,
+          f"run_sample CLI launches {liquid200['launches']} vs {want}")
 
     pallas = "dmcf_tpu/experimental/pallas_cconv.py:136 " \
         "(pallas_continuous_conv)"
@@ -4643,6 +5031,9 @@ def main(argv):
             "path_b_launches": path_b["launches"][int(half)],
             "reference_ckpt_launches_per_step": reference["step"][int(half)],
             "reference_ckpt_launches": reference["launches"][int(half)],
+            "test_split_launches":
+                installed["column"]["launches"][int(half)],
+            "run_sample_cli_launches": liquid200["launches"][int(half)],
             "multi_rank_launches": {k: v[int(half)]
                                     for k, v in multi["paths"].items()},
             "sharded_launches": {k: v[int(half)]
@@ -4708,6 +5099,8 @@ def main(argv):
         "replaces": "none (no TPU kernel): dmcf_tpu/data/generators.py:118 "
                     "_column_solve_jax (XLA, pinned to the CPU)",
         "launches": column_cfgs["column_launches"],
+        "test_split_launches": installed["column"]["column_launches"],
+        "cache_read_launches": installed["column"]["cache_column_launches"],
         "max_abs_err": column["max_abs_err"],
         "ms": column["ms"],
         "plain_ms": column["plain_ms"],
@@ -4880,6 +5273,17 @@ def main(argv):
               f"{k} {v['pos_err']:.2e} (bitwise {v['bitwise']})"
               for k, v in sharded["figures"].items())
           + f"; phase {sharded['seconds']:.1f} s")
+    col = installed["column"]
+    print(f"entry points as installed ({smi}): column test split "
+          f"{col['ms_per_step']:.3f} ms/step, device ms a step (scene: ms, "
+          f"busy, kernels) {col['device']}, run {col['seconds']:.2f} s, "
+          f"cache read {col['cache_read_s']:.2f} s; run_sample CLI Liquid3d "
+          f"{liquid200['steps']} steps {liquid200['ms_per_step']:.3f} "
+          f"ms/step, exact {liquid200['exact']} (first broken step "
+          f"{liquid200['first_broken_step']}); canyon file "
+          f"{installed['canyon']['bytes']} bytes, written "
+          f"{installed['canyon']['write_s']:.2f} s, read "
+          f"{installed['canyon']['read_s']:.3f} s")
     print(f"rollout: bf16 trunk {ms_step:.3f} ms/step ({steps} steps), "
           f"fp32 {1e3 * dt32 / FP32_STEPS:.3f} ms/step ({FP32_STEPS} "
           f"steps)")

@@ -15,7 +15,9 @@ config's, "default", a bf16 trunk) and the voxel pyramid's fit
 the exactness gate fails (a conv dropped an in-radius neighbour somewhere
 in the rollout); as in the root bench, that gate alone decides.
 
-``--canyon`` names a canyon scene (msgpack.zst; frame 0 is read): the
+``--canyon`` names a canyon scene (msgpack.zst, ``read_canyon``: frame
+0, read through ``libzstd.so.1``; ``python -m dmcf_tpu_torch.scene``
+writes one): the
 root bench's canyon protocol (``bench_canyon``: ``configs/Liquid3d.yml``
 with ``CANYON_OVERRIDES`` and a contact crop of 8192, velocity boost
 [2, 0, -1.2], a warm-up rollout and a timed one of 5 steps each)
@@ -135,6 +137,14 @@ def bench_canyon(frame0, steps=5, crop=8192, device="cuda", model=None):
     }
 
 
+def read_canyon(path):
+    """Frame 0 of the canyon scene file ``path`` (msgpack.zst), as
+    ``--canyon`` reads it."""
+    from .data import read_msgpack_zst
+
+    return read_msgpack_zst(path)[0]
+
+
 def canyon_exact(canyon):
     """The canyon protocol's part of the bench's gate (root
     ``bench.py:308-315``)."""
@@ -226,8 +236,7 @@ def main(argv):
         else 2304
     canyon = None
     if "--canyon" in argv:
-        from .data import read_msgpack_zst
-        canyon = read_msgpack_zst(argv[argv.index("--canyon") + 1])[0]
+        canyon = read_canyon(argv[argv.index("--canyon") + 1])
     result = run(device, steps, n_fluid, canyon=canyon)
     print(json.dumps(result), flush=True)
     d = result["detail"]

@@ -5,7 +5,7 @@ from .dataset import (Dataset, DatasetGroup, read_msgpack_zst,
                       write_msgpack_zst)
 from .generators import (SPH1D, gen_column_data, gen_free_fall_data,
                          gen_momentum_data)
-from .writers import write_results
+from .writers import read_results, write_results
 
 __all__ = [
     "Dataset",
@@ -23,5 +23,6 @@ __all__ = [
     "get_normalization_stats",
     "get_rollout",
     "pad_rollout_state",
+    "read_results",
     "write_results",
 ]

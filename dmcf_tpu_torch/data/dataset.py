@@ -4,11 +4,12 @@ key ``dict_hash``, same seeding).
 
 A dataset is a directory of ``*.msgpack.zst`` files (one compressed list of
 frame dicts per scene) or an in-memory list made by a generator, cached to
-zstd-msgpack under the md5 of the generator config.  ``msgpack`` and
-``zstandard`` are imported where a file is read or written, so generating
-and holding scenes in memory needs neither; nor does reading a scene file
-under ``DMCF_NATIVE_LOADER=1``, which goes through the native loader
-(``native_loader``: C++ and ``libzstd.so.1``).
+zstd-msgpack under the md5 of the generator config.  A file is read and
+written through ``msgpack`` and the system's ``libzstd.so.1`` (``zstd``:
+ctypes, no Python ``zstandard``); ``msgpack`` is imported where a file is
+read or written.  Under ``DMCF_NATIVE_LOADER=1`` a scene file is read by
+the native loader instead (``native_loader``: C++ and ``libzstd.so.1``),
+which gives the same frames.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from glob import glob
 
 import numpy as np
 
-from . import generators
+from . import generators, zstd
 
 
 def _mp_encode(obj):
@@ -64,20 +65,17 @@ def dict_hash(d) -> str:
 
 def read_msgpack_zst(path):
     import msgpack
-    import zstandard
 
     with open(path, "rb") as f:
-        return msgpack.unpackb(
-            zstandard.ZstdDecompressor().decompress(f.read()), raw=False,
-            object_hook=_mp_decode)
+        return msgpack.unpackb(zstd.decompress(f.read()), raw=False,
+                               object_hook=_mp_decode)
 
 
 def write_msgpack_zst(path, data, level=22):
     import msgpack
-    import zstandard
 
-    payload = zstandard.ZstdCompressor(level=level).compress(
-        msgpack.packb(data, use_bin_type=True, default=_mp_encode))
+    payload = zstd.compress(
+        msgpack.packb(data, use_bin_type=True, default=_mp_encode), level)
     with open(path, "wb") as f:
         f.write(payload)
 
@@ -119,9 +117,9 @@ class DatasetGroup:
     Generator mode: ``type`` (column | free_fall | momentum) + per-split
     configs; each split is generated under its seed (the global
     ``np.random`` seeded first, as the JAX package does) and cached in
-    ``<cache_dir>/<md5(cfg)>``.  ``cache_dir=None`` (on the command line
-    ``--dataset.cache_dir none``) generates the same data with no cache
-    file, so no ``zstandard`` is needed.  ``device`` goes to every
+    ``<cache_dir>/<md5(cfg)>`` (written and read through ``libzstd.so.1``).
+    ``cache_dir=None`` (on the command line ``--dataset.cache_dir none``)
+    generates the same data with no cache file.  ``device`` goes to every
     generator: the column generator solves there
     (``generators.gen_column_data``: the CUDA kernel, or the plain version
     on the CPU), the others make their data with numpy and ignore it; it

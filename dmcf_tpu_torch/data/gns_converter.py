@@ -13,8 +13,8 @@ Usage:
         --data_path datasets/WaterRamps --out_path datasets/WaterRamps \
         --split train
 
-The scene files are written by the port's ``write_msgpack_zst``, so the
-converter runs where Python's ``zstandard`` is.
+The scene files are written by the port's ``write_msgpack_zst``
+(``msgpack`` and the system's ``libzstd.so.1``).
 """
 
 from __future__ import annotations

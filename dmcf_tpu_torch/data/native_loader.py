@@ -24,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
+from . import zstd
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "native" / "scene_loader.cpp"
 BUILD_DIR = _PKG / "_build"
@@ -80,6 +82,7 @@ def load_library():
     if _lib is not None:
         return _lib
     build()
+    zstd.load_library()      # resident with its own bindings first
     try:
         lib = ctypes.CDLL(str(target()))
     except OSError as e:

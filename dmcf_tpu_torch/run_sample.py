@@ -29,8 +29,9 @@ crop's capacity and each pyramid scale's largest count against its
 capacity.
 
 ``run_sample`` is the in-memory part (a built model and frame 0 in, frames
-and report out): the GPU machine has neither ``zstandard`` nor ``h5py``,
-so scripts there call it directly.  ``--tf_ckpt`` loads a reference
+and report out).  The scene is read through ``libzstd.so.1`` and the
+frames written by ``data/hdf5.py``, so neither ``zstandard`` nor ``h5py``
+is needed.  ``--tf_ckpt`` loads a reference
 TensorFlow checkpoint (``utils/tf_ckpt.py``, read without TensorFlow) and
 takes precedence over ``--ckpt_path``, as in the root script.
 

@@ -128,7 +128,8 @@ def canyon_frame(block=(16, 5, 16), floor=396, wall_rows=30, height=0.0):
 def main(argv):
     """``python -m dmcf_tpu_torch.scene OUT.msgpack.zst [--block X Y Z]
     [--floor N]``: write ``canyon_frame``'s scene as a one-frame
-    msgpack.zst scene (needs ``zstandard``)."""
+    msgpack.zst scene (``data.write_msgpack_zst``: ``msgpack`` and the
+    system's ``libzstd.so.1``)."""
     from .data import write_msgpack_zst
 
     kw = {}

@@ -2,9 +2,11 @@
 against the JAX package's, on the CPU, on the synthetic tfrecords of
 ``tests/test_gns_converter.py``: the codec (the port's encoder against
 the JAX package's parser and the other way round), the boundary helpers,
-``convert`` (the same scene files, array for array and byte for byte) and
-the CLI (``python -m dmcf_tpu_torch.data.gns_converter``).  The port's
-``write_tfrecord`` frames each record with masked CRC32C values, which
+``convert`` (the same scene files, array for array, their msgpack
+payloads byte for byte: the port compresses with the system's libzstd,
+the JAX package with python-zstandard's own, so the compressed bytes may
+differ) and the CLI (``python -m dmcf_tpu_torch.data.gns_converter``).
+The port's ``write_tfrecord`` frames each record with masked CRC32C values, which
 ``utils.tb_writer.read_records`` verifies.
 """
 
@@ -19,7 +21,7 @@ import torch
 
 from dmcf_tpu.data import gns_converter as jgns
 from dmcf_tpu_torch.data import gns_converter as tgns
-from dmcf_tpu_torch.data import read_msgpack_zst
+from dmcf_tpu_torch.data import read_msgpack_zst, zstd
 from dmcf_tpu_torch.utils.tb_writer import read_records
 from test_gns_converter import make_sequence_example, write_tfrecord
 
@@ -95,7 +97,7 @@ def same_scene_files(got_dir, want_dir):
                 np.testing.assert_array_equal(fg[k], fw[k])
         with open(os.path.join(got_dir, name), "rb") as a, \
                 open(os.path.join(want_dir, name), "rb") as b:
-            assert a.read() == b.read()
+            assert zstd.decompress(a.read()) == zstd.decompress(b.read())
     return names
 
 
